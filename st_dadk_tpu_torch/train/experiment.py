@@ -1,0 +1,309 @@
+"""Single-experiment runner: data -> masks -> GMM init -> fit -> eval
+(port of `st_dadk_tpu/train/experiment.py` for multi-quantile and mean fits).
+
+Seeding matches the JAX package: experiment seed = base_seed + id - 1; the
+observation mask draws with that seed and the train/valid split with seed +
+10000, so the masks are identical. Writes `results.json` (the JAX keys plus
+the fit's step count, validation chunks and per-epoch center shift) and
+`training_history.csv`; with `save_artifacts`, also model_{final,best}.npz,
+predictions.npz and basis_info.npz. No plots yet.
+"""
+from __future__ import annotations
+
+import copy
+import csv
+import time
+from datetime import datetime
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from st_dadk_tpu_torch.config import ExperimentConfig
+from st_dadk_tpu_torch.dataio.arrays import (PointSet, dense_grid_points,
+                                             pointset_from_mask)
+from st_dadk_tpu_torch.dataio.kaust import load_kaust_csv_single
+from st_dadk_tpu_torch.dataio.obs_design import (sample_observations,
+                                                 spatial_obs_probs,
+                                                 split_train_valid)
+from st_dadk_tpu_torch.models.st_interp import (ModelSpec, STInterp,
+                                                count_parameters, init_model,
+                                                load_jax_params,
+                                                spec_from_config)
+from st_dadk_tpu_torch.ops.init_centers import (DATA_ADAPTIVE_INIT_METHODS,
+                                                init_spatial_centers)
+from st_dadk_tpu_torch.ops.losses import (check_loss_np,
+                                          compute_crps_multi_quantile)
+from st_dadk_tpu_torch.train.loop import (FitResult, adaptive_batch_size, fit,
+                                          predict)
+from st_dadk_tpu_torch.utils.io import save_json
+
+
+def _flatten_params(params: Dict[str, Any], prefix: str = ""
+                    ) -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in params.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten_params(v, name + "."))
+        else:
+            out[name] = np.asarray(v)
+    return out
+
+
+def save_params_npz(params: Dict[str, Any], path: Path) -> None:
+    np.savez(path, **_flatten_params(params))
+
+
+def load_params_npz(path: Path) -> Dict[str, Any]:
+    flat = np.load(path)
+    params: Dict[str, Any] = {}
+    for name in flat.files:
+        parts = name.split(".")
+        node = params
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = flat[name]
+    return params
+
+
+def metrics_from_preds(cfg: ExperimentConfig, preds: np.ndarray,
+                       trues: np.ndarray) -> Dict[str, float]:
+    """RMSE/MAE/MSE of the median quantile (or the mean head), plus CRPS and
+    check losses for multi-quantile fits."""
+    if cfg.regression_type == "multi-quantile":
+        mid = len(cfg.quantile_levels) // 2
+        preds_m = preds[:, mid:mid + 1]
+    else:
+        preds_m = preds
+    mse = float(np.mean((preds_m - trues) ** 2))
+    metrics = {"mse": mse, "mae": float(np.mean(np.abs(preds_m - trues))),
+               "rmse": float(np.sqrt(mse))}
+    if cfg.regression_type == "multi-quantile":
+        metrics["crps"] = float(compute_crps_multi_quantile(
+            preds, trues, cfg.quantile_levels))
+        checks = [check_loss_np(preds[:, i], trues.ravel(), q)
+                  for i, q in enumerate(cfg.quantile_levels)]
+        metrics["mean_check_loss"] = float(np.mean(checks))
+        metrics["check_loss"] = float(np.mean(checks))
+    return metrics
+
+
+def evaluate_pointset(cfg: ExperimentConfig, model: STInterp, ps: PointSet,
+                      chunk: int = 32768
+                      ) -> Tuple[Dict[str, float], np.ndarray]:
+    preds = predict(model, ps.coords, ps.t, chunk)
+    return metrics_from_preds(cfg, preds, ps.y), preds
+
+
+class ExperimentSetup:
+    """Data, masks, point sets and the initialised model of one fit."""
+
+    def __init__(self, cfg: ExperimentConfig, experiment_id: int,
+                 device: torch.device | str, verbose: bool = False,
+                 defer_model: bool = False):
+        t0 = time.perf_counter()
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.experiment_id = experiment_id
+        self.experiment_seed = cfg.base_seed + experiment_id - 1
+
+        self.z_full, self.coords, self.metadata = load_kaust_csv_single(
+            cfg.resolve_data_file(), normalize=cfg.normalize_target,
+            verbose=verbose)
+        self.T, self.S = self.z_full.shape
+        obs_weights = spatial_obs_probs(self.coords, cfg.obs_spatial_pattern,
+                                        cfg.obs_spatial_intensity)
+        self.obs_mask, obs_sites = sample_observations(
+            self.z_full, self.coords, cfg.obs_method, cfg.obs_ratio,
+            obs_weights, seed=self.experiment_seed)
+        # the split's stream continues into the init subsample, as the
+        # reference's global numpy stream does
+        self.np_rng = np.random.RandomState(self.experiment_seed + 10000)
+        self.train_mask, self.valid_mask = split_train_valid(
+            self.obs_mask, obs_sites, cfg.split_method, cfg.train_ratio,
+            rng=self.np_rng)
+        self.test_mask = ~self.obs_mask
+        self.train_ps = pointset_from_mask(self.z_full, self.coords,
+                                           self.train_mask)
+        self.valid_ps = pointset_from_mask(self.z_full, self.coords,
+                                           self.valid_mask)
+        self.test_ps = pointset_from_mask(self.z_full, self.coords,
+                                          self.test_mask)
+        self.spec: ModelSpec = spec_from_config(cfg)
+        self.model: Optional[STInterp] = None
+        self.timings = {"data_seconds": time.perf_counter() - t0}
+        if not defer_model:
+            t1 = time.perf_counter()
+            train_coords = (self.train_ps.coords
+                            if cfg.spatial_init_method in
+                            DATA_ADAPTIVE_INIT_METHODS else None)
+            gen = torch.Generator(device=self.device).manual_seed(
+                self.experiment_seed)
+            centers, bandwidths = init_spatial_centers(
+                cfg.spatial_init_method, cfg.k_spatial_centers, train_coords,
+                generator=gen, device=self.device, rng=self.np_rng,
+                subsample=cfg.extra.get("init_subsample"),
+                gmm_n_init=cfg.extra.get("init_gmm_n_init"))
+            self.timings["init_seconds"] = time.perf_counter() - t1
+            self.finish_model(centers, bandwidths)
+
+    def finish_model(self, centers: np.ndarray, bandwidths: np.ndarray) -> None:
+        gen = torch.Generator().manual_seed(self.experiment_seed)
+        self.model = init_model(gen, self.spec, centers, bandwidths,
+                                device=self.device)
+
+
+def run_single_experiment(config: ExperimentConfig | Dict[str, Any],
+                          experiment_id: int, output_dir: Path,
+                          device: Optional[torch.device | str] = None,
+                          verbose: bool = True,
+                          write_artifacts: bool = True) -> Dict[str, Any]:
+    """One fit end to end on `device` (default: the config's), for
+    multi-quantile and mean regressions."""
+    cfg = (config if isinstance(config, ExperimentConfig)
+           else ExperimentConfig.from_dict(config))
+    if cfg.regression_type not in ("multi-quantile", "mean"):
+        raise NotImplementedError(
+            f"regression_type {cfg.regression_type!r} is not ported yet")
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    return _run_one_fit(cfg, experiment_id, output_dir,
+                        torch.device(device or cfg.device), verbose,
+                        write_artifacts)
+
+
+def _run_one_fit(cfg: ExperimentConfig, experiment_id: int, output_dir: Path,
+                 device: torch.device, verbose: bool,
+                 write_artifacts: bool) -> Dict[str, Any]:
+    start = time.time()
+    setup = ExperimentSetup(cfg, experiment_id, device, verbose)
+    t_setup = time.time() - start
+    if verbose:
+        print(f"[EXP {experiment_id}] seed={setup.experiment_seed} "
+              f"data={cfg.data_file} type={cfg.regression_type} "
+              f"train/valid/test: {setup.train_ps.n_real}/"
+              f"{setup.valid_ps.n_real}/{setup.test_ps.n_real}", flush=True)
+    t0 = time.time()
+    result = fit(cfg, setup.spec, setup.model, setup.train_ps, setup.valid_ps,
+                 seed=setup.experiment_seed, verbose=verbose)
+    t_train = time.time() - t0
+    return finalize_experiment(
+        cfg, setup, result, output_dir, time.time() - start, verbose=verbose,
+        stage_timings={"setup_seconds": t_setup, **setup.timings,
+                       "train_seconds": t_train, **result.timings},
+        write_artifacts=write_artifacts)
+
+
+def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
+                        result: FitResult, output_dir: Path,
+                        total_time: float, verbose: bool = False,
+                        stage_timings: Optional[Dict[str, float]] = None,
+                        write_artifacts: bool = True) -> Dict[str, Any]:
+    """Evaluate the serving params on the three splits and write the
+    results contract."""
+    t_eval = time.time()
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    serving = copy.deepcopy(setup.model)
+    load_jax_params(serving, result.params)
+    chunk = int(cfg.eval_chunk)
+
+    train_metrics, _ = evaluate_pointset(cfg, serving, setup.train_ps, chunk)
+    val_metrics, _ = evaluate_pointset(cfg, serving, setup.valid_ps, chunk)
+    test_metrics, _ = evaluate_pointset(cfg, serving, setup.test_ps, chunk)
+    if verbose:
+        print(f"  test: {test_metrics}", flush=True)
+
+    history = {k: result.history[k].tolist()
+               for k in ("train_loss", "val_loss", "val_rmse", "lr")}
+    config_with_dir = cfg.to_dict()
+    config_with_dir["output_dir"] = str(output_dir)
+    results: Dict[str, Any] = {
+        "experiment_id": setup.experiment_id,
+        "experiment_seed": setup.experiment_seed,
+        "config": config_with_dir,
+        "metrics": {"train": train_metrics, "valid": val_metrics,
+                    "test": test_metrics},
+        "training_history": history,
+        "total_time_seconds": total_time,
+        "total_time_formatted": (f"{int(total_time // 3600):02d}:"
+                                 f"{int((total_time % 3600) // 60):02d}:"
+                                 f"{int(total_time % 60):02d}"),
+        "model_parameters": count_parameters(setup.model),
+        "timestamp": datetime.now().strftime("%Y-%m-%d %H:%M:%S"),
+        "n_epochs_run": result.n_epochs_run,
+        "stage_timings": dict(stage_timings or {}),
+        "device": str(setup.device),
+        "n_steps": result.n_steps,
+        "n_val_chunks": result.n_val_chunks,
+        "n_points": {"train": setup.train_ps.n_real,
+                     "valid": setup.valid_ps.n_real,
+                     "test": setup.test_ps.n_real,
+                     "dense": (setup.T * setup.S if cfg.save_artifacts
+                               and write_artifacts else 0)},
+        "basis_center_shift": result.center_shift.tolist(),
+    }
+    results["stage_timings"]["eval_seconds"] = time.time() - t_eval
+    train_s = results["stage_timings"].get("train_seconds")
+    if train_s:
+        bs = adaptive_batch_size(setup.train_ps.n_real, cfg.batch_size)
+        steps_per_epoch = max(1, -(-setup.train_ps.n_real // bs))
+        results["steps_per_second"] = (result.n_epochs_run * steps_per_epoch
+                                       / train_s)
+    for split, m in (("train", train_metrics), ("valid", val_metrics),
+                     ("test", test_metrics)):
+        results[f"{split}_mse"] = m["mse"]
+        results[f"{split}_mae"] = m["mae"]
+        results[f"{split}_rmse"] = m["rmse"]
+    if cfg.regression_type == "multi-quantile":
+        results["regression_type"] = "multi-quantile"
+        results["quantile_levels"] = list(cfg.quantile_levels)
+        for split, m in (("train", train_metrics), ("valid", val_metrics),
+                         ("test", test_metrics)):
+            results[f"{split}_crps"] = m["crps"]
+            results[f"{split}_check_loss"] = m["mean_check_loss"]
+
+    if write_artifacts:
+        save_json(results, output_dir / "results.json")
+        with open(output_dir / "training_history.csv", "w", newline="",
+                  encoding="utf-8") as f:
+            wr = csv.writer(f)
+            wr.writerow(["epoch", "train_loss", "val_loss", "val_rmse", "lr"])
+            for i in range(len(history["train_loss"])):
+                wr.writerow([i + 1, history["train_loss"][i],
+                             history["val_loss"][i], history["val_rmse"][i],
+                             history["lr"][i]])
+    if cfg.save_artifacts and write_artifacts:
+        save_params_npz(result.params, output_dir / "model_final.npz")
+        save_params_npz(result.params, output_dir / "model_best.npz")
+        coords_rep, t_rep = dense_grid_points(setup.T, setup.coords)
+        dense = predict(serving, coords_rep, t_rep, chunk)
+        col = (len(cfg.quantile_levels) // 2
+               if cfg.regression_type == "multi-quantile" else 0)
+        np.savez(output_dir / "predictions.npz",
+                 predictions=dense[:, col].reshape(setup.T, setup.S),
+                 true=setup.z_full, coords=setup.coords,
+                 train_mask=setup.train_mask, valid_mask=setup.valid_mask,
+                 test_mask=setup.test_mask)
+        m = setup.model
+        init_c = m.spatial_centers_init.cpu().numpy()
+        init_bw = m.spatial_bandwidths_init.cpu().numpy()
+        if setup.spec.spatial_learnable:
+            final_c = np.asarray(result.params["basis"]["centers"])
+            final_bw = np.exp(np.asarray(result.params["basis"]["log_bandwidths"]))
+        else:
+            final_c, final_bw = init_c, init_bw
+        np.savez(output_dir / "basis_info.npz",
+                 spatial_centers_init=init_c, spatial_centers_final=final_c,
+                 spatial_bandwidths_init=init_bw,
+                 spatial_bandwidths_final=final_bw,
+                 temporal_centers_init=m.temporal_centers.cpu().numpy(),
+                 temporal_centers_final=m.temporal_centers.cpu().numpy(),
+                 temporal_bandwidths_init=m.temporal_bandwidths.cpu().numpy(),
+                 temporal_bandwidths_final=m.temporal_bandwidths.cpu().numpy())
+    if verbose:
+        print(f"[EXP {setup.experiment_id}] done in "
+              f"{results['total_time_formatted']} -> {output_dir}", flush=True)
+    return results

@@ -1,0 +1,420 @@
+"""The training loop (port of `st_dadk_tpu/train/loop.py`, single fit).
+
+The JAX package compiles the whole fit into one scanned program; here it is
+an eager loop over epochs and minibatches with the same semantics:
+
+  - per-epoch shuffle of the padded training buffer (cap = B * batch points,
+    padding weight 0), B = ceil(n/batch) steps, ragged last batch weighted;
+  - AdamW with per-step LRs for the MLP and basis groups read from the LR
+    tables; center-gradient damping, then per-group clipping (basis 0.1x);
+  - EMA after every step, decay 1 - 1/(10 B); validation on the EMA weights
+    in chunks of min(max(16 batch, 32768), n_valid);
+  - best-EMA checkpoint, early stopping (patience, optional plateau margin);
+  - a NaN loss poisons its step (the update still applies, as in the
+    reference) and skips the rest of the epoch.
+
+Shuffle: `extra['shuffle'] == 'none'` keeps the identity order (for parity
+tests); anything else draws `torch.randperm` from the fit's generator. The
+JAX hash/sort permutations and RNG streams do not cross frameworks, so the
+two packages agree on batch order only under 'none', and on dropout masks
+only at dropout 0.
+"""
+from __future__ import annotations
+
+import copy
+import math
+import time
+from dataclasses import dataclass
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from st_dadk_tpu_torch.config import ExperimentConfig
+from st_dadk_tpu_torch.dataio.arrays import PointSet, pad_pointset
+from st_dadk_tpu_torch.models.st_interp import ModelSpec, STInterp, to_jax_params
+from st_dadk_tpu_torch.ops.losses import (mse_loss, multi_quantile_loss,
+                                          non_crossing_penalty,
+                                          p_nc_delta_penalty)
+from st_dadk_tpu_torch.train.optimizer import (AdamW, build_lr_tables,
+                                               clip_by_global_norm_,
+                                               ema_update, gradient_damping)
+
+
+@dataclass(frozen=True)
+class LoopSpec:
+    """Training-loop configuration."""
+    model: ModelSpec
+    regression_type: str = "mean"
+    quantile_levels: Tuple[float, ...] = (0.1, 0.5, 0.9)
+    non_crossing_weight: float = 0.0
+    non_crossing_power: int = 1
+    non_crossing_lambda: float = 0.0
+    non_crossing_delta_mode: str = "eq310"
+    domain_penalty_weight: float = 0.0
+    movement_penalty_weight: float = 0.0
+    sparsity_penalty_type: str = "none"
+    sparsity_lambda_l1: float = 0.001
+    sparsity_lambda_group: float = 0.01
+    sparsity_apply_to_spatial: bool = True
+    sparsity_apply_to_temporal: bool = True
+    gradient_damping: bool = False
+    damping_threshold: float = 0.3
+    damping_strength: float = 1.0
+    grad_clip: float = 0.0
+    weight_decay: float = 1e-5
+    batch_size: int = 256
+    n_batches: int = 1
+    epochs: int = 100
+    patience: int = 15
+    min_rel_delta: float = 0.0
+    val_chunk: int = 32768
+    n_val_chunks: int = 1
+    record_centers: bool = False
+    shuffle: str = "auto"
+
+    @classmethod
+    def from_config(cls, cfg: ExperimentConfig, model: ModelSpec,
+                    batch_size: int, n_batches: int, val_chunk: int,
+                    n_val_chunks: int) -> "LoopSpec":
+        return cls(
+            model=model,
+            regression_type=cfg.regression_type,
+            quantile_levels=tuple(cfg.quantile_levels),
+            non_crossing_weight=cfg.non_crossing_weight,
+            non_crossing_power=cfg.non_crossing_power,
+            non_crossing_lambda=cfg.non_crossing_lambda,
+            non_crossing_delta_mode=cfg.non_crossing_delta_mode,
+            domain_penalty_weight=cfg.domain_penalty_weight,
+            movement_penalty_weight=cfg.movement_penalty_weight,
+            sparsity_penalty_type=cfg.sparsity_penalty_type,
+            sparsity_lambda_l1=cfg.sparsity_lambda_l1,
+            sparsity_lambda_group=cfg.sparsity_lambda_group,
+            sparsity_apply_to_spatial=cfg.sparsity_apply_to_spatial,
+            sparsity_apply_to_temporal=cfg.sparsity_apply_to_temporal,
+            gradient_damping=cfg.gradient_damping,
+            damping_threshold=cfg.damping_threshold,
+            damping_strength=cfg.damping_strength,
+            grad_clip=cfg.grad_clip,
+            weight_decay=cfg.weight_decay,
+            batch_size=batch_size,
+            n_batches=n_batches,
+            epochs=cfg.epochs,
+            patience=cfg.patience,
+            min_rel_delta=cfg.early_stop_min_rel_delta,
+            val_chunk=val_chunk,
+            n_val_chunks=n_val_chunks,
+            record_centers=cfg.spatial_learnable,
+            shuffle=str(cfg.extra.get("shuffle", "auto")),
+        )
+
+
+class TrainData(NamedTuple):
+    """Padded training and validation buffers on the fit's device."""
+    tr_coords: torch.Tensor   # (cap_tr, 2)
+    tr_t: torch.Tensor        # (cap_tr, 1)
+    tr_y: torch.Tensor        # (cap_tr, 1)
+    tr_w: torch.Tensor        # (cap_tr,)
+    va_coords: torch.Tensor   # (cap_va, 2)
+    va_t: torch.Tensor
+    va_y: torch.Tensor
+    va_w: torch.Tensor
+    ema_decay: float
+
+
+# ---------------------------------------------------------------------------
+# Loss assembly
+# ---------------------------------------------------------------------------
+
+def training_loss(spec: LoopSpec, model: STInterp, coords: torch.Tensor,
+                  t: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                  train: bool, generator: Optional[torch.Generator]
+                  ) -> torch.Tensor:
+    """Composite objective: main loss plus the enabled penalties."""
+    preds = model(coords, t, train=train, generator=generator)
+    return loss_from_preds(spec, model, preds, y, w, train)
+
+
+def loss_from_preds(spec: LoopSpec, model: STInterp, preds: torch.Tensor,
+                    y: torch.Tensor, w: torch.Tensor, train: bool
+                    ) -> torch.Tensor:
+    m = spec.model
+    if spec.regression_type == "mean":
+        loss = mse_loss(preds, y, w)
+    elif spec.regression_type == "multi-quantile":
+        q = torch.tensor(spec.quantile_levels, dtype=torch.float32,
+                         device=preds.device)
+        loss = multi_quantile_loss(preds, y, q, w)
+        if m.use_delta_reparameterization and m.delta_head:
+            if spec.non_crossing_lambda > 0:
+                p_nc = p_nc_delta_penalty(model.mlp.delta)
+                if spec.non_crossing_delta_mode == "abs":
+                    p_nc = -p_nc
+                loss = loss + spec.non_crossing_lambda * p_nc
+        elif spec.non_crossing_weight > 0:
+            loss = loss + spec.non_crossing_weight * non_crossing_penalty(
+                preds, "mean", spec.non_crossing_power, weights=w)
+    else:
+        raise ValueError(f"Unknown regression_type: {spec.regression_type}")
+
+    if train:
+        if m.spatial_learnable:
+            if spec.domain_penalty_weight > 0:
+                loss = loss + spec.domain_penalty_weight * model.domain_penalty()
+            if spec.movement_penalty_weight > 0:
+                loss = loss + (spec.movement_penalty_weight
+                               * model.movement_penalty())
+        if spec.sparsity_penalty_type != "none":
+            pen = model.sparsity_penalty(spec.sparsity_penalty_type,
+                                         spec.sparsity_lambda_l1,
+                                         spec.sparsity_lambda_group)
+            if spec.sparsity_apply_to_spatial:
+                loss = loss + pen["spatial_penalty"]
+            if spec.sparsity_apply_to_temporal:
+                loss = loss + pen["temporal_penalty"]
+    return loss
+
+
+def _transform_grads(spec: LoopSpec, model: STInterp) -> None:
+    """In place on `.grad`: damping on centers, then per-group clipping."""
+    m = spec.model
+    if m.spatial_learnable and spec.gradient_damping:
+        c = model.basis.centers
+        c.grad = gradient_damping(c.grad, c, model.spatial_centers_init,
+                                  spec.damping_threshold, spec.damping_strength)
+    if spec.grad_clip > 0:
+        mlp = [p.grad for p in model.mlp.parameters()]
+        if m.spatial_learnable:
+            clip_by_global_norm_([p.grad for p in model.basis.parameters()],
+                                 spec.grad_clip * 0.1)
+            clip_by_global_norm_(mlp, spec.grad_clip)
+        else:
+            clip_by_global_norm_(mlp, spec.grad_clip)
+
+
+# ---------------------------------------------------------------------------
+# Validation (EMA weights, dropout off)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def _validate(spec: LoopSpec, ema: STInterp, data: TrainData
+              ) -> Tuple[float, float]:
+    """(val_loss, val_rmse): the mean of per-chunk mean losses over chunks
+    holding real points, and the RMSE of the median-quantile predictions."""
+    C = spec.val_chunk
+    losses, valid, se, cnt = [], [], [], []
+    for i in range(spec.n_val_chunks):
+        sl = slice(i * C, (i + 1) * C)
+        ck, tk, yk, wk = (data.va_coords[sl], data.va_t[sl], data.va_y[sl],
+                          data.va_w[sl])
+        preds = ema(ck, tk, train=False)
+        loss = loss_from_preds(spec, ema, preds, yk, wk, train=False)
+        if spec.regression_type == "multi-quantile":
+            mid = len(spec.quantile_levels) // 2
+            preds = preds[:, mid:mid + 1]
+        n_real = torch.sum(wk)
+        has_real = (n_real > 0).float()
+        losses.append(loss * has_real)
+        valid.append(has_real)
+        se.append(torch.sum((preds - yk) ** 2 * wk[:, None]))
+        cnt.append(n_real)
+    val_loss = torch.stack(losses).sum() / torch.clamp(torch.stack(valid).sum(),
+                                                       min=1.0)
+    val_rmse = torch.sqrt(torch.stack(se).sum()
+                          / torch.clamp(torch.stack(cnt).sum(), min=1.0))
+    return float(val_loss), float(val_rmse)
+
+
+# ---------------------------------------------------------------------------
+# Host-side orchestration
+# ---------------------------------------------------------------------------
+
+class FitResult(NamedTuple):
+    params: Dict               # serving params (best EMA, else final EMA), JAX layout
+    history: Dict[str, np.ndarray]
+    best_val: float
+    n_epochs_run: int
+    stopped_early: bool
+    center_shift: np.ndarray   # per epoch: max |centers - centers_init|
+    n_steps: int
+    n_val_chunks: int          # validation forwards per epoch
+    timings: Dict[str, float]
+
+
+def adaptive_batch_size(n_train: int, batch_size: int,
+                        min_batches: int = 10) -> int:
+    """Halve the batch until there are >= min_batches batches per epoch."""
+    while n_train / batch_size < min_batches and batch_size > 1:
+        batch_size //= 2
+    return batch_size
+
+
+def prepare_train_data(train_ps: PointSet, valid_ps: PointSet,
+                       batch_size: int, device: torch.device,
+                       val_chunk: Optional[int] = None
+                       ) -> Tuple[TrainData, int, int]:
+    """Pad the point sets and move them to `device`:
+    (TrainData, batches per epoch, validation chunk)."""
+    n_tr = train_ps.n_real
+    B = max(1, -(-n_tr // batch_size))
+    tr = pad_pointset(train_ps, B * batch_size)
+    n_va = max(1, valid_ps.n_real)
+    vchunk = val_chunk or min(max(batch_size * 16, 32768), n_va)
+    n_chunks = max(1, -(-n_va // vchunk))
+    va = pad_pointset(valid_ps, n_chunks * vchunk)
+    dev = lambda a: torch.as_tensor(a, device=device)
+    data = TrainData(
+        tr_coords=dev(tr.coords), tr_t=dev(tr.t), tr_y=dev(tr.y),
+        tr_w=dev(tr.w), va_coords=dev(va.coords), va_t=dev(va.t),
+        va_y=dev(va.y), va_w=dev(va.w),
+        ema_decay=float(np.float32(1.0 - 1.0 / (10.0 * B))))
+    return data, B, vchunk
+
+
+def epoch_batch_indices(cap: int, bs: int, B: int, shuffle: str,
+                        generator: torch.Generator,
+                        device: torch.device) -> torch.Tensor:
+    """(B, bs) point indices of one epoch."""
+    if shuffle == "none":
+        return (torch.arange(B * bs, device=device) % cap).reshape(B, bs)
+    perm = torch.randperm(cap, generator=generator, device=device)
+    return perm[:B * bs].reshape(B, bs)
+
+
+def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
+        train_ps: PointSet, valid_ps: PointSet, seed: int,
+        verbose: bool = False) -> FitResult:
+    """Train `model` in place; return the serving params and history.
+
+    The device is the model's; shuffle and dropout draw from one generator
+    on it, seeded with `seed`."""
+    device = next(model.parameters()).device
+    batch_size = adaptive_batch_size(train_ps.n_real, cfg.batch_size)
+    data, B, val_chunk = prepare_train_data(train_ps, valid_ps, batch_size,
+                                            device)
+    spec = LoopSpec.from_config(cfg, spec_model, batch_size, B, val_chunk,
+                                data.va_coords.shape[0] // val_chunk)
+    lr_mlp, lr_basis, lr_recorded = build_lr_tables(cfg, B)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+
+    params = list(model.parameters())
+    groups = {"mlp": list(model.mlp.parameters())}
+    if spec_model.spatial_learnable:
+        groups["basis"] = list(model.basis.parameters())
+    opt = AdamW(groups, spec.weight_decay)
+    ema_model = copy.deepcopy(model)
+    ema = list(ema_model.parameters())
+    best_ema = [p.detach().clone() for p in ema]
+    for p in ema:
+        p.requires_grad_(False)
+
+    best_val, sig_best = math.inf, math.inf
+    has_best, stopped, stop_epoch, patience_ctr = False, False, 0, 0
+    hist: Dict[str, List[float]] = {"train_loss": [], "val_loss": [],
+                                    "val_rmse": []}
+    center_shift: List[float] = []
+    n_steps = 0
+    t_steps = t_val = t_first = 0.0
+    cap = data.tr_coords.shape[0]
+    packed_tr = torch.cat([data.tr_coords, data.tr_t, data.tr_y,
+                           data.tr_w[:, None]], dim=1)          # (cap, 5)
+
+    for epoch in range(cfg.epochs):
+        t0 = time.perf_counter()
+        idx = epoch_batch_indices(cap, batch_size, B, spec.shuffle, gen, device)
+        batches = packed_tr[idx]                               # (B, bs, 5)
+        loss_sum, nan_epoch = 0.0, False
+        for b in range(B):
+            xb = batches[b]
+            for p in params:
+                p.grad = None
+            loss = training_loss(spec, model, xb[:, 0:2], xb[:, 2:3],
+                                 xb[:, 3:4], xb[:, 4], train=True,
+                                 generator=gen)
+            loss.backward()
+            _transform_grads(spec, model)
+            s = epoch * B + b
+            opt.step({"mlp": float(lr_mlp[s]), "basis": float(lr_basis[s])})
+            ema_update(ema, params, data.ema_decay)
+            n_steps += 1
+            lv = float(loss.detach())
+            loss_sum += lv
+            if not math.isfinite(lv):
+                nan_epoch = True
+                break
+        train_loss = math.nan if nan_epoch else loss_sum / max(B, 1)
+        t1 = time.perf_counter()
+        val_loss, val_rmse = _validate(spec, ema_model, data)
+        t_steps += t1 - t0
+        t_val += time.perf_counter() - t1
+        if epoch == 0:
+            t_first = t1 - t0      # includes the process's first launches
+
+        improved = math.isfinite(val_loss) and val_loss < best_val
+        if improved:
+            best_val, has_best = val_loss, True
+            with torch.no_grad():
+                for dst, src in zip(best_ema, ema):
+                    dst.copy_(src)
+        sig_thresh = (sig_best - spec.min_rel_delta * abs(sig_best)
+                      if math.isfinite(sig_best) else sig_best)
+        if math.isfinite(val_loss) and val_loss < sig_thresh:
+            sig_best, patience_ctr = val_loss, 0
+        else:
+            patience_ctr += 1
+        hist["train_loss"].append(train_loss)
+        hist["val_loss"].append(val_loss)
+        hist["val_rmse"].append(val_rmse)
+        if spec.record_centers:
+            with torch.no_grad():
+                c = model.basis.centers
+                center_shift.append(float(torch.max(torch.abs(
+                    c - model.spatial_centers_init))))
+        if verbose:
+            print(f"  epoch {epoch + 1:4d} train {train_loss:.6f} "
+                  f"val {val_loss:.6f} rmse {val_rmse:.6f}", flush=True)
+        if patience_ctr >= spec.patience:
+            stopped, stop_epoch = True, epoch + 1
+            if verbose:
+                print(f"Early stopping at epoch {stop_epoch}")
+            break
+
+    n_run = stop_epoch if stopped else cfg.epochs
+    history = {k: np.asarray(v[:n_run], np.float64) for k, v in hist.items()}
+    history["lr"] = lr_recorded[:n_run].copy()
+    if has_best:
+        with torch.no_grad():
+            for dst, src in zip(ema, best_ema):
+                dst.copy_(src)
+    serving = to_jax_params(ema_model)
+    return FitResult(
+        params=serving, history=history,
+        best_val=float(best_val), n_epochs_run=n_run, stopped_early=stopped,
+        center_shift=np.asarray(center_shift[:n_run]), n_steps=n_steps,
+        n_val_chunks=spec.n_val_chunks,
+        timings={"train_steps_seconds": t_steps, "validate_seconds": t_val,
+                 "first_epoch_steps_seconds": t_first})
+
+
+# ---------------------------------------------------------------------------
+# Inference
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def predict(model: STInterp, coords: np.ndarray, t: np.ndarray,
+            chunk: int = 32768) -> np.ndarray:
+    """Dense inference in chunks of `chunk` points: (n, out_dim) numpy."""
+    device = next(model.parameters()).device
+    n = coords.shape[0]
+    outs = []
+    for s in range(0, n, chunk):
+        c = torch.as_tensor(np.ascontiguousarray(coords[s:s + chunk],
+                                                 np.float32), device=device)
+        tt = torch.as_tensor(np.ascontiguousarray(
+            t[s:s + chunk].reshape(-1, 1), np.float32), device=device)
+        outs.append(model(c, tt, train=False))
+    return torch.cat(outs).cpu().numpy()
+
+
+def n_predict_chunks(n: int, chunk: int = 32768) -> int:
+    return -(-n // chunk)

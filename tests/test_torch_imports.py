@@ -1,0 +1,43 @@
+"""The port stands alone: importing every module of st_dadk_tpu_torch pulls
+in neither jax, yaml, pandas nor st_dadk_tpu (none of them exists on the
+machine with the GPU)."""
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import st_dadk_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(st_dadk_tpu_torch.__path__,
+                                               "st_dadk_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "yaml", "pandas",
+                                    "st_dadk_tpu", "triton"))
+print(json.dumps({"modules": names, "forbidden": bad}))
+"""
+
+
+def test_port_imports_no_jax_yaml_pandas_or_reference():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "st_dadk_tpu_torch.ops.fused_first_layer" in res["modules"]
+    assert "st_dadk_tpu_torch.train.experiment" in res["modules"]
+    assert res["forbidden"] == []
+
+
+def test_sources_name_no_jax_package():
+    """No module of the port imports the JAX package or jax by name."""
+    for path in (REPO / "st_dadk_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1].split(".")[0]
+                assert mod not in ("jax", "st_dadk_tpu", "pandas"), \
+                    f"{path}: {s}"
