@@ -82,10 +82,14 @@ class ExperimentConfig:
     regression_type: str = "mean"              # mean | multi-quantile
     quantile_levels: List[float] = field(default_factory=lambda: [0.1, 0.5, 0.9])
 
+    # -- kernel routes (the JAX package's opt-ins; see models/st_interp.py) -----
+    use_pallas_training: bool = False          # phi built on its own in training
+    use_fused_training: bool = False           # fused basis->layer-1 in training
+
     # -- port extras -------------------------------------------------------------
     data_root: Optional[str] = None            # prefix for relative data_file paths
     train_dtype: str = "auto"                  # the port trains in float32 only
-    k_spatial_pad: Optional[int] = None        # ragged-k lanes: not ported yet
+    k_spatial_pad: Optional[int] = None        # ragged-k lane: phi padded to this width
     save_artifacts: bool = True                # model/prediction/basis npz files
     eval_chunk: int = 32768                    # points per predict chunk
 

@@ -3,6 +3,7 @@
 //   h = phi(coords; centers, inv_bw) @ W_s          (forward)
 //   dW_s = phi^T g                                  (backward, weights)
 //   d centers, d inv_bw through gw = g @ W_s^T      (backward, learnable basis)
+//   d coords through gw = g @ W_s^T                 (backward, spatial gradient)
 //
 // phi(n, j) = basis(r), r = sqrt(max(|s_n - c_j|^2, 1e-24)) * inv_bw_j, the
 // guarded distance of the plain version (st_dadk_tpu_torch/ops/basis.py).
@@ -12,16 +13,18 @@
 // Replaces (st_dadk_tpu/ops/pallas_fused.py):
 //   fwd_kernel         <- _fused_kernel   (:48; calls :90 and :207)
 //   bwd_w_kernel       <- _bwd_w_kernel   (:129; call :241)
+//   bwd_points_kernel  <- _bwd_pts_kernel (:147; call :257)
 //   bwd_centers_kernel <- _bwd_ctr_kernel (:170; call :275)
-// and the shared device functions _phi / _dphi (pallas_basis.py:44-63).
+// The shared device functions (_phi / _dphi, pallas_basis.py:44-63) are in
+// basis_device.cuh.
 //
-// What bounds them on an H100: all three are matrix products with one
+// What bounds them on an H100: all four are matrix products with one
 // operand computed on the fly, so they are bound by float32 FFMA issue
 // (67 TFLOP/s without tensor cores), not by device memory: the forward at
 // N=32768, k=227, H=256 does 3.8 GFLOP on 35 MB of traffic. The design is a
-// plain shared-memory tiling with a register micro-tile per thread (4x4
-// outputs, float4 shared loads), which keeps the inner loop at one shared
-// load per two FFMAs. No tensor cores (TF32 would break the float32 parity
+// plain shared-memory tiling with register tiles per thread (4x4 outputs
+// with float4 shared loads in the forward and dW; 8 gw values against a
+// register slice of W in the two gw kernels). No tensor cores (TF32 would break the float32 parity
 // bars) and no atomics: every output element is owned by one block, which
 // loops over the contracted axis itself (the TPU's sequential grid axis),
 // so results are deterministic. Ragged edges are masked in the kernels:
@@ -33,43 +36,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "basis_device.cuh"
+
 namespace {
 
-__device__ __forceinline__ float basis_phi(float r, int basis) {
-  if (basis == 0) {  // Wendland C4, clamped at r = 1
-    const float rc = fminf(r, 1.0f);
-    const float om = 1.0f - rc;
-    const float om2 = om * om;
-    return om2 * om2 * om2 * (35.0f * rc * rc + 18.0f * rc + 3.0f) / 3.0f;
-  }
-  if (basis == 1) return expf(-0.5f * r * r);  // Gaussian
-  return fmaxf(1.0f - r, 0.0f);                // triangular
-}
-
-__device__ __forceinline__ float basis_dphi(float r, int basis) {
-  if (basis == 0) {
-    if (r >= 1.0f) return 0.0f;
-    const float om = 1.0f - r;
-    const float om2 = om * om;
-    return -(56.0f / 3.0f) * r * (5.0f * r + 1.0f) * om2 * om2 * om;
-  }
-  if (basis == 1) return -r * expf(-0.5f * r * r);
-  return r <= 1.0f ? -1.0f : 0.0f;  // torch's clamp passes the tie
-}
-
-// Squared distance with uncontracted IEEE operations: the same roundings as
-// the plain version's elementwise ops, so r is bitwise equal to it and the
-// triangular basis's jump in dphi at r = 1 falls on the same side.
-__device__ __forceinline__ float guarded_dist2(float px, float py, float cx,
-                                               float cy) {
-  const float dx = __fsub_rn(px, cx);
-  const float dy = __fsub_rn(py, cy);
-  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-}
-
-__device__ __forceinline__ float guarded_dist(float d2) {
-  return __fsqrt_rn(fmaxf(d2, 1e-24f));
-}
+using st_basis::basis_dphi;
+using st_basis::basis_phi;
+using st_basis::guarded_dist;
+using st_basis::guarded_dist2;
+using st_basis::spatial_coef;
 
 // ---------------------------------------------------------------------------
 // Forward: one block owns a (FWD_BN points x FWD_BH hidden) output tile and
@@ -322,9 +297,8 @@ bwd_centers_kernel(const float* __restrict__ coords,
         const float d2 = guarded_dist2(px[p], py[p], cx, cy);
         const float d = guarded_dist(d2);
         const float gphi = gw[i] * basis_dphi(__fmul_rn(d, ib), basis);
-        // d d / d c is -(s - c)/d, and zero where the guard clamps d2
-        // (torch's clamp passes the gradient at the tie, as here)
-        const float coef = d2 >= 1e-24f ? gphi * ib / d : 0.0f;
+        // d d / d c is -(s - c)/d
+        const float coef = spatial_coef(gphi, ib, d2, d);
         acc_cx -= coef * dx;
         acc_cy -= coef * dy;
         acc_ib += gphi * d;
@@ -345,6 +319,118 @@ bwd_centers_kernel(const float* __restrict__ coords,
     dcenters[2 * c] = sx;
     dcenters[2 * c + 1] = sy;
     dinv_bw[c] = si;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// d coords: the transpose of bwd_centers_kernel's ownership. One block owns
+// BP_BN points and loops over k in BP_BK-center chunks. Thread (j = tid % 32,
+// pg = tid / 32) owns center j of the chunk and points pg*8 .. pg*8+7: it
+// forms their gw = g . W_j over H (g and W slices staged in shared memory,
+// the W_j slice in registers, as the TPU kernel forms g @ W^T in its body),
+// chains dphi/dr, and keeps per-point partial sums over its centers in
+// registers. At the end each warp (one point group, 32 centers) reduces
+// over its lanes with a fixed shuffle tree: deterministic, no atomics.
+// ---------------------------------------------------------------------------
+constexpr int BP_BN = 64;
+constexpr int BP_BK = 32;
+constexpr int BP_HC = 32;
+constexpr int BP_PG = THREADS / BP_BK;   // 8 point groups (one warp each)
+constexpr int BP_PPT = BP_BN / BP_PG;    // 8 points per thread
+static_assert(BP_BK == 32, "one warp spans the centers of a chunk");
+
+__global__ void __launch_bounds__(THREADS)
+bwd_points_kernel(const float* __restrict__ coords,
+                  const float* __restrict__ centers,
+                  const float* __restrict__ inv_bw,
+                  const float* __restrict__ w, const float* __restrict__ g,
+                  float* __restrict__ dcoords, int n, int k, int h,
+                  int basis) {
+  __shared__ float g_s[BP_BN][BP_HC + 1];
+  __shared__ float w_s[BP_BK][BP_HC + 1];
+  __shared__ float px[BP_BN];
+  __shared__ float py[BP_BN];
+
+  const int tid = threadIdx.x;
+  const int j = tid % BP_BK;
+  const int pg = tid / BP_BK;
+  const int n0 = blockIdx.x * BP_BN;
+  if (tid < BP_BN) {
+    const int pt = n0 + tid;
+    px[tid] = pt < n ? coords[2 * (size_t)pt] : 0.0f;
+    py[tid] = pt < n ? coords[2 * (size_t)pt + 1] : 0.0f;
+  }
+
+  float acc_x[BP_PPT], acc_y[BP_PPT];
+#pragma unroll
+  for (int i = 0; i < BP_PPT; ++i) acc_x[i] = acc_y[i] = 0.0f;
+
+  for (int k0 = 0; k0 < k; k0 += BP_BK) {
+    float gw[BP_PPT];
+#pragma unroll
+    for (int i = 0; i < BP_PPT; ++i) gw[i] = 0.0f;
+    for (int hc = 0; hc < h; hc += BP_HC) {
+      __syncthreads();  // previous slice (and px/py) consumed
+      for (int e = tid; e < BP_BN * BP_HC; e += THREADS) {
+        const int p = e / BP_HC;
+        const int q = e % BP_HC;
+        const int pt = n0 + p;
+        const int col = hc + q;
+        g_s[p][q] = (pt < n && col < h) ? g[(size_t)pt * h + col] : 0.0f;
+      }
+      for (int e = tid; e < BP_BK * BP_HC; e += THREADS) {
+        const int jj = e / BP_HC;
+        const int q = e % BP_HC;
+        const int cc = k0 + jj;
+        const int col = hc + q;
+        w_s[jj][q] = (cc < k && col < h) ? w[(size_t)cc * h + col] : 0.0f;
+      }
+      __syncthreads();
+      float wr[BP_HC];
+#pragma unroll
+      for (int q = 0; q < BP_HC; ++q) wr[q] = w_s[j][q];
+#pragma unroll
+      for (int i = 0; i < BP_PPT; ++i) {
+        const int p = pg * BP_PPT + i;
+        float s = gw[i];
+#pragma unroll
+        for (int q = 0; q < BP_HC; ++q) s = fmaf(g_s[p][q], wr[q], s);
+        gw[i] = s;
+      }
+    }
+    const int c = k0 + j;
+    if (c < k) {
+      const float cx = centers[2 * c];
+      const float cy = centers[2 * c + 1];
+      const float ib = inv_bw[c];
+#pragma unroll
+      for (int i = 0; i < BP_PPT; ++i) {
+        const int p = pg * BP_PPT + i;
+        const float dx = __fsub_rn(px[p], cx);
+        const float dy = __fsub_rn(py[p], cy);
+        const float d2 = guarded_dist2(px[p], py[p], cx, cy);
+        const float d = guarded_dist(d2);
+        const float gphi = gw[i] * basis_dphi(__fmul_rn(d, ib), basis);
+        // d d / d s is (s - c)/d
+        const float coef = spatial_coef(gphi, ib, d2, d);
+        acc_x[i] += coef * dx;
+        acc_y[i] += coef * dy;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < BP_PPT; ++i) {
+    float sx = acc_x[i], sy = acc_y[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sx += __shfl_down_sync(0xffffffffu, sx, off);
+      sy += __shfl_down_sync(0xffffffffu, sy, off);
+    }
+    const int pt = n0 + pg * BP_PPT + i;
+    if (j == 0 && pt < n) {
+      dcoords[2 * (size_t)pt] = sx;
+      dcoords[2 * (size_t)pt + 1] = sy;
+    }
   }
 }
 
@@ -379,6 +465,16 @@ int st_fused_first_layer_bwd_centers(const float* coords,
   const dim3 grid((k + BC_BK - 1) / BC_BK);
   bwd_centers_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       coords, centers, inv_bw, w, g, dcenters, dinv_bw, n, k, h, basis);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int st_fused_first_layer_bwd_points(const float* coords, const float* centers,
+                                    const float* inv_bw, const float* w,
+                                    const float* g, float* dcoords, int n,
+                                    int k, int h, int basis, void* stream) {
+  const dim3 grid((n + BP_BN - 1) / BP_BN);
+  bwd_points_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      coords, centers, inv_bw, w, g, dcoords, n, k, h, basis);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,16 +1,26 @@
 """Spatio-temporal interpolation model (port of `st_dadk_tpu/models/st_interp.py`).
 
-    input  [phi(s) spatial basis | psi(t) temporal basis]
+    input  [X covariates (p) | phi(s) spatial basis | psi(t) temporal basis]
     -> MLP: per hidden layer Linear -> LayerNorm -> ReLU -> Dropout
     -> head: Linear(out_dim), or the delta-reparameterised multi-quantile
        head beta = cumsum(delta), yhat_k = beta_k0 + h . beta_k(1:)
 
-The first layer's spatial block runs through the fused basis kernels
-(`ops.fused_first_layer`): h1 = phi(coords) @ W_s + psi(t) @ W_t + b, the
-JAX package's `forward_train_fused` / `forward_inference_fused` path. Weights
-keep the JAX layout: `mlp.linear_i.w` is (in, out), so W_s = w[:k_s] is a
-contiguous row slice, and parameter names equal the JAX param-dict paths
-(`from_jax_params` / `to_jax_params` carry params across).
+The first layer takes one of two kernel routes (`ModelSpec.phi_route`):
+
+  - fused (the default): h1 = phi(coords) @ W_s + psi(t) @ W_t + b through
+    the fused basis kernels (`ops.fused_first_layer`), the JAX package's
+    `forward_train_fused` / `forward_inference_fused`; phi never reaches
+    device memory;
+  - materialised phi: phi (N, k) from the spatial-basis kernels
+    (`ops.spatial_basis_kernels`), times `spatial_k_mask` on a ragged-k lane,
+    then [X | phi | psi] @ W + b: the JAX `_embed` + `forward` path. Ragged-k
+    lanes, covariates and `use_pallas_training` take it.
+
+Weights keep the JAX layout: `mlp.linear_i.w` is (in, out), so W_s =
+w[p:p+k_s] is a contiguous row slice, and parameter names equal the JAX
+param-dict paths (`from_jax_params` / `to_jax_params` carry params across;
+`pad_lane_model` / `strip_lane_padding` pad a lane to a shared width and
+back).
 """
 from __future__ import annotations
 
@@ -26,10 +36,13 @@ from st_dadk_tpu_torch.ops.basis import (temporal_basis_embed,
                                          temporal_grid_centers,
                                          uniform_grid_centers)
 from st_dadk_tpu_torch.ops.fused_first_layer import fused_spatial_first_layer
+from st_dadk_tpu_torch.ops.spatial_basis_kernels import \
+    spatial_basis_embed_kernel
 
 
 @dataclass(frozen=True)
 class ModelSpec:
+    p: int = 0
     k_spatial_centers: Tuple[int, ...] = (25, 81, 121)
     k_temporal_centers: Tuple[int, ...] = (10, 15, 45)
     hidden_dims: Tuple[int, ...] = (256, 256, 128)
@@ -39,6 +52,12 @@ class ModelSpec:
     spatial_learnable: bool = False
     output_dim: int = 1
     use_delta_reparameterization: bool = False
+    # the training and validation forward builds phi (N, k) on its own
+    # (the materialised-phi route) instead of the fused first layer
+    phi_route: bool = False
+    # a ragged-k lane (k_spatial_pad): padded during the fit and stripped for
+    # evaluation, it never takes the fused kernels, whose phi has no mask
+    padded_lane: bool = False
 
     @property
     def k_spatial(self) -> int:
@@ -50,7 +69,14 @@ class ModelSpec:
 
     @property
     def input_dim(self) -> int:
-        return self.k_spatial + self.k_temporal
+        return self.p + self.k_spatial + self.k_temporal
+
+    @property
+    def fused_predict(self) -> bool:
+        """Whether dense predict takes the fused forward: with no
+        covariates and off a padded lane (JAX loop.py:1348, where
+        `use_pallas` is off for ragged lanes)."""
+        return self.p == 0 and not self.padded_lane
 
     @property
     def delta_head(self) -> bool:
@@ -58,24 +84,23 @@ class ModelSpec:
 
 
 def spec_from_config(cfg: ExperimentConfig) -> ModelSpec:
-    """The model spec of a config. Raises NotImplementedError for what the
-    port does not carry yet: ragged-k lanes and covariates need the masked
-    phi kernels (pallas_basis.py), which are not ported, and the fused first
-    layer needs a hidden layer; the trunk runs in float32 only."""
-    if cfg.k_spatial_pad is not None:
-        raise NotImplementedError(
-            "ragged-k (k_spatial_pad) needs the masked phi kernels of "
-            "pallas_basis.py, not ported yet")
-    if cfg.p_covariates > 0:
-        raise NotImplementedError(
-            "covariates (p_covariates > 0) need the phi kernels of "
-            "pallas_basis.py, not ported yet")
+    """The model spec of a config. A ragged-k lane (`k_spatial_pad`) sees
+    one padded resolution of k_spatial_pad centers, as in JAX; its real
+    layout stays in the config (init, finalize). The first layer takes the
+    materialised-phi route for a ragged lane, for covariates, and for
+    `use_pallas_training` without `use_fused_training` (the order of JAX
+    `forward` :388 and `_embed` :226), and the fused route otherwise.
+    Raises NotImplementedError for what the port does not carry: a model
+    without a hidden layer, and the bf16 trunk."""
     if not cfg.hidden_dims:
-        raise NotImplementedError("the fused first layer needs a hidden layer")
+        raise NotImplementedError("the port's first layer needs a hidden layer")
     if cfg.train_dtype == "bf16":
         raise NotImplementedError("the port trains in float32 only")
+    ragged = cfg.k_spatial_pad is not None
     return ModelSpec(
-        k_spatial_centers=tuple(cfg.k_spatial_centers),
+        p=cfg.p_covariates,
+        k_spatial_centers=((int(cfg.k_spatial_pad),) if ragged
+                           else tuple(cfg.k_spatial_centers)),
         k_temporal_centers=tuple(cfg.k_temporal_centers),
         hidden_dims=tuple(cfg.hidden_dims),
         dropout=cfg.dropout,
@@ -84,6 +109,9 @@ def spec_from_config(cfg: ExperimentConfig) -> ModelSpec:
         spatial_learnable=cfg.spatial_learnable,
         output_dim=cfg.output_dim,
         use_delta_reparameterization=cfg.use_delta_reparameterization,
+        phi_route=(ragged or cfg.p_covariates > 0
+                   or (cfg.use_pallas_training and not cfg.use_fused_training)),
+        padded_lane=ragged,
     )
 
 
@@ -114,13 +142,16 @@ class STInterp(nn.Module):
     """DA-STDK interpolation network. Parameters: `basis.{centers,
     log_bandwidths}` (learnable basis only), `mlp.linear_i.{w,b}`,
     `mlp.ln_i.{scale,bias}`, and `mlp.out.{w,b}` or `mlp.delta`. Buffers:
-    the initial spatial centers/bandwidths and the temporal grid."""
+    the initial spatial centers/bandwidths, the temporal grid and, on a
+    padded ragged-k lane, `spatial_k_mask` (1 for the real centers in the
+    leading rows, 0 for the junk rows after them)."""
 
     def __init__(self, spec: ModelSpec, spatial_centers: np.ndarray,
-                 spatial_bandwidths: np.ndarray):
+                 spatial_bandwidths: np.ndarray,
+                 spatial_k_mask: Optional[np.ndarray] = None):
         super().__init__()
         if not spec.hidden_dims:
-            raise NotImplementedError("the fused first layer needs a hidden layer")
+            raise NotImplementedError("the port's first layer needs a hidden layer")
         self.spec = spec
         centers = torch.tensor(np.asarray(spatial_centers, np.float32))
         bws = torch.tensor(np.asarray(spatial_bandwidths, np.float32))
@@ -129,6 +160,13 @@ class STInterp(nn.Module):
         self.register_buffer("spatial_bandwidths_init", bws.clone())
         self.register_buffer("temporal_centers", torch.as_tensor(t_centers))
         self.register_buffer("temporal_bandwidths", torch.as_tensor(t_bw))
+        mask = None
+        if spatial_k_mask is not None:
+            mask = torch.tensor(np.asarray(spatial_k_mask, np.float32))
+            if tuple(mask.shape) != (spec.k_spatial,):
+                raise ValueError(f"spatial_k_mask shape {tuple(mask.shape)} "
+                                 f"!= ({spec.k_spatial},)")
+        self.register_buffer("spatial_k_mask", mask)
         if spec.spatial_learnable:
             self.basis = _Basis(centers, bws)
         self.mlp = nn.Module()
@@ -151,20 +189,49 @@ class STInterp(nn.Module):
         return self.spatial_centers_init, self.spatial_bandwidths_init
 
     def forward(self, coords: torch.Tensor, t: torch.Tensor,
-                train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """yhat(s, t): (B, output_dim). Dropout (train=True, dropout > 0)
-        draws one (B, sum(hidden)) uniform block from `generator`."""
+                X: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                fused: Optional[bool] = None) -> torch.Tensor:
+        """yhat(s, t): (B, output_dim). `X` (B, p) are the covariates of a
+        model with p > 0. `fused` picks the first layer's route (default:
+        the spec's). Dropout (train=True, dropout > 0) draws one
+        (B, sum(hidden)) uniform block from `generator`."""
+        if fused is None:
+            fused = not self.spec.phi_route
+        h = self.first_layer(coords, t, X, fused)
+        return self.head(self.trunk_from_h1(h, train, generator))
+
+    def first_layer(self, coords: torch.Tensor, t: torch.Tensor,
+                    X: Optional[torch.Tensor], fused: bool) -> torch.Tensor:
+        """The first layer's pre-norm output h1 (B, H1) on either route."""
         spec = self.spec
         centers, bandwidths = self.spatial_params()
         lin0 = self.mlp.linear_0
-        k_s = spec.k_spatial
-        h = fused_spatial_first_layer(coords, centers, bandwidths,
-                                      lin0.w[:k_s], spec.spatial_basis_function)
         psi = temporal_basis_embed(t, self.temporal_centers,
                                    self.temporal_bandwidths)
-        h = h + psi @ lin0.w[k_s:] + lin0.b
-        return self.head(self.trunk_from_h1(h, train, generator))
+        if fused:
+            if spec.p > 0 or self.spatial_k_mask is not None:
+                raise ValueError("the fused first layer takes neither "
+                                 "covariates nor a column mask")
+            k_s = spec.k_spatial
+            h = fused_spatial_first_layer(coords, centers, bandwidths,
+                                          lin0.w[:k_s],
+                                          spec.spatial_basis_function)
+            return h + psi @ lin0.w[k_s:] + lin0.b
+        phi = spatial_basis_embed_kernel(coords, centers, bandwidths,
+                                         spec.spatial_basis_function)
+        if self.spatial_k_mask is not None:
+            # junk columns are zero, so neither their weight rows nor the
+            # junk centers get a gradient (JAX st_interp.py:233-238)
+            phi = phi * self.spatial_k_mask
+        if spec.p > 0:
+            if X is None:
+                raise ValueError(f"the model takes p={spec.p} covariates: "
+                                 f"pass X (B, {spec.p})")
+            feats = torch.cat([X, phi, psi], dim=-1)
+        else:
+            feats = torch.cat([phi, psi], dim=-1)
+        return feats @ lin0.w + lin0.b
 
     def _dropout_masks(self, n: int, generator: Optional[torch.Generator],
                        device: torch.device) -> list:
@@ -220,7 +287,8 @@ class STInterp(nn.Module):
 
     def sparsity_penalty(self, penalty_type: str, lambda_l1: float,
                          lambda_group: float) -> Dict[str, torch.Tensor]:
-        """First-layer sparsity penalties split by spatial/temporal rows."""
+        """First-layer sparsity penalties split by spatial/temporal rows
+        (after the p covariate rows)."""
         w0 = self.mlp.linear_0.w
         if penalty_type == "none":
             zero = w0.new_zeros(())
@@ -228,9 +296,10 @@ class STInterp(nn.Module):
                     "total_penalty": zero}
         if penalty_type not in ("element", "group", "sparse_group"):
             raise ValueError(f"Unknown penalty_type: {penalty_type}")
-        k_s, k_t = self.spec.k_spatial, self.spec.k_temporal
-        sp = sparsity_block(w0[:k_s], penalty_type, lambda_l1, lambda_group)
-        tp = sparsity_block(w0[k_s:k_s + k_t], penalty_type, lambda_l1,
+        p, k_s, k_t = self.spec.p, self.spec.k_spatial, self.spec.k_temporal
+        sp = sparsity_block(w0[p:p + k_s], penalty_type, lambda_l1,
+                            lambda_group)
+        tp = sparsity_block(w0[p + k_s:p + k_s + k_t], penalty_type, lambda_l1,
                             lambda_group)
         return {"spatial_penalty": sp, "temporal_penalty": tp,
                 "total_penalty": sp + tp}
@@ -300,11 +369,24 @@ def _flat(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
 def from_jax_params(spec: ModelSpec, params: Dict[str, Any],
                     consts: Dict[str, Any],
                     device: torch.device | str = "cpu") -> STInterp:
-    """An STInterp holding a JAX (params, consts) pair's values."""
+    """An STInterp holding a JAX (params, consts) pair's values; a padded
+    lane's `spatial_k_mask` in consts becomes the model's mask."""
+    mask = consts.get("spatial_k_mask")
     model = STInterp(spec, np.asarray(consts["spatial_centers_init"]),
-                     np.asarray(consts["spatial_bandwidths_init"]))
+                     np.asarray(consts["spatial_bandwidths_init"]),
+                     None if mask is None else np.asarray(mask))
     load_jax_params(model, params)
     return model.to(device)
+
+
+def model_consts(model: STInterp) -> Dict[str, np.ndarray]:
+    """The model's buffers as the JAX consts dict (numpy)."""
+    names = ["spatial_centers_init", "spatial_bandwidths_init",
+             "temporal_centers", "temporal_bandwidths"]
+    if model.spatial_k_mask is not None:
+        names.append("spatial_k_mask")
+    return {nm: getattr(model, nm).detach().cpu().numpy().copy()
+            for nm in names}
 
 
 def load_jax_params(model: STInterp, params: Dict[str, Any]) -> None:
@@ -331,3 +413,78 @@ def to_jax_params(model: STInterp) -> Dict[str, Any]:
 
 def count_parameters(model: STInterp) -> int:
     return int(sum(p.numel() for p in model.parameters()))
+
+
+# ---------------------------------------------------------------------------
+# Ragged-k lane padding (JAX st_interp.py:488-558), on JAX-layout numpy dicts
+# ---------------------------------------------------------------------------
+
+def pad_lane_model(spec_real: ModelSpec, k_pad: int, params: Dict[str, Any],
+                   consts: Dict[str, Any]
+                   ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Pad a real-shape (params, consts) pair to a k_pad-wide spatial basis.
+
+    Invariants that make the padded lane's fit track its own-shape run (up
+    to the order of float32 sums):
+      - real centers, bandwidths and weight rows occupy the leading rows;
+        `spatial_k_mask` in consts zeroes phi's junk columns, so the junk
+        rows of the first-layer weights and the junk centers get zero
+        gradients;
+      - junk centers, log-bandwidths and weight rows start at exactly 0
+        (bandwidth 1), so AdamW's decoupled weight decay keeps them at 0
+        and no penalty (domain, movement, sparsity) sees them.
+    """
+    k = spec_real.k_spatial
+    pad = k_pad - k
+    if pad < 0:
+        raise ValueError(f"k_pad {k_pad} < real k {k}")
+
+    def pad0(x: np.ndarray) -> np.ndarray:
+        x = np.asarray(x)
+        return np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+
+    new_consts = dict(consts)
+    new_consts["spatial_centers_init"] = pad0(consts["spatial_centers_init"])
+    new_consts["spatial_bandwidths_init"] = np.concatenate(
+        [np.asarray(consts["spatial_bandwidths_init"]),
+         np.ones((pad,), np.float32)])
+    new_consts["spatial_k_mask"] = (np.arange(k_pad) < k).astype(np.float32)
+
+    new_params = {k2: dict(v) for k2, v in params.items()}
+    if "basis" in new_params:
+        b = new_params["basis"]
+        b["centers"] = pad0(b["centers"])
+        b["log_bandwidths"] = pad0(b["log_bandwidths"])
+    lin0 = dict(new_params["mlp"]["linear_0"])
+    w = np.asarray(lin0["w"])                 # (p + k + k_t, H)
+    cut = spec_real.p + k
+    lin0["w"] = np.concatenate(
+        [w[:cut], np.zeros((pad, w.shape[1]), w.dtype), w[cut:]])
+    new_params["mlp"]["linear_0"] = lin0
+    return new_params, new_consts
+
+
+def strip_lane_padding(spec_real: ModelSpec, k_pad: int,
+                       params: Dict[str, Any], consts: Dict[str, Any]
+                       ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Inverse of pad_lane_model: slice the real rows back out, so that
+    evaluation and the artifacts carry the lane's real shapes."""
+    k = spec_real.k_spatial
+    new_consts = dict(consts)
+    new_consts["spatial_centers_init"] = np.asarray(
+        consts["spatial_centers_init"])[:k]
+    new_consts["spatial_bandwidths_init"] = np.asarray(
+        consts["spatial_bandwidths_init"])[:k]
+    new_consts.pop("spatial_k_mask", None)
+
+    new_params = {k2: dict(v) for k2, v in params.items()}
+    if "basis" in new_params:
+        b = new_params["basis"]
+        b["centers"] = np.asarray(b["centers"])[:k]
+        b["log_bandwidths"] = np.asarray(b["log_bandwidths"])[:k]
+    lin0 = dict(new_params["mlp"]["linear_0"])
+    w = np.asarray(lin0["w"])
+    cut = spec_real.p + k
+    lin0["w"] = np.concatenate([w[:cut], w[spec_real.p + k_pad:]])
+    new_params["mlp"]["linear_0"] = lin0
+    return new_params, new_consts

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own
 into `build/cuda/lib<name>-<hash>.so` at the root of the checkout (a
-directory `.gitignore` lists). The hash covers the source and the flags, so
-an edited source builds anew and an unchanged one loads from disk. Nothing
+directory `.gitignore` lists). The hash covers the source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source or header builds
+anew and an unchanged one loads from disk. Nothing
 here runs at import: `load_library` is called by a kernel wrapper the first
 time it launches on a CUDA tensor.
 """
@@ -39,10 +40,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path; its hash covers the source, every shared header
+    in csrc/ and the flags, so a header edit builds anew too."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str, verbose: bool = False) -> Path:

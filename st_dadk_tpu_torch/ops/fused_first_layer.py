@@ -1,17 +1,18 @@
 """Fused basis first layer h = phi(coords; centers, bw) @ W_s and its gradients.
 
-Port of `st_dadk_tpu/ops/pallas_fused.py`. Three wrappers each launch one
+Port of `st_dadk_tpu/ops/pallas_fused.py`. Four wrappers each launch one
 hand-written CUDA kernel (`csrc/fused_first_layer.cu`) on a CUDA tensor:
 
   - `fused_first_layer_fwd`          <- `_fused_kernel`   (pallas_fused.py:48)
   - `fused_first_layer_bwd_w`        <- `_bwd_w_kernel`   (pallas_fused.py:129)
+  - `fused_first_layer_bwd_points`   <- `_bwd_pts_kernel` (pallas_fused.py:147)
   - `fused_first_layer_bwd_centers`  <- `_bwd_ctr_kernel` (pallas_fused.py:170)
 
 On CPU tensors each wrapper computes its plain PyTorch version instead
-(`plain_fwd`, `plain_bwd_w`, `plain_bwd_centers`); on a CUDA tensor it
-launches its kernel or raises. `fused_spatial_first_layer` is the
-differentiable entry point (the custom VJP at pallas_fused.py:195-318 as an
-`autograd.Function`); the bandwidth -> inv_bw transform stays in torch so
+(`plain_fwd`, `plain_bwd_w`, `plain_bwd_points`, `plain_bwd_centers`); on a
+CUDA tensor it launches its kernel or raises. `fused_spatial_first_layer` is
+the differentiable entry point (the custom VJP at pallas_fused.py:195-318 as
+an `autograd.Function`); the bandwidth -> inv_bw transform stays in torch so
 log-bandwidth gradients flow through autograd.
 
 Each wrapper counts its kernel launches in `<wrapper>.launches`.
@@ -24,26 +25,30 @@ from typing import Dict, Tuple
 import torch
 
 from st_dadk_tpu_torch.ops._build import load_library
+from st_dadk_tpu_torch.ops._launch import (check, check_basis, on_cpu,
+                                           raise_on, stream)
 from st_dadk_tpu_torch.ops.basis import (BASIS_IDS, CALIBRATION_FACTORS,
                                          basis_matrix)
 
 _BASIS_NAMES = {v: k for k, v in BASIS_IDS.items()}
 _LIB_NAME = "fused_first_layer"
+_WHAT = "fused first layer"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-_KERNELS = None   # (fwd, bwd_w, bwd_centers) C entry points, typed
+_KERNELS = None   # (fwd, bwd_w, bwd_centers, bwd_points) C entry points
 
 
 def _kernels():
-    """The library's three entry points, built, loaded and typed at the
+    """The library's four entry points, built, loaded and typed at the
     first launch on a CUDA tensor."""
     global _KERNELS
     if _KERNELS is None:
         lib = load_library(_LIB_NAME)
         fns = (lib.st_fused_first_layer_fwd, lib.st_fused_first_layer_bwd_w,
-               lib.st_fused_first_layer_bwd_centers)
-        for fn, n_ptr in zip(fns, (5, 5, 7)):
+               lib.st_fused_first_layer_bwd_centers,
+               lib.st_fused_first_layer_bwd_points)
+        for fn, n_ptr in zip(fns, (5, 5, 7, 6)):
             fn.argtypes = [_P] * n_ptr + [_I] * 4 + [_P]
             fn.restype = ctypes.c_int
         _KERNELS = fns
@@ -73,69 +78,37 @@ def plain_bwd_centers(coords, centers, inv_bw, w, g, basis_id: int
     return dc, dib
 
 
+def plain_bwd_points(coords, centers, inv_bw, w, g, basis_id: int
+                     ) -> torch.Tensor:
+    """d coords (N, 2) by autograd through `plain_fwd`."""
+    with torch.enable_grad():
+        s = coords.detach().requires_grad_(True)
+        out = plain_fwd(s, centers.detach(), inv_bw.detach(), w.detach(),
+                        basis_id)
+        (ds,) = torch.autograd.grad(out, (s,), grad_outputs=g)
+    return ds
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return True
-    if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"fused first layer: tensors on mixed devices "
-                         f"{[str(t.device) for t in tensors]}")
-    return False
-
-
-def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _check_common(coords, centers, inv_bw, h: int, basis_id: int
-                  ) -> Tuple[int, int]:
-    n, k = coords.shape[0], centers.shape[0]
-    if n < 1 or k < 1 or h < 1:
-        raise ValueError(f"fused first layer: empty shape n={n} k={k} h={h}")
-    if max(n, k, h) * 2 >= 2 ** 31:
-        raise ValueError("fused first layer: a dimension exceeds int32")
-    if basis_id not in _BASIS_NAMES:
-        raise ValueError(f"unknown basis id {basis_id}")
-    _check("coords", coords, (n, 2))
-    _check("centers", centers, (k, 2))
-    _check("inv_bw", inv_bw, (k,))
-    return n, k
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
 
 def fused_first_layer_fwd(coords: torch.Tensor, centers: torch.Tensor,
                           inv_bw: torch.Tensor, w: torch.Tensor,
                           basis_id: int) -> torch.Tensor:
     """h = phi(coords; centers, inv_bw) @ w: (N, 2), (k, 2), (k,), (k, H)
     -> (N, H) float32."""
-    if _on_cpu(coords, centers, inv_bw, w):
+    if on_cpu(_WHAT, coords, centers, inv_bw, w):
         return plain_fwd(coords, centers, inv_bw, w, basis_id)
     h = w.shape[-1]
-    n, k = _check_common(coords, centers, inv_bw, h, basis_id)
-    _check("w", w, (k, h))
+    n, k = check_basis(_WHAT, coords, centers, inv_bw, basis_id, h)
+    check("w", w, (k, h))
     out = torch.empty((n, h), dtype=torch.float32, device=coords.device)
     with torch.cuda.device(coords.device):
         rc = _kernels()[0](
             coords.data_ptr(), centers.data_ptr(), inv_bw.data_ptr(),
-            w.data_ptr(), out.data_ptr(), n, k, h, basis_id, _stream(coords))
-    _raise_on(rc, "fused_first_layer_fwd")
+            w.data_ptr(), out.data_ptr(), n, k, h, basis_id, stream(coords))
+    raise_on(rc, "fused_first_layer_fwd")
     fused_first_layer_fwd.launches += 1
     return out
 
@@ -144,17 +117,17 @@ def fused_first_layer_bwd_w(coords: torch.Tensor, centers: torch.Tensor,
                             inv_bw: torch.Tensor, g: torch.Tensor,
                             basis_id: int) -> torch.Tensor:
     """dW = phi^T g: g (N, H) -> (k, H) float32."""
-    if _on_cpu(coords, centers, inv_bw, g):
+    if on_cpu(_WHAT, coords, centers, inv_bw, g):
         return plain_bwd_w(coords, centers, inv_bw, g, basis_id)
     h = g.shape[-1]
-    n, k = _check_common(coords, centers, inv_bw, h, basis_id)
-    _check("g", g, (n, h))
+    n, k = check_basis(_WHAT, coords, centers, inv_bw, basis_id, h)
+    check("g", g, (n, h))
     dw = torch.empty((k, h), dtype=torch.float32, device=coords.device)
     with torch.cuda.device(coords.device):
         rc = _kernels()[1](
             coords.data_ptr(), centers.data_ptr(), inv_bw.data_ptr(),
-            g.data_ptr(), dw.data_ptr(), n, k, h, basis_id, _stream(coords))
-    _raise_on(rc, "fused_first_layer_bwd_w")
+            g.data_ptr(), dw.data_ptr(), n, k, h, basis_id, stream(coords))
+    raise_on(rc, "fused_first_layer_bwd_w")
     fused_first_layer_bwd_w.launches += 1
     return dw
 
@@ -164,26 +137,48 @@ def fused_first_layer_bwd_centers(coords: torch.Tensor, centers: torch.Tensor,
                                   g: torch.Tensor, basis_id: int
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(d centers (k, 2), d inv_bw (k,)) through gw = g @ w^T."""
-    if _on_cpu(coords, centers, inv_bw, w, g):
+    if on_cpu(_WHAT, coords, centers, inv_bw, w, g):
         return plain_bwd_centers(coords, centers, inv_bw, w, g, basis_id)
     h = w.shape[-1]
-    n, k = _check_common(coords, centers, inv_bw, h, basis_id)
-    _check("w", w, (k, h))
-    _check("g", g, (n, h))
+    n, k = check_basis(_WHAT, coords, centers, inv_bw, basis_id, h)
+    check("w", w, (k, h))
+    check("g", g, (n, h))
     dc = torch.empty((k, 2), dtype=torch.float32, device=coords.device)
     dib = torch.empty((k,), dtype=torch.float32, device=coords.device)
     with torch.cuda.device(coords.device):
         rc = _kernels()[2](
             coords.data_ptr(), centers.data_ptr(), inv_bw.data_ptr(),
             w.data_ptr(), g.data_ptr(), dc.data_ptr(), dib.data_ptr(),
-            n, k, h, basis_id, _stream(coords))
-    _raise_on(rc, "fused_first_layer_bwd_centers")
+            n, k, h, basis_id, stream(coords))
+    raise_on(rc, "fused_first_layer_bwd_centers")
     fused_first_layer_bwd_centers.launches += 1
     return dc, dib
 
 
+def fused_first_layer_bwd_points(coords: torch.Tensor, centers: torch.Tensor,
+                                 inv_bw: torch.Tensor, w: torch.Tensor,
+                                 g: torch.Tensor, basis_id: int
+                                 ) -> torch.Tensor:
+    """d coords (N, 2) through gw = g @ w^T."""
+    if on_cpu(_WHAT, coords, centers, inv_bw, w, g):
+        return plain_bwd_points(coords, centers, inv_bw, w, g, basis_id)
+    h = w.shape[-1]
+    n, k = check_basis(_WHAT, coords, centers, inv_bw, basis_id, h)
+    check("w", w, (k, h))
+    check("g", g, (n, h))
+    ds = torch.empty((n, 2), dtype=torch.float32, device=coords.device)
+    with torch.cuda.device(coords.device):
+        rc = _kernels()[3](
+            coords.data_ptr(), centers.data_ptr(), inv_bw.data_ptr(),
+            w.data_ptr(), g.data_ptr(), ds.data_ptr(), n, k, h, basis_id,
+            stream(coords))
+    raise_on(rc, "fused_first_layer_bwd_points")
+    fused_first_layer_bwd_points.launches += 1
+    return ds
+
+
 KERNEL_WRAPPERS = (fused_first_layer_fwd, fused_first_layer_bwd_w,
-                   fused_first_layer_bwd_centers)
+                   fused_first_layer_bwd_centers, fused_first_layer_bwd_points)
 for _fn in KERNEL_WRAPPERS:
     _fn.launches = 0
 
@@ -202,7 +197,8 @@ def launch_counts() -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 
 class FusedFirstLayer(torch.autograd.Function):
-    """h = phi(coords; centers, inv_bw) @ w with kernel backward passes."""
+    """h = phi(coords; centers, inv_bw) @ w with kernel backward passes;
+    each backward kernel launches only when its inputs need a gradient."""
 
     @staticmethod
     def forward(ctx, coords, centers, inv_bw, w, basis_id: int):
@@ -212,20 +208,19 @@ class FusedFirstLayer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.needs_input_grad[0]:
-            raise NotImplementedError(
-                "d coords of the fused first layer (_bwd_pts_kernel, "
-                "pallas_fused.py:147) is not ported: coords are data")
         coords, centers, inv_bw, w = ctx.saved_tensors
         g = g.contiguous()
-        dw = dc = dib = None
+        ds = dw = dc = dib = None
+        if ctx.needs_input_grad[0]:
+            ds = fused_first_layer_bwd_points(coords, centers, inv_bw, w, g,
+                                              ctx.basis_id)
         if ctx.needs_input_grad[3]:
             dw = fused_first_layer_bwd_w(coords, centers, inv_bw, g,
                                          ctx.basis_id)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dc, dib = fused_first_layer_bwd_centers(coords, centers, inv_bw,
                                                     w, g, ctx.basis_id)
-        return None, dc, dib, dw, None
+        return ds, dc, dib, dw, None
 
 
 def fused_spatial_first_layer(coords: torch.Tensor, centers: torch.Tensor,

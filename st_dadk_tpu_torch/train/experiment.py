@@ -7,11 +7,15 @@ observation mask draws with that seed and the train/valid split with seed +
 the fit's step count, validation chunks and per-epoch center shift) and
 `training_history.csv`; with `save_artifacts`, also model_{final,best}.npz,
 predictions.npz and basis_info.npz. No plots yet.
+
+A ragged-k lane (`k_spatial_pad`) draws its params at its real shapes, fits
+padded to the shared width through the materialised-phi kernels, and is
+stripped back to its real shapes before evaluation and the artifacts.
 """
 from __future__ import annotations
 
-import copy
 import csv
+import dataclasses
 import time
 from datetime import datetime
 from pathlib import Path
@@ -28,9 +32,12 @@ from st_dadk_tpu_torch.dataio.obs_design import (sample_observations,
                                                  spatial_obs_probs,
                                                  split_train_valid)
 from st_dadk_tpu_torch.models.st_interp import (ModelSpec, STInterp,
-                                                count_parameters, init_model,
-                                                load_jax_params,
-                                                spec_from_config)
+                                                count_parameters,
+                                                from_jax_params, init_model,
+                                                model_consts, pad_lane_model,
+                                                spec_from_config,
+                                                strip_lane_padding,
+                                                to_jax_params)
 from st_dadk_tpu_torch.ops.init_centers import (DATA_ADAPTIVE_INIT_METHODS,
                                                 init_spatial_centers)
 from st_dadk_tpu_torch.ops.losses import (check_loss_np,
@@ -150,9 +157,28 @@ class ExperimentSetup:
             self.finish_model(centers, bandwidths)
 
     def finish_model(self, centers: np.ndarray, bandwidths: np.ndarray) -> None:
+        """Initialise the model from the spatial init. A ragged-k lane
+        (`k_spatial_pad`) draws its params at the lane's real shapes (the
+        values of an unpadded run) and pads them to the shared width
+        (`pad_lane_model`, JAX experiment.py:311-333)."""
         gen = torch.Generator().manual_seed(self.experiment_seed)
-        self.model = init_model(gen, self.spec, centers, bandwidths,
-                                device=self.device)
+        if self.cfg.k_spatial_pad is None:
+            self.model = init_model(gen, self.spec, centers, bandwidths,
+                                    device=self.device)
+            return
+        spec_real = real_lane_spec(self.cfg, self.spec)
+        real = init_model(gen, spec_real, centers, bandwidths)
+        params, consts = pad_lane_model(spec_real, int(self.cfg.k_spatial_pad),
+                                        to_jax_params(real), model_consts(real))
+        self.model = from_jax_params(self.spec, params, consts,
+                                     device=self.device)
+
+
+def real_lane_spec(cfg: ExperimentConfig, spec: ModelSpec) -> ModelSpec:
+    """The real-shape spec of a ragged-k lane: its own resolutions, and
+    still the materialised-phi route of a padded lane."""
+    return dataclasses.replace(
+        spec, k_spatial_centers=tuple(cfg.k_spatial_centers))
 
 
 def run_single_experiment(config: ExperimentConfig | Dict[str, Any],
@@ -167,6 +193,12 @@ def run_single_experiment(config: ExperimentConfig | Dict[str, Any],
     if cfg.regression_type not in ("multi-quantile", "mean"):
         raise NotImplementedError(
             f"regression_type {cfg.regression_type!r} is not ported yet")
+    if cfg.p_covariates > 0:
+        # covariates are model-level only, as in JAX: its fit feeds none
+        # (st_dadk_tpu/train/loop.py:226 calls forward with X=None)
+        raise NotImplementedError(
+            "p_covariates > 0: the fit feeds no covariates (JAX "
+            "train/loop.py:226 passes X=None); STInterp takes X directly")
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     return _run_one_fit(cfg, experiment_id, output_dir,
@@ -202,12 +234,19 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
                         stage_timings: Optional[Dict[str, float]] = None,
                         write_artifacts: bool = True) -> Dict[str, Any]:
     """Evaluate the serving params on the three splits and write the
-    results contract."""
+    results contract. A ragged-k lane is stripped of its padding first
+    (JAX experiment.py:460-479), so evaluation, `model_parameters` and every
+    artifact carry the lane's real shapes."""
     t_eval = time.time()
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    serving = copy.deepcopy(setup.model)
-    load_jax_params(serving, result.params)
+    spec = setup.spec
+    params, consts = result.params, model_consts(setup.model)
+    if cfg.k_spatial_pad is not None:
+        spec = real_lane_spec(cfg, spec)
+        params, consts = strip_lane_padding(spec, int(cfg.k_spatial_pad),
+                                            params, consts)
+    serving = from_jax_params(spec, params, consts, device=setup.device)
     chunk = int(cfg.eval_chunk)
 
     train_metrics, _ = evaluate_pointset(cfg, serving, setup.train_ps, chunk)
@@ -231,7 +270,7 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
         "total_time_formatted": (f"{int(total_time // 3600):02d}:"
                                  f"{int((total_time % 3600) // 60):02d}:"
                                  f"{int(total_time % 60):02d}"),
-        "model_parameters": count_parameters(setup.model),
+        "model_parameters": count_parameters(serving),
         "timestamp": datetime.now().strftime("%Y-%m-%d %H:%M:%S"),
         "n_epochs_run": result.n_epochs_run,
         "stage_timings": dict(stage_timings or {}),
@@ -276,8 +315,8 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
                              history["val_loss"][i], history["val_rmse"][i],
                              history["lr"][i]])
     if cfg.save_artifacts and write_artifacts:
-        save_params_npz(result.params, output_dir / "model_final.npz")
-        save_params_npz(result.params, output_dir / "model_best.npz")
+        save_params_npz(params, output_dir / "model_final.npz")
+        save_params_npz(params, output_dir / "model_best.npz")
         coords_rep, t_rep = dense_grid_points(setup.T, setup.coords)
         dense = predict(serving, coords_rep, t_rep, chunk)
         col = (len(cfg.quantile_levels) // 2
@@ -287,22 +326,21 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
                  true=setup.z_full, coords=setup.coords,
                  train_mask=setup.train_mask, valid_mask=setup.valid_mask,
                  test_mask=setup.test_mask)
-        m = setup.model
-        init_c = m.spatial_centers_init.cpu().numpy()
-        init_bw = m.spatial_bandwidths_init.cpu().numpy()
-        if setup.spec.spatial_learnable:
-            final_c = np.asarray(result.params["basis"]["centers"])
-            final_bw = np.exp(np.asarray(result.params["basis"]["log_bandwidths"]))
+        init_c = consts["spatial_centers_init"]
+        init_bw = consts["spatial_bandwidths_init"]
+        if spec.spatial_learnable:
+            final_c = np.asarray(params["basis"]["centers"])
+            final_bw = np.exp(np.asarray(params["basis"]["log_bandwidths"]))
         else:
             final_c, final_bw = init_c, init_bw
         np.savez(output_dir / "basis_info.npz",
                  spatial_centers_init=init_c, spatial_centers_final=final_c,
                  spatial_bandwidths_init=init_bw,
                  spatial_bandwidths_final=final_bw,
-                 temporal_centers_init=m.temporal_centers.cpu().numpy(),
-                 temporal_centers_final=m.temporal_centers.cpu().numpy(),
-                 temporal_bandwidths_init=m.temporal_bandwidths.cpu().numpy(),
-                 temporal_bandwidths_final=m.temporal_bandwidths.cpu().numpy())
+                 temporal_centers_init=consts["temporal_centers"],
+                 temporal_centers_final=consts["temporal_centers"],
+                 temporal_bandwidths_init=consts["temporal_bandwidths"],
+                 temporal_bandwidths_final=consts["temporal_bandwidths"])
     if verbose:
         print(f"[EXP {setup.experiment_id}] done in "
               f"{results['total_time_formatted']} -> {output_dir}", flush=True)

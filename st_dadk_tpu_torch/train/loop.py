@@ -366,6 +366,8 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
         hist["val_loss"].append(val_loss)
         hist["val_rmse"].append(val_rmse)
         if spec.record_centers:
+            # a padded lane's junk centers stay at their init 0, so the
+            # max is the real centers' (pad_lane_model's invariant)
             with torch.no_grad():
                 c = model.basis.centers
                 center_shift.append(float(torch.max(torch.abs(
@@ -403,8 +405,11 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
 @torch.no_grad()
 def predict(model: STInterp, coords: np.ndarray, t: np.ndarray,
             chunk: int = 32768) -> np.ndarray:
-    """Dense inference in chunks of `chunk` points: (n, out_dim) numpy."""
+    """Dense inference in chunks of `chunk` points: (n, out_dim) numpy.
+    It takes the fused forward where the spec allows it (no covariates, not
+    a ragged-k lane: JAX loop.py:1348), else the materialised-phi one."""
     device = next(model.parameters()).device
+    fused = model.spec.fused_predict
     n = coords.shape[0]
     outs = []
     for s in range(0, n, chunk):
@@ -412,7 +417,7 @@ def predict(model: STInterp, coords: np.ndarray, t: np.ndarray,
                                                  np.float32), device=device)
         tt = torch.as_tensor(np.ascontiguousarray(
             t[s:s + chunk].reshape(-1, 1), np.float32), device=device)
-        outs.append(model(c, tt, train=False))
+        outs.append(model(c, tt, train=False, fused=fused))
     return torch.cat(outs).cpu().numpy()
 
 

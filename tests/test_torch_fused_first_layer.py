@@ -95,14 +95,31 @@ def test_zero_distance_gradients_finite(basis):
     _assert_close(_port_value_and_grads(*args, basis), want)
 
 
-def test_coords_gradient_not_ported():
-    coords, centers, bw, w, _ = _inputs(5, 10, 4, 3)
-    c = torch.as_tensor(coords).requires_grad_(True)
-    out = ffl.fused_spatial_first_layer(c, torch.as_tensor(centers),
+@pytest.mark.parametrize("zero_distance", [False, True])
+@pytest.mark.parametrize("basis", ["wendland", "gaussian", "triangular"])
+def test_coords_gradient_matches_jax_fused_kernel(basis, zero_distance):
+    """d coords through the fused layer (the port of _bwd_pts_kernel)
+    against JAX's fused_spatial_first_layer in interpret mode, with centers
+    exactly on data points in the zero-distance case."""
+    try:
+        from jax.experimental.pallas import tpu as pltpu
+    except ImportError:
+        pytest.skip("pallas tpu backend unavailable")
+    from st_dadk_tpu.ops.pallas_fused import fused_spatial_first_layer
+
+    coords, centers, bw, w, g = _inputs(5, 130, 70, 24, zero_distance)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax.grad(lambda s: jnp.sum(fused_spatial_first_layer(
+            s, jnp.asarray(centers), jnp.asarray(bw), jnp.asarray(w),
+            basis) * jnp.asarray(g)))(jnp.asarray(coords)))
+    s = torch.as_tensor(coords).requires_grad_(True)
+    out = ffl.fused_spatial_first_layer(s, torch.as_tensor(centers),
                                         torch.as_tensor(bw),
-                                        torch.as_tensor(w))
-    with pytest.raises(NotImplementedError, match="_bwd_pts_kernel"):
-        out.sum().backward()
+                                        torch.as_tensor(w), basis)
+    (got,) = torch.autograd.grad(torch.sum(out * torch.as_tensor(g)), (s,))
+    assert np.all(np.isfinite(got.numpy()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
 
 
 def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
@@ -119,9 +136,14 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     dc, dib = ffl.fused_first_layer_bwd_centers(coords, centers, inv_bw, w,
                                                 g, 0)
     assert dc.shape == (9, 2) and dib.shape == (9,)
+    torch.testing.assert_close(
+        ffl.fused_first_layer_bwd_points(coords, centers, inv_bw, w, g, 0),
+        ffl.plain_bwd_points(coords, centers, inv_bw, w, g, 0), rtol=0,
+        atol=0)
     assert ffl.launch_counts() == {"fused_first_layer_fwd": 0,
                                    "fused_first_layer_bwd_w": 0,
-                                   "fused_first_layer_bwd_centers": 0}
+                                   "fused_first_layer_bwd_centers": 0,
+                                   "fused_first_layer_bwd_points": 0}
 
 
 def test_plain_centers_gradient_matches_analytic_chain():

@@ -28,6 +28,7 @@ def test_port_imports_no_jax_yaml_pandas_or_reference():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "st_dadk_tpu_torch.ops.fused_first_layer" in res["modules"]
+    assert "st_dadk_tpu_torch.ops.spatial_basis_kernels" in res["modules"]
     assert "st_dadk_tpu_torch.train.experiment" in res["modules"]
     assert res["forbidden"] == []
 

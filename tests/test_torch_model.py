@@ -12,6 +12,7 @@ from st_dadk_tpu.models import st_interp as jm
 from st_dadk_tpu.train import loop as jloop
 from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.models import st_interp as tm
+from st_dadk_tpu_torch.train import experiment as texp
 from st_dadk_tpu_torch.train import loop as tloop
 
 FWD_ATOL = 5e-5                   # test_pallas_fused.py:59
@@ -126,9 +127,15 @@ def test_training_loss_and_transformed_grads_match_jax():
                                    atol=GRAD_ATOL, err_msg=name)
 
 
-@pytest.mark.parametrize("override", [dict(k_spatial_pad=200),
-                                      dict(p_covariates=2),
-                                      dict(train_dtype="bf16")])
-def test_unported_configs_raise(override):
+@pytest.mark.parametrize("override,entry", [(dict(train_dtype="bf16"), "spec"),
+                                            (dict(p_covariates=2), "fit")])
+def test_unported_configs_raise(override, entry, tmp_path):
+    """The bf16 trunk has no spec; a fit with covariates is refused, since
+    the JAX fit feeds none (its model takes X: test_torch_ragged_k.py)."""
+    cfg = ExperimentConfig.from_dict(override)
     with pytest.raises(NotImplementedError):
-        tm.spec_from_config(ExperimentConfig.from_dict(override))
+        if entry == "spec":
+            tm.spec_from_config(cfg)
+        else:
+            texp.run_single_experiment(cfg, 1, tmp_path, device="cpu",
+                                       verbose=False)
