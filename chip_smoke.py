@@ -8,8 +8,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. build the two CUDA libraries from st_dadk_tpu_torch/csrc with nvcc,
      one nvcc process each, both at once;
   2. hold each of the seven kernels against its plain PyTorch version on
-     the card, at the fit's shapes and a ragged one, for all three bases
-     and a center lying exactly on a point; time kernel and plain version;
+     the card, at the fit's shapes and two ragged ones, for all three bases
+     and a center lying exactly on a point; launch the two split-N kernels
+     (dW, d centers) twice at N=32768 and at (200, 106, 48) and require
+     bitwise equal outputs; time kernel and plain version;
   3. the bench-workload DA-STDK fit (12 epochs, basis unfreezing at epoch
      10) through `run_single_experiment`, on the fused route;
   4. a ragged-k lane of that workload (centers 25+81 padded to 227) through
@@ -53,6 +55,13 @@ KERNELS = {
 # (N=32768) at k=227 bench centers and H=256 first hidden width
 SLICE_SHAPES = [(512, 227, 256), (2000, 227, 256), (32768, 227, 256)]
 RAGGED_SHAPE = (200, 106, 48)
+# H not a multiple of 4: the split-N kernels stage g and W with 4-byte
+# copies instead of 16-byte ones
+ODD_SHAPE = (77, 37, 19)
+# the split-N kernels, which sum slab partials: launched twice at these
+# shapes, they must give bitwise equal outputs
+SPLIT_N = ("fused_first_layer_bwd_w", "fused_first_layer_bwd_centers")
+DETERMINISM_SHAPES = (SLICE_SHAPES[-1], RAGGED_SHAPE)
 # the basis unfreezes at epoch 10 of the bench workload: 12 epochs train the
 # centers for two
 EPOCHS = 12
@@ -115,6 +124,11 @@ def _err(torch, got, want, rtol, atol):
     return float(diff.max()), float((diff - atol - rtol * want.abs()).max())
 
 
+def _outputs(x):
+    """A kernel's outputs as a tuple."""
+    return x if isinstance(x, tuple) else (x,)
+
+
 def _time_ms(torch, fn, reps=20):
     fn()
     torch.cuda.synchronize()
@@ -171,7 +185,7 @@ def kernel_phase(torch, ffl, sbk, basis_ids, cal):
     torch.ones((2, 2), device="cuda") @ torch.ones((2, 2), device="cuda")
     worst = {nm: 0.0 for nm in KERNELS}
     times = {}
-    cases = [(s, b, False) for s in SLICE_SHAPES + [RAGGED_SHAPE]
+    cases = [(s, b, False) for s in SLICE_SHAPES + [RAGGED_SHAPE, ODD_SHAPE]
              for b in basis_ids] + [(RAGGED_SHAPE, b, True) for b in basis_ids]
     for i, ((n, k, h), basis, zero) in enumerate(cases):
         coords, centers, bw, w, grad_h, grad_phi = _inputs(
@@ -182,12 +196,17 @@ def kernel_phase(torch, ffl, sbk, basis_ids, cal):
         got = {nm: kern() for nm, (kern, _) in pairs.items()}
         torch.cuda.synchronize()
         line = [f"n={n} k={k} h={h} {basis}{' zero-distance' if zero else ''}:"]
+        if (n, k, h) in DETERMINISM_SHAPES:
+            for nm in SPLIT_N:
+                again = pairs[nm][0]()
+                check(all(torch.equal(a, b) for a, b in
+                          zip(_outputs(got[nm]), _outputs(again))),
+                      f"{nm}: two launches differ at {line[0]}")
+            line.append("dW, d centers bitwise equal over two launches;")
         for nm, (_, plain) in pairs.items():
             want = plain()
-            gs = got[nm] if isinstance(got[nm], tuple) else (got[nm],)
-            ws = want if isinstance(want, tuple) else (want,)
             rtol, atol = BARS[nm]
-            for a, b in zip(gs, ws):
+            for a, b in zip(_outputs(got[nm]), _outputs(want)):
                 check(bool(torch.isfinite(a).all()),
                       f"{nm}: non-finite output at {line[0]}")
                 mx, excess = _err(torch, a, b, rtol, atol)
@@ -201,6 +220,8 @@ def kernel_phase(torch, ffl, sbk, basis_ids, cal):
 
     print("kernel times on the card (CUDA events, mean of 20 launches):")
     for (n, k, h) in SLICE_SHAPES:
+        print(f"  slabs at N={n}: bwd_w S={ffl.bwd_w_slabs(n, k, h)}, "
+              f"bwd_centers S={ffl.bwd_centers_slabs(n, k)}", flush=True)
         coords, centers, bw, w, grad_h, grad_phi = _inputs(torch, n, k, h,
                                                            seed=99)
         inv_bw = (1.0 / bw).contiguous()

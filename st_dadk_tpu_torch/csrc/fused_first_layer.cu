@@ -19,19 +19,38 @@
 // basis_device.cuh.
 //
 // What bounds them on an H100: all four are matrix products with one
-// operand computed on the fly, so they are bound by float32 FFMA issue
-// (67 TFLOP/s without tensor cores), not by device memory: the forward at
-// N=32768, k=227, H=256 does 3.8 GFLOP on 35 MB of traffic. The design is a
-// plain shared-memory tiling with register tiles per thread (4x4 outputs
-// with float4 shared loads in the forward and dW; 8 gw values against a
-// register slice of W in the two gw kernels). No tensor cores (TF32 would break the float32 parity
-// bars) and no atomics: every output element is owned by one block, which
-// loops over the contracted axis itself (the TPU's sequential grid axis),
-// so results are deterministic. Ragged edges are masked in the kernels:
-// a basis column past k or a point past N contributes exactly zero (a
-// padded center would otherwise have r = 0 and Wendland phi = 1).
-// Making them fast (wgmma, TMA, more blocks in flight at N=512) is later
-// work; PERF.md holds the measured times beside the plain versions'.
+// operand computed on the fly (3.8 GFLOP at N=32768, k=227, H=256, on
+// 35 MB of traffic), so arithmetic bounds them, not device memory.
+//
+// fwd_kernel and bwd_points_kernel contract over k or H, which are short,
+// and own output tiles of points: N/64 blocks, enough at every fit shape.
+// They are a plain shared-memory tiling on float32 FFMA (67 TFLOP/s): 4x4
+// register outputs with float4 shared loads in the forward, 8 gw values
+// against a register slice of W in d coords.
+//
+// bwd_w_kernel and bwd_centers_kernel contract over N. Owning their small
+// outputs whole and walking all N (the TPU's sequential grid axis) left
+// 16 and 8 blocks on 132 SMs at FFMA rate. Their design for this card:
+//   - split N: a block owns one output tile over one slab of points and
+//     writes its partial sum to a workspace; a second small pass sums the
+//     slabs in slab order, one thread per output element. The slab count
+//     is a function of (n, k, h) (ops/fused_first_layer.py), 128 and 120
+//     blocks at N=512.
+//   - 3xTF32 on the tensor cores (mma.sync m16n8k8): each float32 operand
+//     splits into hi = tf32(x) and lo = tf32(x - hi), and the sum takes
+//     lo*hi' + hi*lo' + hi*hi' in float32, which is as accurate as float32
+//     FFMA. One TF32 pass keeps 10 mantissa bits and gives gw = g W^T a
+//     relative error of 3e-4, past the float32 parity bars (rtol 2e-4).
+//   - a double-buffered ring of cp.async copies stages g (and W) into
+//     shared memory, so the next tile's loads overlap this tile's mma.
+// wgmma and TMA (the full tensor-core rate) are later work.
+//
+// No kernel uses atomics: every sum runs in a fixed order, so results are
+// bitwise deterministic from launch to launch. Ragged edges are masked in
+// the kernels: a basis column past k, a point past N or a hidden column
+// past H contributes exactly zero (a padded center would otherwise have
+// r = 0 and Wendland phi = 1). PERF.md holds the measured times beside the
+// plain versions'.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,198 +147,422 @@ fwd_kernel(const float* __restrict__ coords, const float* __restrict__ centers,
 }
 
 // ---------------------------------------------------------------------------
-// dW: one block owns a (BW_BK centers x BW_BH hidden) tile of dW and loops
-// over all N in BW_BN chunks: phi chunk (points x centers) and g chunk ->
-// shared, dW_tile += phi_chunk^T g_chunk.
+// Building blocks of the two split-N kernels: the slab rule, cp.async
+// staging, and 3xTF32 mma.sync.
 // ---------------------------------------------------------------------------
-constexpr int BW_BK = 64;
-constexpr int BW_BH = 64;
-constexpr int BW_BN = 32;
+constexpr int SLAB_UNIT = 64;  // a slab is a whole number of 64-point units
+
+// Slab s of `slabs` covers points [s * len, min(n, (s + 1) * len)) with len
+// = SLAB_UNIT * ceil(ceil(n / SLAB_UNIT) / slabs): the rule of
+// ops/fused_first_layer.py::slab_bounds.
+__device__ __forceinline__ void slab_range(int n, int slabs, int s,
+                                           int& begin, int& end) {
+  const int units = (n + SLAB_UNIT - 1) / SLAB_UNIT;
+  const int len = SLAB_UNIT * ((units + slabs - 1) / slabs);
+  begin = min(n, s * len);
+  end = min(n, begin + len);
+}
+
+// Asynchronous global -> shared copy of 16 (or 4) bytes; with `ok` false it
+// reads nothing and fills the destination with zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most one committed group (the newest) is still in flight.
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Stage the (ROWS x COLS) tile at (r0, c0) of the row-major matrix src
+// (leading dimension ld; rows past nrows and columns past ncols read as 0)
+// into dst (leading dimension SLD). vec: 16-byte copies, which need ld % 4
+// == 0 and a 16-byte aligned src; else 4-byte copies.
+template <int ROWS, int COLS, int SLD, int NT>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           int ld, int r0, int nrows, int c0,
+                                           int ncols, bool vec, int tid) {
+  if (vec) {
+    constexpr int C4 = COLS / 4;
+    for (int e = tid; e < ROWS * C4; e += NT) {
+      const int r = e / C4;
+      const int c = 4 * (e % C4);
+      const bool ok = r0 + r < nrows && c0 + c < ncols;
+      cp_async16(dst + r * SLD + c,
+                 ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
+    }
+  } else {
+    for (int e = tid; e < ROWS * COLS; e += NT) {
+      const int r = e / COLS;
+      const int c = e % COLS;
+      const bool ok = r0 + r < nrows && c0 + c < ncols;
+      cp_async4(dst + r * SLD + c,
+                ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
+    }
+  }
+}
+
+// float32 -> TF32 bit pattern, rounded to nearest with ties away from zero.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The 3xTF32 split x = hi + lo (+ 2^-22 |x| at most): x - hi is exact.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// d += a b on one 16x8x8 tile: a row-major (16 x 8), b column-major (8 x 8).
+// Fragments (g = lane / 4, t = lane % 4): a = (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); b = (t, g), (t + 4, g); d = (g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32: the two small cross terms first, then hi * hi.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(d, a_lo, b_hi);
+  mma_tf32(d, a_hi, b_lo);
+  mma_tf32(d, a_hi, b_hi);
+}
+
+// The second pass of bwd_w: out[e] = sum over s of ws[s][e], in slab order,
+// one thread per output element.
+__global__ void slab_sum_kernel(const float* __restrict__ ws,
+                                float* __restrict__ out, int slabs,
+                                size_t m) {
+  const size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+  if (e >= m) return;
+  float acc = ws[e];
+  for (int s = 1; s < slabs; ++s) acc += ws[(size_t)s * m + e];
+  out[e] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// dW = phi^T g. Replaces _bwd_w_kernel (pallas_fused.py:129).
+//
+// Block (blockIdx.x, blockIdx.y, blockIdx.z) owns the (BW_BK centers x
+// BW_BH hidden) tile of dW over slab blockIdx.z and writes its partial sum
+// to ws (slabs, k, h). It walks the slab in BW_KP-point sub-tiles: the
+// cp.async ring brings the next g sub-tile (points x hidden) while the
+// threads build this sub-tile's phi^T (centers x points) once in shared
+// memory; then 8 warps (2 along centers x 4 along hidden, 16 x 32 outputs
+// each) take phi^T g in 3xTF32. Instruction issue bounds it at N=32768:
+// phi (a square root and a division a pair) and the operand splits, beside
+// the mma. The block of the other hidden tile builds the same phi^T (2x at
+// H=256); a 32 x 128 tile took 0.23 ms there against 0.29 ms for 64 x 64,
+// which builds it 4x, at the same 128 blocks at N=512.
+// ---------------------------------------------------------------------------
+constexpr int BW_BK = 32;             // centers a block (mma M)
+constexpr int BW_BH = 128;            // hidden a block (mma N)
+constexpr int BW_KP = 32;             // points a sub-tile (mma K)
+constexpr int BW_PHI_LD = BW_KP + 4;  // A fragment loads hit 32 banks
+constexpr int BW_G_LD = BW_BH + 8;    // B fragment loads hit 32 banks
+constexpr int BW_WM = BW_BK / 16;              // warps along centers
+constexpr int BW_WN = THREADS / 32 / BW_WM;    // warps along hidden
+constexpr int BW_NT = BW_BH / BW_WN / 8;       // n-tiles of 8 a warp
+static_assert(SLAB_UNIT % BW_KP == 0, "a slab is whole sub-tiles");
+static_assert(BW_WM * BW_WN * 32 == THREADS && BW_NT * 8 * BW_WN == BW_BH,
+              "the warps tile the block's outputs");
 
 __global__ void __launch_bounds__(THREADS)
 bwd_w_kernel(const float* __restrict__ coords,
              const float* __restrict__ centers,
              const float* __restrict__ inv_bw, const float* __restrict__ g,
-             float* __restrict__ dw, int n, int k, int h, int basis) {
-  __shared__ __align__(16) float phi_s[BW_BN][BW_BK];
-  __shared__ __align__(16) float g_s[BW_BN][BW_BH];
+             float* __restrict__ ws, int n, int k, int h, int basis,
+             int slabs, bool vec) {
+  __shared__ __align__(16) float phi_s[BW_BK][BW_PHI_LD];
+  __shared__ __align__(16) float g_s[2][BW_KP][BW_G_LD];
   __shared__ float cx_s[BW_BK];
   __shared__ float cy_s[BW_BK];
   __shared__ float ib_s[BW_BK];
 
   const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment row group, column
+  const int wm = warp % BW_WM, wn = warp / BW_WM;  // the warp's outputs
   const int c0 = blockIdx.x * BW_BK;
   const int h0 = blockIdx.y * BW_BH;
+  const int s = blockIdx.z;
+  int p_begin, p_end;
+  slab_range(n, slabs, s, p_begin, p_end);
+  const int nsub = (p_end - p_begin + BW_KP - 1) / BW_KP;
+
   if (tid < BW_BK) {
     const int c = c0 + tid;
     cx_s[tid] = c < k ? centers[2 * c] : 0.0f;
     cy_s[tid] = c < k ? centers[2 * c + 1] : 0.0f;
     ib_s[tid] = c < k ? inv_bw[c] : 0.0f;
   }
-  const int tx = tid % 16;  // hidden micro-tile column
-  const int ty = tid / 16;  // center micro-tile row
-  float acc[4][4];
+  float acc[BW_NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < BW_NT; ++j)
 #pragma unroll
-    for (int l = 0; l < 4; ++l) acc[i][l] = 0.0f;
+    for (int l = 0; l < 4; ++l) acc[j][l] = 0.0f;
 
-  for (int p0 = 0; p0 < n; p0 += BW_BN) {
-    __syncthreads();
-    for (int e = tid; e < BW_BN * BW_BK; e += THREADS) {
-      const int p = e / BW_BK;
-      const int j = e % BW_BK;
+  if (nsub > 0)
+    stage_tile<BW_KP, BW_BH, BW_G_LD, THREADS>(&g_s[0][0][0], g, h, p_begin,
+                                               p_end, h0, h, vec, tid);
+  cp_async_commit();
+  __syncthreads();  // cx_s, cy_s, ib_s visible
+  for (int t = 0; t < nsub; ++t) {
+    const int p0 = p_begin + t * BW_KP;
+    const int buf = t & 1;
+    if (t + 1 < nsub)
+      stage_tile<BW_KP, BW_BH, BW_G_LD, THREADS>(
+          &g_s[buf ^ 1][0][0], g, h, p0 + BW_KP, p_end, h0, h, vec, tid);
+    cp_async_commit();
+    // phi^T of this sub-tile while the copies fly; zero past k and the slab
+    for (int e = tid; e < BW_BK * BW_KP; e += THREADS) {
+      const int j = e / BW_KP;
+      const int p = e % BW_KP;
       const int pt = p0 + p;
       float v = 0.0f;
-      if (pt < n && c0 + j < k) {
+      if (pt < p_end && c0 + j < k) {
         const float d2 = guarded_dist2(coords[2 * (size_t)pt],
                                        coords[2 * (size_t)pt + 1], cx_s[j],
                                        cy_s[j]);
         v = basis_phi(__fmul_rn(guarded_dist(d2), ib_s[j]), basis);
       }
-      phi_s[p][j] = v;
+      phi_s[j][p] = v;
     }
-    for (int e = tid; e < BW_BN * BW_BH; e += THREADS) {
-      const int p = e / BW_BH;
-      const int q = e % BW_BH;
-      const int pt = p0 + p;
-      const int col = h0 + q;
-      g_s[p][q] = (pt < n && col < h) ? g[(size_t)pt * h + col] : 0.0f;
-    }
+    cp_async_wait_prev();
     __syncthreads();
-#pragma unroll 8
-    for (int p = 0; p < BW_BN; ++p) {
-      const float4 a = *reinterpret_cast<const float4*>(&phi_s[p][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&g_s[p][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < BW_KP; kk += 8) {
+      const int r = wm * 16 + gq;
+      uint32_t a_hi[4], a_lo[4];
+      split_tf32(phi_s[r][kk + tq], a_hi[0], a_lo[0]);
+      split_tf32(phi_s[r + 8][kk + tq], a_hi[1], a_lo[1]);
+      split_tf32(phi_s[r][kk + tq + 4], a_hi[2], a_lo[2]);
+      split_tf32(phi_s[r + 8][kk + tq + 4], a_hi[3], a_lo[3]);
 #pragma unroll
-        for (int l = 0; l < 4; ++l) acc[i][l] = fmaf(av[i], bv[l], acc[i][l]);
+      for (int j = 0; j < BW_NT; ++j) {
+        const int col = (wn * BW_NT + j) * 8 + gq;
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32(g_s[buf][kk + tq][col], b_hi[0], b_lo[0]);
+        split_tf32(g_s[buf][kk + tq + 4][col], b_hi[1], b_lo[1]);
+        mma_3xtf32(acc[j], a_hi, a_lo, b_hi, b_lo);
+      }
     }
+    __syncthreads();  // phi_s and g_s[buf] consumed before they refill
   }
+  float* out = ws + (size_t)s * k * h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + ty * 4 + i;
-    if (c >= k) continue;
+  for (int j = 0; j < BW_NT; ++j) {
 #pragma unroll
     for (int l = 0; l < 4; ++l) {
-      const int col = h0 + tx * 4 + l;
-      if (col < h) dw[(size_t)c * h + col] = acc[i][l];
+      const int c = c0 + wm * 16 + gq + (l >= 2 ? 8 : 0);
+      const int col = h0 + (wn * BW_NT + j) * 8 + 2 * tq + (l & 1);
+      if (c < k && col < h) out[(size_t)c * h + col] = acc[j][l];
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// d centers, d inv_bw: one block owns BC_BK centers and loops over all N in
-// BC_BN chunks. Thread (j = tid % 32, pg = tid / 32) owns center j and
-// points pg*8 .. pg*8+7 of the chunk: it forms their gw = g . W_j over H
-// (H in BC_HC slices through shared memory, W_j slice in registers), chains
-// dphi/dr, and keeps per-center partial sums in registers. One fixed-order
-// reduction over the 8 point groups at the end.
+// d centers, d inv_bw. Replaces _bwd_ctr_kernel (pallas_fused.py:170).
+//
+// Block (blockIdx.x, blockIdx.y) owns BC_CT centers over slab blockIdx.y
+// and writes its partial (dcx, dcy, dinv_bw) to ws (slabs, k, 3). It walks
+// the slab in BC_P-point sub-tiles and H in BC_HC-column stages; the
+// cp.async ring brings the next stage's g (points x hidden) and W
+// (centers x hidden) while 4 warps (16 points each) take gw = g W^T in
+// 3xTF32 (A = g, B = W^T). The gw fragments stay in registers: when a
+// sub-tile's last stage is in, each thread chains its own elements
+// (basis_device.cuh) and adds them to its centers' sums. At the end of the
+// slab a fixed shuffle tree sums each warp's rows, and one fixed pass
+// through shared memory sums the warps. 16 centers a block keep 120 blocks
+// in flight at N=512 while each block reads its g slab once for all 16;
+// the blocks of the other center tiles read the same g through L2. On an
+// H100 at N=32768 (0.24 ms), staging and splitting g, which all 15 center
+// tiles repeat, takes the largest share: 0.17 ms with the mma taken out;
+// the two extra TF32 products take 0.06 ms and the chain 0.04 ms.
 // ---------------------------------------------------------------------------
-constexpr int BC_BK = 32;
-constexpr int BC_BN = 64;
-constexpr int BC_HC = 32;
-constexpr int BC_PG = THREADS / BC_BK;   // 8 point groups
-constexpr int BC_PPT = BC_BN / BC_PG;    // 8 points per thread
+constexpr int BC_CT = 16;          // centers a block (mma N: 2 tiles of 8)
+constexpr int BC_P = 64;           // points a sub-tile (mma M: 4 warps x 16)
+constexpr int BC_HC = 64;          // hidden a stage (mma K: 8 steps)
+constexpr int BC_LD = BC_HC + 4;   // A and B fragment loads hit 32 banks
+constexpr int BC_THREADS = 128;
+constexpr int BC_WARPS = BC_THREADS / 32;
+static_assert(BC_WARPS * 16 == BC_P, "one warp per 16 points");
+static_assert(SLAB_UNIT % BC_P == 0, "a slab is whole sub-tiles");
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(BC_THREADS)
 bwd_centers_kernel(const float* __restrict__ coords,
                    const float* __restrict__ centers,
                    const float* __restrict__ inv_bw,
                    const float* __restrict__ w, const float* __restrict__ g,
-                   float* __restrict__ dcenters, float* __restrict__ dinv_bw,
-                   int n, int k, int h, int basis) {
-  __shared__ float g_s[BC_BN][BC_HC + 1];
-  __shared__ float w_s[BC_BK][BC_HC + 1];
-  __shared__ float px[BC_BN];
-  __shared__ float py[BC_BN];
-  __shared__ float red[3][BC_PG][BC_BK];
+                   float* __restrict__ ws, int n, int k, int h, int basis,
+                   int slabs, bool vec) {
+  __shared__ __align__(16) float g_s[2][BC_P][BC_LD];
+  __shared__ __align__(16) float w_s[2][BC_CT][BC_LD];
+  __shared__ float red[BC_WARPS][BC_CT][3];
 
   const int tid = threadIdx.x;
-  const int j = tid % BC_BK;
-  const int pg = tid / BC_BK;
-  const int c0 = blockIdx.x * BC_BK;
-  const int c = c0 + j;
-  const bool c_ok = c < k;
-  const float cx = c_ok ? centers[2 * c] : 0.0f;
-  const float cy = c_ok ? centers[2 * c + 1] : 0.0f;
-  const float ib = c_ok ? inv_bw[c] : 0.0f;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment row group, column
+  const int c0 = blockIdx.x * BC_CT;
+  const int s = blockIdx.y;
+  int p_begin, p_end;
+  slab_range(n, slabs, s, p_begin, p_end);
+  const int nq = (h + BC_HC - 1) / BC_HC;
+  const int items = (p_end - p_begin + BC_P - 1) / BC_P * nq;
 
-  float acc_cx = 0.0f, acc_cy = 0.0f, acc_ib = 0.0f;
-  for (int p0 = 0; p0 < n; p0 += BC_BN) {
-    float gw[BC_PPT];
+  // this thread's centers: column 2 tq + u of n-tile j, i.e. 8 j + 2 tq + u
+  float cx[2][2], cy[2][2], ib[2][2];
+  float acc[2][2][3];
 #pragma unroll
-    for (int i = 0; i < BC_PPT; ++i) gw[i] = 0.0f;
-    for (int hc = 0; hc < h; hc += BC_HC) {
-      __syncthreads();  // previous slice (and px/py) consumed
-      for (int e = tid; e < BC_BN * BC_HC; e += THREADS) {
-        const int p = e / BC_HC;
-        const int q = e % BC_HC;
-        const int pt = p0 + p;
-        const int col = hc + q;
-        g_s[p][q] = (pt < n && col < h) ? g[(size_t)pt * h + col] : 0.0f;
-      }
-      for (int e = tid; e < BC_BK * BC_HC; e += THREADS) {
-        const int jj = e / BC_HC;
-        const int q = e % BC_HC;
-        const int cc = c0 + jj;
-        const int col = hc + q;
-        w_s[jj][q] = (cc < k && col < h) ? w[(size_t)cc * h + col] : 0.0f;
-      }
-      if (hc == 0 && tid < BC_BN) {
-        const int pt = p0 + tid;
-        px[tid] = pt < n ? coords[2 * (size_t)pt] : 0.0f;
-        py[tid] = pt < n ? coords[2 * (size_t)pt + 1] : 0.0f;
-      }
-      __syncthreads();
-      float wr[BC_HC];
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int q = 0; q < BC_HC; ++q) wr[q] = w_s[j][q];
+    for (int u = 0; u < 2; ++u) {
+      const int c = c0 + 8 * j + 2 * tq + u;
+      const bool ok = c < k;
+      cx[j][u] = ok ? centers[2 * c] : 0.0f;
+      cy[j][u] = ok ? centers[2 * c + 1] : 0.0f;
+      ib[j][u] = ok ? inv_bw[c] : 0.0f;
+      acc[j][u][0] = acc[j][u][1] = acc[j][u][2] = 0.0f;
+    }
+
+  // item i: sub-tile i / nq, hidden stage i % nq
+  auto stage = [&](int i, int buf) {
+    const int p0 = p_begin + (i / nq) * BC_P;
+    const int hc = (i % nq) * BC_HC;
+    stage_tile<BC_P, BC_HC, BC_LD, BC_THREADS>(&g_s[buf][0][0], g, h, p0,
+                                               p_end, hc, h, vec, tid);
+    stage_tile<BC_CT, BC_HC, BC_LD, BC_THREADS>(&w_s[buf][0][0], w, h, c0,
+                                                k, hc, h, vec, tid);
+  };
+
+  float gw[2][4] = {};
+  if (items > 0) stage(0, 0);
+  cp_async_commit();
+  for (int i = 0; i < items; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < items) stage(i + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    if (i % nq == 0) {
 #pragma unroll
-      for (int i = 0; i < BC_PPT; ++i) {
-        const int p = pg * BC_PPT + i;
-        float s = gw[i];
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int q = 0; q < BC_HC; ++q) s = fmaf(g_s[p][q], wr[q], s);
-        gw[i] = s;
+        for (int l = 0; l < 4; ++l) gw[j][l] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BC_HC; kk += 8) {
+      const int r = warp * 16 + gq;
+      uint32_t a_hi[4], a_lo[4];
+      split_tf32(g_s[buf][r][kk + tq], a_hi[0], a_lo[0]);
+      split_tf32(g_s[buf][r + 8][kk + tq], a_hi[1], a_lo[1]);
+      split_tf32(g_s[buf][r][kk + tq + 4], a_hi[2], a_lo[2]);
+      split_tf32(g_s[buf][r + 8][kk + tq + 4], a_hi[3], a_lo[3]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32(w_s[buf][8 * j + gq][kk + tq], b_hi[0], b_lo[0]);
+        split_tf32(w_s[buf][8 * j + gq][kk + tq + 4], b_hi[1], b_lo[1]);
+        mma_3xtf32(gw[j], a_hi, a_lo, b_hi, b_lo);
       }
     }
-    if (c_ok) {
+    if (i % nq == nq - 1) {
+      // the chain on this thread's gw elements: points gq and gq + 8 of
+      // the warp's 16, centers 8 j + 2 tq + u
 #pragma unroll
-      for (int i = 0; i < BC_PPT; ++i) {
-        const int p = pg * BC_PPT + i;
-        if (p0 + p >= n) continue;
-        const float dx = __fsub_rn(px[p], cx);
-        const float dy = __fsub_rn(py[p], cy);
-        const float d2 = guarded_dist2(px[p], py[p], cx, cy);
-        const float d = guarded_dist(d2);
-        const float gphi = gw[i] * basis_dphi(__fmul_rn(d, ib), basis);
-        // d d / d c is -(s - c)/d
-        const float coef = spatial_coef(gphi, ib, d2, d);
-        acc_cx -= coef * dx;
-        acc_cy -= coef * dy;
-        acc_ib += gphi * d;
+      for (int half = 0; half < 2; ++half) {
+        const int pt =
+            p_begin + (i / nq) * BC_P + warp * 16 + gq + 8 * half;
+        if (pt >= p_end) continue;
+        const float px = coords[2 * (size_t)pt];
+        const float py = coords[2 * (size_t)pt + 1];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float dx = __fsub_rn(px, cx[j][u]);
+            const float dy = __fsub_rn(py, cy[j][u]);
+            const float d2 = guarded_dist2(px, py, cx[j][u], cy[j][u]);
+            const float d = guarded_dist(d2);
+            const float gphi = gw[j][2 * half + u] *
+                               basis_dphi(__fmul_rn(d, ib[j][u]), basis);
+            // d d / d c is -(s - c)/d
+            const float coef = spatial_coef(gphi, ib[j][u], d2, d);
+            acc[j][u][0] -= coef * dx;
+            acc[j][u][1] -= coef * dy;
+            acc[j][u][2] += gphi * d;
+          }
       }
     }
+    __syncthreads();  // g_s[buf], w_s[buf] consumed before they refill
   }
-  red[0][pg][j] = acc_cx;
-  red[1][pg][j] = acc_cy;
-  red[2][pg][j] = acc_ib;
+  // sum the warp's 8 row groups (lanes 4 apart), then the warps, in order
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        float v = acc[j][u][q];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (gq == 0) red[warp][8 * j + 2 * tq + u][q] = v;
+      }
   __syncthreads();
-  if (pg == 0 && c_ok) {
-    float sx = 0.0f, sy = 0.0f, si = 0.0f;
-    for (int q = 0; q < BC_PG; ++q) {
-      sx += red[0][q][j];
-      sy += red[1][q][j];
-      si += red[2][q][j];
+  if (tid < BC_CT * 3) {
+    const int cl = tid / 3, q = tid % 3;
+    if (c0 + cl < k) {
+      float v = red[0][cl][q];
+      for (int wi = 1; wi < BC_WARPS; ++wi) v += red[wi][cl][q];
+      ws[((size_t)s * k + c0 + cl) * 3 + q] = v;
     }
-    dcenters[2 * c] = sx;
-    dcenters[2 * c + 1] = sy;
-    dinv_bw[c] = si;
   }
+}
+
+// The second pass of bwd_centers: ws (slabs, k, 3) summed in slab order
+// into d centers (k, 2) and d inv_bw (k,).
+__global__ void centers_sum_kernel(const float* __restrict__ ws,
+                                   float* __restrict__ dcenters,
+                                   float* __restrict__ dinv_bw, int slabs,
+                                   int k) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= 3 * k) return;
+  float acc = ws[e];
+  for (int s = 1; s < slabs; ++s) acc += ws[(size_t)s * 3 * k + e];
+  const int c = e / 3, q = e % 3;
+  if (q < 2)
+    dcenters[2 * c + q] = acc;
+  else
+    dinv_bw[c] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -447,24 +690,46 @@ int st_fused_first_layer_fwd(const float* coords, const float* centers,
   return static_cast<int>(cudaGetLastError());
 }
 
+// dW through the workspace ws (slabs, k, h): two launches, the split-N
+// kernel and the slab sum.
 int st_fused_first_layer_bwd_w(const float* coords, const float* centers,
                                const float* inv_bw, const float* g, float* dw,
-                               int n, int k, int h, int basis, void* stream) {
-  const dim3 grid((k + BW_BK - 1) / BW_BK, (h + BW_BH - 1) / BW_BH);
-  bwd_w_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      coords, centers, inv_bw, g, dw, n, k, h, basis);
+                               float* ws, int n, int k, int h, int basis,
+                               int slabs, void* stream) {
+  if (slabs < 1 || slabs > 65535) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = h % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const dim3 grid((k + BW_BK - 1) / BW_BK, (h + BW_BH - 1) / BW_BH, slabs);
+  bwd_w_kernel<<<grid, THREADS, 0, st>>>(coords, centers, inv_bw, g, ws, n,
+                                         k, h, basis, slabs, vec);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t m = (size_t)k * h;
+  slab_sum_kernel<<<(unsigned)((m + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+      ws, dw, slabs, m);
   return static_cast<int>(cudaGetLastError());
 }
 
+// d centers, d inv_bw through the workspace ws (slabs, k, 3): two launches,
+// the split-N kernel and the slab sum.
 int st_fused_first_layer_bwd_centers(const float* coords,
                                      const float* centers,
                                      const float* inv_bw, const float* w,
                                      const float* g, float* dcenters,
-                                     float* dinv_bw, int n, int k, int h,
-                                     int basis, void* stream) {
-  const dim3 grid((k + BC_BK - 1) / BC_BK);
-  bwd_centers_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      coords, centers, inv_bw, w, g, dcenters, dinv_bw, n, k, h, basis);
+                                     float* dinv_bw, float* ws, int n, int k,
+                                     int h, int basis, int slabs,
+                                     void* stream) {
+  if (slabs < 1 || slabs > 65535) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = h % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const dim3 grid((k + BC_CT - 1) / BC_CT, slabs);
+  bwd_centers_kernel<<<grid, BC_THREADS, 0, st>>>(
+      coords, centers, inv_bw, w, g, ws, n, k, h, basis, slabs, vec);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  centers_sum_kernel<<<(3 * k + THREADS - 1) / THREADS, THREADS, 0, st>>>(
+      ws, dcenters, dinv_bw, slabs, k);
   return static_cast<int>(cudaGetLastError());
 }
 

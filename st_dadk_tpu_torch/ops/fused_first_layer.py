@@ -1,7 +1,7 @@
 """Fused basis first layer h = phi(coords; centers, bw) @ W_s and its gradients.
 
-Port of `st_dadk_tpu/ops/pallas_fused.py`. Four wrappers each launch one
-hand-written CUDA kernel (`csrc/fused_first_layer.cu`) on a CUDA tensor:
+Port of `st_dadk_tpu/ops/pallas_fused.py`. Four wrappers each run
+hand-written CUDA kernels (`csrc/fused_first_layer.cu`) on a CUDA tensor:
 
   - `fused_first_layer_fwd`          <- `_fused_kernel`   (pallas_fused.py:48)
   - `fused_first_layer_bwd_w`        <- `_bwd_w_kernel`   (pallas_fused.py:129)
@@ -15,7 +15,16 @@ the differentiable entry point (the custom VJP at pallas_fused.py:195-318 as
 an `autograd.Function`); the bandwidth -> inv_bw transform stays in torch so
 log-bandwidth gradients flow through autograd.
 
-Each wrapper counts its kernel launches in `<wrapper>.launches`.
+dW and d centers contract over the N points. Their kernels split N into
+slabs, one block per (output tile, slab), and write partial sums to a
+workspace that the wrapper allocates: (S, k, h) for dW, (S, k, 3) for
+(d cx, d cy, d inv_bw). A second kernel sums the S partials in slab order,
+so each of these wrappers makes two device launches a call and its results
+are bitwise deterministic. The slab count S is a function of (n, k, h)
+alone (`bwd_w_slabs`, `bwd_centers_slabs`; slabs per `slab_bounds`).
+
+Each wrapper counts its calls that reach the card in `<wrapper>.launches`:
+one a call, however many device launches the call makes.
 """
 from __future__ import annotations
 
@@ -37,6 +46,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 _KERNELS = None   # (fwd, bwd_w, bwd_centers, bwd_points) C entry points
+# (pointer, int) argument counts of each entry point before its stream
+_SIGNATURES = (("st_fused_first_layer_fwd", 5, 4),
+               ("st_fused_first_layer_bwd_w", 6, 5),
+               ("st_fused_first_layer_bwd_centers", 8, 5),
+               ("st_fused_first_layer_bwd_points", 6, 4))
 
 
 def _kernels():
@@ -45,14 +59,60 @@ def _kernels():
     global _KERNELS
     if _KERNELS is None:
         lib = load_library(_LIB_NAME)
-        fns = (lib.st_fused_first_layer_fwd, lib.st_fused_first_layer_bwd_w,
-               lib.st_fused_first_layer_bwd_centers,
-               lib.st_fused_first_layer_bwd_points)
-        for fn, n_ptr in zip(fns, (5, 5, 7, 6)):
-            fn.argtypes = [_P] * n_ptr + [_I] * 4 + [_P]
+        fns = []
+        for name, n_ptr, n_int in _SIGNATURES:
+            fn = getattr(lib, name)
+            fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
             fn.restype = ctypes.c_int
-        _KERNELS = fns
+            fns.append(fn)
+        _KERNELS = tuple(fns)
     return _KERNELS
+
+
+# ---------------------------------------------------------------------------
+# Slabs of the split-N kernels (bwd_w_kernel, bwd_centers_kernel)
+# ---------------------------------------------------------------------------
+
+SM_COUNT = 132        # SMs of an H100 SXM
+TARGET_BLOCKS = 4 * SM_COUNT   # both kernels keep four blocks an SM resident
+SLAB_UNIT = 64        # points: a slab is a whole number of these
+BW_TILE = (32, 128)   # bwd_w_kernel's block tile: centers x hidden
+BC_TILE = 16          # bwd_centers_kernel's block tile: centers
+
+
+def _n_slabs(n: int, tiles: int) -> int:
+    """Slabs for `tiles` output tiles: as many as keep tiles x slabs within
+    TARGET_BLOCKS, each at least SLAB_UNIT points, none empty."""
+    units = -(-n // SLAB_UNIT)
+    per = -(-units // max(1, min(units, TARGET_BLOCKS // tiles)))
+    return -(-units // per)
+
+
+def bwd_w_slabs(n: int, k: int, h: int) -> int:
+    return _n_slabs(n, -(-k // BW_TILE[0]) * -(-h // BW_TILE[1]))
+
+
+def bwd_centers_slabs(n: int, k: int) -> int:
+    return _n_slabs(n, -(-k // BC_TILE))
+
+
+def slab_bounds(n: int, slabs: int):
+    """[(begin, end)] of each slab: the kernels' rule (`slab_range` in
+    csrc/fused_first_layer.cu)."""
+    units = -(-n // SLAB_UNIT)
+    length = SLAB_UNIT * -(-units // slabs)
+    return [(min(n, s * length), min(n, (s + 1) * length))
+            for s in range(slabs)]
+
+
+def bwd_w_workspace(n: int, k: int, h: int, device) -> torch.Tensor:
+    return torch.empty((bwd_w_slabs(n, k, h), k, h), dtype=torch.float32,
+                       device=device)
+
+
+def bwd_centers_workspace(n: int, k: int, device) -> torch.Tensor:
+    return torch.empty((bwd_centers_slabs(n, k), k, 3), dtype=torch.float32,
+                       device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -123,10 +183,12 @@ def fused_first_layer_bwd_w(coords: torch.Tensor, centers: torch.Tensor,
     n, k = check_basis(_WHAT, coords, centers, inv_bw, basis_id, h)
     check("g", g, (n, h))
     dw = torch.empty((k, h), dtype=torch.float32, device=coords.device)
+    ws = bwd_w_workspace(n, k, h, coords.device)
     with torch.cuda.device(coords.device):
         rc = _kernels()[1](
             coords.data_ptr(), centers.data_ptr(), inv_bw.data_ptr(),
-            g.data_ptr(), dw.data_ptr(), n, k, h, basis_id, stream(coords))
+            g.data_ptr(), dw.data_ptr(), ws.data_ptr(), n, k, h, basis_id,
+            ws.shape[0], stream(coords))
     raise_on(rc, "fused_first_layer_bwd_w")
     fused_first_layer_bwd_w.launches += 1
     return dw
@@ -145,11 +207,12 @@ def fused_first_layer_bwd_centers(coords: torch.Tensor, centers: torch.Tensor,
     check("g", g, (n, h))
     dc = torch.empty((k, 2), dtype=torch.float32, device=coords.device)
     dib = torch.empty((k,), dtype=torch.float32, device=coords.device)
+    ws = bwd_centers_workspace(n, k, coords.device)
     with torch.cuda.device(coords.device):
         rc = _kernels()[2](
             coords.data_ptr(), centers.data_ptr(), inv_bw.data_ptr(),
             w.data_ptr(), g.data_ptr(), dc.data_ptr(), dib.data_ptr(),
-            n, k, h, basis_id, stream(coords))
+            ws.data_ptr(), n, k, h, basis_id, ws.shape[0], stream(coords))
     raise_on(rc, "fused_first_layer_bwd_centers")
     fused_first_layer_bwd_centers.launches += 1
     return dc, dib

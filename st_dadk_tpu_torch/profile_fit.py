@@ -23,6 +23,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -126,6 +127,12 @@ def main(argv=None) -> int:
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    # the port's own kernels (csrc/*.cu), by function name, a step
+    ours = {}
+    for name, ms in by_name.items():
+        m = re.match(r"\(anonymous namespace\)::(\w+)\(", name)
+        if m:
+            ours[m.group(1)] = ours.get(m.group(1), 0.0) + ms / steps
 
     report = {
         "card": card, "epochs": EPOCHS, "steps": steps,
@@ -141,6 +148,7 @@ def main(argv=None) -> int:
             "busy_ms": busy_ms,
             "busy_share": busy_ms / (1e3 * prof_wall),
             "top_device_ms": top,
+            "port_kernels_ms_per_step": ours,
         },
     }
     p = report["profiled"]
@@ -153,6 +161,8 @@ def main(argv=None) -> int:
           f"the same fit's wall", flush=True)
     for name, ms in top:
         print(f"  {ms:9.3f} ms  {name[:90]}")
+    print("the port's kernels, device ms a step: " + ", ".join(
+        f"{k} {v:.5f}" for k, v in sorted(ours.items())), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(report, indent=1))
     args.out.with_suffix(".txt").write_text(prof.key_averages().table(
