@@ -9,9 +9,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      one nvcc process each, both at once;
   2. hold each of the seven kernels against its plain PyTorch version on
      the card, at the fit's shapes and two ragged ones, for all three bases
-     and a center lying exactly on a point; launch the two split-N kernels
-     (dW, d centers) twice at N=32768 and at (200, 106, 48) and require
-     bitwise equal outputs; time kernel and plain version;
+     and a center lying exactly on a point; launch the forward and the
+     three slab-summing kernels (fused dW and d centers, basis d centers)
+     twice at N=32768 and at (200, 106, 48) and require bitwise equal
+     outputs; at the three fit shapes, time kernel and plain version (CUDA
+     events around 20 eager calls, host included, and the device time a
+     launch from a CUDA-graph replay) beside the kernel's bound;
   3. the bench-workload DA-STDK fit (12 epochs, basis unfreezing at epoch
      10) through `run_single_experiment`, on the fused route;
   4. a ragged-k lane of that workload (centers 25+81 padded to 227) through
@@ -58,10 +61,17 @@ RAGGED_SHAPE = (200, 106, 48)
 # H not a multiple of 4: the split-N kernels stage g and W with 4-byte
 # copies instead of 16-byte ones
 ODD_SHAPE = (77, 37, 19)
-# the split-N kernels, which sum slab partials: launched twice at these
-# shapes, they must give bitwise equal outputs
-SPLIT_N = ("fused_first_layer_bwd_w", "fused_first_layer_bwd_centers")
+# the kernels that sum slab partials in a fixed order, and the forward,
+# which sums over k in one: launched twice at these shapes, each must give
+# bitwise equal outputs
+TWO_LAUNCHES = ("fused_first_layer_fwd", "fused_first_layer_bwd_w",
+                "fused_first_layer_bwd_centers", "spatial_basis_bwd_centers")
 DETERMINISM_SHAPES = (SLICE_SHAPES[-1], RAGGED_SHAPE)
+# peak rates of one H100 SXM (NVIDIA's data sheet): a 3xTF32 product takes
+# three TF32 products on the tensor cores; float32 outside them; HBM
+TF32X3_FLOPS, F32_FLOPS, HBM_BYTES_S = 495e12 / 3, 67e12, 3.35e12
+# float32 operations of one (point, center) pair: phi, and the phi' chain
+PHI_OPS, DPHI_OPS = 20, 25
 # the basis unfreezes at epoch 10 of the bench workload: 12 epochs train the
 # centers for two
 EPOCHS = 12
@@ -129,17 +139,33 @@ def _outputs(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def _time_ms(torch, fn, reps=20):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def bound_ms(nm, n, k, h):
+    """(least ms the card could take, "bytes" or "operations") for kernel
+    `nm` at (n, k, h): each input read once and each output written once at
+    the HBM rate, against its operations at their peak rate (the fused
+    kernels' product 2 n k h at the 3xTF32 rate and their per-pair chain in
+    float32; the basis kernels' per-pair float32 work)."""
+    f = 4
+    read = f * (2 * n + 3 * k)                 # coords, centers, inv_bw
+    nk = n * k
+    if nm.startswith("fused_first_layer"):
+        product = 2 * n * k * h / TF32X3_FLOPS
+        chain = (PHI_OPS if nm.endswith("fwd") or nm.endswith("bwd_w")
+                 else DPHI_OPS) * nk / F32_FLOPS
+        ops = max(product, chain)
+        moved = read + {"fwd": f * k * h + f * n * h,
+                        "bwd_w": f * n * h + f * k * h,
+                        "bwd_centers": f * k * h + f * n * h + 3 * f * k,
+                        "bwd_points": f * k * h + f * n * h + 2 * f * n,
+                        }[nm[len("fused_first_layer_"):]]
+    else:
+        ops = (PHI_OPS if nm.endswith("fwd") else DPHI_OPS) * nk / F32_FLOPS
+        moved = read + f * nk + {"fwd": 0, "bwd_points": 2 * f * n,
+                                 "bwd_centers": 3 * f * k,
+                                 }[nm[len("spatial_basis_"):]]
+    t_bytes = moved / HBM_BYTES_S
+    return 1e3 * max(ops, t_bytes), ("operations" if ops >= t_bytes
+                                     else "bytes")
 
 
 def _pairs(ffl, sbk, coords, centers, inv_bw, w, grad_h, grad_phi, bid):
@@ -197,12 +223,13 @@ def kernel_phase(torch, ffl, sbk, basis_ids, cal):
         torch.cuda.synchronize()
         line = [f"n={n} k={k} h={h} {basis}{' zero-distance' if zero else ''}:"]
         if (n, k, h) in DETERMINISM_SHAPES:
-            for nm in SPLIT_N:
+            for nm in TWO_LAUNCHES:
                 again = pairs[nm][0]()
                 check(all(torch.equal(a, b) for a, b in
                           zip(_outputs(got[nm]), _outputs(again))),
                       f"{nm}: two launches differ at {line[0]}")
-            line.append("dW, d centers bitwise equal over two launches;")
+            line.append("fwd and the slab-summing kernels bitwise equal over "
+                        "two launches;")
         for nm, (_, plain) in pairs.items():
             want = plain()
             rtol, atol = BARS[nm]
@@ -218,25 +245,52 @@ def kernel_phase(torch, ffl, sbk, basis_ids, cal):
                       f"(max |d| {mx:.3e}, rtol {rtol}, atol {atol})")
         print("  " + " ".join(line), flush=True)
 
-    print("kernel times on the card (CUDA events, mean of 20 launches):")
+    from st_dadk_tpu_torch.utils.timing import (GRAPH_REPLAYS, GRAPH_REPS,
+                                                events_ms, graph_ms, in_turns)
+
+    print("kernel times on the card at the fit shapes, Wendland basis: "
+          "'eager' = CUDA events around 20 calls (host included), 'device' "
+          f"= a CUDA graph of {GRAPH_REPS} calls replayed {GRAPH_REPLAYS} "
+          "times (device time a launch); each pair in turns plain, kernel, "
+          "kernel, plain; 'bound' = the least time the card could take:")
     for (n, k, h) in SLICE_SHAPES:
-        print(f"  slabs at N={n}: bwd_w S={ffl.bwd_w_slabs(n, k, h)}, "
-              f"bwd_centers S={ffl.bwd_centers_slabs(n, k)}", flush=True)
+        print(f"  N={n}: forward tile {ffl.fwd_tile(n, k, h)}, slabs: fused "
+              f"bwd_w {ffl.bwd_w_slabs(n, k, h)}, fused bwd_centers "
+              f"{ffl.bwd_centers_slabs(n, k)}, basis bwd_centers "
+              f"{sbk.basis_bwd_centers_slabs(n, k)}", flush=True)
         coords, centers, bw, w, grad_h, grad_phi = _inputs(torch, n, k, h,
                                                            seed=99)
         inv_bw = (1.0 / bw).contiguous()
         pairs = _pairs(ffl, sbk, coords, centers, inv_bw, w, grad_h, grad_phi,
                        basis_ids["wendland"])
         for nm, (kern, plain) in pairs.items():
-            # plain, kernel, kernel, plain: the pairs see the same card state
-            p1 = _time_ms(torch, plain)
-            k1 = _time_ms(torch, kern)
-            k2 = _time_ms(torch, kern)
-            p2 = _time_ms(torch, plain)
-            times[(nm, n)] = ((k1 + k2) / 2, (p1 + p2) / 2)
-            print(f"  {nm:31s} N={n:6d} k={k} H={h}: kernel "
-                  f"{times[(nm, n)][0]:.4f} ms  plain {times[(nm, n)][1]:.4f}"
-                  f" ms", flush=True)
+            t = {key: in_turns(timer, plain, kern)
+                 for key, timer in (("eager", events_ms),
+                                    ("device", graph_ms))}
+            b, by = bound_ms(nm, n, k, h)
+            times[(nm, n)] = {"ms": t["device"][0], "plain_ms": t["device"][1],
+                              "eager_ms": t["eager"][0],
+                              "eager_plain_ms": t["eager"][1],
+                              "bound_ms": b, "bound_by": by,
+                              "library_ms": None}
+            extra = ""
+            if nm == "fused_first_layer_fwd":
+                # the product alone, on a phi computed beforehand: a
+                # yardstick only, the port never calls it
+                phi = sbk.plain_fwd(coords, centers, inv_bw,
+                                    basis_ids["wendland"])
+                lib = graph_ms(lambda: torch.matmul(phi, w))
+                times[(nm, n)]["library_ms"] = lib
+                extra = f"  library (torch.matmul(phi, w), the product " \
+                        f"alone) {lib:.4f} ms"
+                del phi
+            print(f"  {nm:31s} N={n:6d}: device {t['device'][0]:.4f} ms "
+                  f"(plain {t['device'][1]:.4f}), eager {t['eager'][0]:.4f} "
+                  f"ms (plain {t['eager'][1]:.4f}), bound {b:.4f} ms "
+                  f"({by}, {100 * b / t['device'][0]:.1f} % of device)"
+                  + extra, flush=True)
+        del coords, centers, bw, w, grad_h, grad_phi, inv_bw, pairs
+        torch.cuda.empty_cache()
     return worst, times
 
 
@@ -286,12 +340,18 @@ def main(argv=None) -> int:
     if not args.kernels_only:
         launches = Phases(torch, ffl, sbk).run()
 
+    # ms, plain_ms, bound_ms and library_ms at the training step's shape
+    # (device time a launch); "by_n" holds all three fit shapes
     step_n = SLICE_SHAPES[0][0]
     report = {"kernels": [
         {"name": nm, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[nm], "max_abs_err": worst[nm],
-         "ms": times[(nm, step_n)][0], "plain_ms": times[(nm, step_n)][1],
-         "shape_of_ms": list(SLICE_SHAPES[0])}
+         **times[(nm, step_n)], "shape_of_ms": list(SLICE_SHAPES[0]),
+         "library_call": ("torch.matmul(phi, w), the product alone on a phi "
+                          "computed beforehand"
+                          if times[(nm, step_n)]["library_ms"] is not None
+                          else None),
+         "by_n": {str(n): times[(nm, n)] for n, _, _ in SLICE_SHAPES}}
         for nm, (src, replaces) in KERNELS.items()]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,10 @@
 // distance (st_dadk_tpu_torch/ops/basis.py), formed with uncontracted IEEE
 // operations so that r is bitwise equal to it: the triangular basis's jump
 // in dphi at r = 1 then falls on the same side in kernel and plain version.
+// phi itself need not be bitwise: Wendland's "/ 3" is a multiply by the
+// rounded 1/3 (within an ulp of the division, and phi(0) is exactly 1),
+// because the IEEE division was most of the cost of phi in the fused forward
+// (PERF.md, the forward's source variants).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,7 +21,8 @@ __device__ __forceinline__ float basis_phi(float r, int basis) {
     const float rc = fminf(r, 1.0f);
     const float om = 1.0f - rc;
     const float om2 = om * om;
-    return om2 * om2 * om2 * (35.0f * rc * rc + 18.0f * rc + 3.0f) / 3.0f;
+    return om2 * om2 * om2 * (35.0f * rc * rc + 18.0f * rc + 3.0f) *
+           (1.0f / 3.0f);
   }
   if (basis == 1) return expf(-0.5f * r * r);  // Gaussian
   return fmaxf(1.0f - r, 0.0f);                // triangular

@@ -16,33 +16,50 @@
 //   bwd_points_kernel  <- _bwd_pts_kernel (:147; call :257)
 //   bwd_centers_kernel <- _bwd_ctr_kernel (:170; call :275)
 // The shared device functions (_phi / _dphi, pallas_basis.py:44-63) are in
-// basis_device.cuh.
+// basis_device.cuh, the slab rule and the ordered slab sums in slabs.cuh.
 //
 // What bounds them on an H100: all four are matrix products with one
 // operand computed on the fly (3.8 GFLOP at N=32768, k=227, H=256, on
-// 35 MB of traffic), so arithmetic bounds them, not device memory.
+// 35 MB of traffic), so arithmetic bounds them, not device memory: 23 us
+// at the 3xTF32 rate (495 / 3 TFLOP/s) against 10 us for the bytes.
 //
 // fwd_kernel and bwd_points_kernel contract over k or H, which are short,
-// and own output tiles of points: N/64 blocks, enough at every fit shape.
-// They are a plain shared-memory tiling on float32 FFMA (67 TFLOP/s): 4x4
-// register outputs with float4 shared loads in the forward, 8 gw values
-// against a register slice of W in d coords.
+// and own output tiles of points. bwd_points_kernel is a plain
+// shared-memory tiling on float32 FFMA (67 TFLOP/s): 8 gw values against a
+// register slice of W. fwd_kernel, which runs on every step, validation
+// and predict chunk, is designed for this card:
+//   - a block owns BN points x BH hidden columns and builds each phi chunk
+//     (BN points x 16-64 centers) once in shared memory, for all BH
+//     columns; phi chunk t + 1 is built while the warps take chunk t's
+//     product.
+//   - the tile (BN, BH) is chosen from (n, k, h) in Python
+//     (ops/fused_first_layer.py::fwd_tile): 16 x 64 at N=512 (128 blocks;
+//     phi built 4 times a point, for 16 points a block), 64 x 256 at
+//     N=32768 (512 blocks; phi built once). k is never split, so each
+//     output is summed over k in one fixed order by one thread.
+//   - the product runs in 3xTF32 on the tensor cores (below; with a
+//     truncating split, two instructions an operand), with W staged
+//     through a 4-deep ring of cp.async copies.
 //
 // bwd_w_kernel and bwd_centers_kernel contract over N. Owning their small
 // outputs whole and walking all N (the TPU's sequential grid axis) left
 // 16 and 8 blocks on 132 SMs at FFMA rate. Their design for this card:
 //   - split N: a block owns one output tile over one slab of points and
 //     writes its partial sum to a workspace; a second small pass sums the
-//     slabs in slab order, one thread per output element. The slab count
-//     is a function of (n, k, h) (ops/fused_first_layer.py), 128 and 120
-//     blocks at N=512.
-//   - 3xTF32 on the tensor cores (mma.sync m16n8k8): each float32 operand
-//     splits into hi = tf32(x) and lo = tf32(x - hi), and the sum takes
-//     lo*hi' + hi*lo' + hi*hi' in float32, which is as accurate as float32
-//     FFMA. One TF32 pass keeps 10 mantissa bits and gives gw = g W^T a
-//     relative error of 3e-4, past the float32 parity bars (rtol 2e-4).
+//     slabs in slab order, one thread per output element (slabs.cuh). The
+//     slab count is a function of (n, k, h) (ops/fused_first_layer.py),
+//     128 and 120 blocks at N=512.
 //   - a double-buffered ring of cp.async copies stages g (and W) into
 //     shared memory, so the next tile's loads overlap this tile's mma.
+//
+// 3xTF32 (mma.sync m16n8k8), in all three tensor-core kernels: each
+// float32 operand splits into hi = tf32(x) and lo = tf32(x - hi), and the
+// sum takes lo*hi' + hi*lo' + hi*hi' in float32, which is as accurate as
+// float32 FFMA. One TF32 pass keeps 10 mantissa bits: it gives gw = g W^T
+// a relative error of 3e-4, past the float32 parity bars (rtol 2e-4), and
+// h = phi W an error past the forward's atol 1e-4 at the bench shape
+// (tests/test_torch_fused_backward_design.py and
+// tests/test_torch_kernel_design.py emulate both in numpy).
 // wgmma and TMA (the full tensor-core rate) are later work.
 //
 // No kernel uses atomics: every sum runs in a fixed order, so results are
@@ -56,6 +73,7 @@
 #include <stdint.h>
 
 #include "basis_device.cuh"
+#include "slabs.cuh"
 
 namespace {
 
@@ -64,104 +82,15 @@ using st_basis::basis_phi;
 using st_basis::guarded_dist;
 using st_basis::guarded_dist2;
 using st_basis::spatial_coef;
+using st_slabs::SLAB_UNIT;
+using st_slabs::slab_range;
 
-// ---------------------------------------------------------------------------
-// Forward: one block owns a (FWD_BN points x FWD_BH hidden) output tile and
-// loops over k in FWD_BK chunks: phi chunk -> shared, W chunk -> shared,
-// 4x4 register micro-tile per thread.
-// ---------------------------------------------------------------------------
-constexpr int FWD_BN = 64;
-constexpr int FWD_BH = 64;
-constexpr int FWD_BK = 32;
 constexpr int THREADS = 256;
 
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const float* __restrict__ coords, const float* __restrict__ centers,
-           const float* __restrict__ inv_bw, const float* __restrict__ w,
-           float* __restrict__ out, int n, int k, int h, int basis) {
-  __shared__ __align__(16) float phi_s[FWD_BK][FWD_BN];
-  __shared__ __align__(16) float w_s[FWD_BK][FWD_BH];
-  __shared__ float px[FWD_BN];
-  __shared__ float py[FWD_BN];
-
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * FWD_BN;
-  const int h0 = blockIdx.y * FWD_BH;
-  if (tid < FWD_BN) {
-    const int p = n0 + tid;
-    px[tid] = p < n ? coords[2 * (size_t)p] : 0.0f;
-    py[tid] = p < n ? coords[2 * (size_t)p + 1] : 0.0f;
-  }
-  const int tx = tid % 16;  // hidden micro-tile column
-  const int ty = tid / 16;  // point micro-tile row
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int l = 0; l < 4; ++l) acc[i][l] = 0.0f;
-
-  for (int k0 = 0; k0 < k; k0 += FWD_BK) {
-    __syncthreads();  // previous chunk consumed (and px/py visible)
-    for (int e = tid; e < FWD_BK * FWD_BN; e += THREADS) {
-      const int j = e / FWD_BN;
-      const int p = e % FWD_BN;
-      const int c = k0 + j;
-      float v = 0.0f;
-      if (c < k && n0 + p < n) {
-        const float d2 = guarded_dist2(px[p], py[p], centers[2 * c],
-                                       centers[2 * c + 1]);
-        v = basis_phi(__fmul_rn(guarded_dist(d2), inv_bw[c]), basis);
-      }
-      phi_s[j][p] = v;
-    }
-    for (int e = tid; e < FWD_BK * FWD_BH; e += THREADS) {
-      const int j = e / FWD_BH;
-      const int q = e % FWD_BH;
-      const int c = k0 + j;
-      const int col = h0 + q;
-      w_s[j][q] = (c < k && col < h) ? w[(size_t)c * h + col] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < FWD_BK; ++j) {
-      const float4 a = *reinterpret_cast<const float4*>(&phi_s[j][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&w_s[j][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int l = 0; l < 4; ++l) acc[i][l] = fmaf(av[i], bv[l], acc[i][l]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = n0 + ty * 4 + i;
-    if (p >= n) continue;
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int col = h0 + tx * 4 + l;
-      if (col < h) out[(size_t)p * h + col] = acc[i][l];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Building blocks of the two split-N kernels: the slab rule, cp.async
-// staging, and 3xTF32 mma.sync.
+// Building blocks of the tensor-core kernels: cp.async staging and 3xTF32
+// mma.sync.
 // ---------------------------------------------------------------------------
-constexpr int SLAB_UNIT = 64;  // a slab is a whole number of 64-point units
-
-// Slab s of `slabs` covers points [s * len, min(n, (s + 1) * len)) with len
-// = SLAB_UNIT * ceil(ceil(n / SLAB_UNIT) / slabs): the rule of
-// ops/fused_first_layer.py::slab_bounds.
-__device__ __forceinline__ void slab_range(int n, int slabs, int s,
-                                           int& begin, int& end) {
-  const int units = (n + SLAB_UNIT - 1) / SLAB_UNIT;
-  const int len = SLAB_UNIT * ((units + slabs - 1) / slabs);
-  begin = min(n, s * len);
-  end = min(n, begin + len);
-}
 
 // Asynchronous global -> shared copy of 16 (or 4) bytes; with `ok` false it
 // reads nothing and fills the destination with zeros.
@@ -185,9 +114,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Wait until at most one committed group (the newest) is still in flight.
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// Wait until at most N committed groups (the newest) are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Stage the (ROWS x COLS) tile at (r0, c0) of the row-major matrix src
@@ -232,6 +162,17 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
 }
 
+// The forward's cheaper 3xTF32 split: hi = x with its 13 low bits cleared
+// (tf32 rounded toward zero) and lo = x - hi, exact in float32; mma.sync
+// reads only the 19 high bits of a .tf32 register, so lo enters it
+// truncated. Two instructions against about ten for split_tf32 (cvt.rna
+// has no single SASS instruction); hi + lo keeps x to 2^-21 |x|.
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& hi,
+                                                 uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
 // d += a b on one 16x8x8 tile: a row-major (16 x 8), b column-major (8 x 8).
 // Fragments (g = lane / 4, t = lane % 4): a = (g, t), (g + 8, t),
 // (g, t + 4), (g + 8, t + 4); b = (t, g), (t + 4, g); d = (g, 2t),
@@ -256,16 +197,195 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, a_hi, b_hi);
 }
 
-// The second pass of bwd_w: out[e] = sum over s of ws[s][e], in slab order,
-// one thread per output element.
-__global__ void slab_sum_kernel(const float* __restrict__ ws,
-                                float* __restrict__ out, int slabs,
-                                size_t m) {
-  const size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-  if (e >= m) return;
-  float acc = ws[e];
-  for (int s = 1; s < slabs; ++s) acc += ws[(size_t)s * m + e];
-  out[e] = acc;
+// ---------------------------------------------------------------------------
+// h = phi W. Replaces _fused_kernel (pallas_fused.py:48).
+//
+// Block (blockIdx.x, blockIdx.y) owns the (BN points x BH hidden) output
+// tile and walks k in KC-center chunks. Each chunk's phi (BN x KC) is
+// built once in shared memory (double-buffered) and serves all BH columns;
+// its W rows (KC x BH) come through a FWD_STAGES-deep ring of cp.async
+// copies. In iteration t the threads build phi chunk t + 1 (each thread
+// one center, its values fetched into registers an iteration ahead) while
+// the warps (WM along points x 8 / WM along hidden, MT x NT mma tiles
+// each) take chunk t's product in 3xTF32, so one __syncthreads a chunk
+// suffices. Small tiles take wide chunks: at N=512 the 16 x 64 tile walks
+// k=227 in 4 chunks of 64, so the chain of chunks a block waits through
+// is short; the 64 x 256 tile takes chunks of 16 to keep two blocks an SM.
+// Padded centers and points past N get phi = 0, W rows past k and columns
+// past H are zero-filled by the copies, and the stores are masked. Shared
+// memory does not depend on k, so any k runs.
+// ---------------------------------------------------------------------------
+constexpr int FWD_STAGES = 4;  // W chunks in the ring
+
+template <int BN, int BH, int KC>
+struct FwdSmem {
+  static constexpr int W_LD = BH + 8;    // B fragment loads hit 32 banks
+  static constexpr int PHI_LD = KC + 4;  // A fragment loads hit 32 banks
+  static constexpr int W_FLOATS = FWD_STAGES * KC * W_LD;
+  static constexpr int PHI_FLOATS = 2 * BN * PHI_LD;
+  static constexpr size_t BYTES = sizeof(float) * (W_FLOATS + PHI_FLOATS +
+                                                   2 * BN);
+};
+
+template <int BN, int BH, int WM, int KC>
+__global__ void __launch_bounds__(THREADS, 2)
+fwd_kernel(const float* __restrict__ coords, const float* __restrict__ centers,
+           const float* __restrict__ inv_bw, const float* __restrict__ w,
+           float* __restrict__ out, int n, int k, int h, int basis,
+           bool vec) {
+  constexpr int WN = THREADS / 32 / WM;  // warps along hidden
+  constexpr int MT = BN / 16 / WM;       // m-tiles of 16 points a warp
+  constexpr int NT = BH / 8 / WN;        // n-tiles of 8 columns a warp
+  static_assert(MT >= 1 && MT * 16 * WM == BN && NT >= 1 &&
+                    NT * 8 * WN == BH && BH % 32 == 0,
+                "the warps tile the block's outputs");
+  static_assert(KC % 8 == 0 && THREADS % KC == 0 && BN * KC % THREADS == 0,
+                "whole mma k-steps; a thread keeps one center a chunk");
+  constexpr int ROWS = THREADS / KC;     // points a pass of the phi build
+  using S = FwdSmem<BN, BH, KC>;
+  constexpr int PHI_LD = S::PHI_LD;
+  extern __shared__ __align__(16) float smem[];
+  float* w_s = smem;                    // [FWD_STAGES][KC][S::W_LD]
+  float* phi_s = smem + S::W_FLOATS;    // [2][BN][PHI_LD]
+  float* px = phi_s + S::PHI_FLOATS;    // [BN]
+  float* py = px + BN;                  // [BN]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment row group, column
+  const int wm = warp % WM, wn = warp / WM;
+  const int n0 = blockIdx.x * BN;
+  const int h0 = blockIdx.y * BH;
+  const int chunks = (k + KC - 1) / KC;
+  const int jc = tid % KC;  // this thread's center in every chunk
+
+  auto stage_w = [&](int t) {
+    stage_tile<KC, BH, S::W_LD, THREADS>(
+        w_s + (t % FWD_STAGES) * KC * S::W_LD, w, h, t * KC, k, h0,
+        h, vec, tid);
+  };
+  auto load_center = [&](int t, float& cx, float& cy, float& ib) {
+    const int c = t * KC + jc;
+    const bool ok = c < k;
+    cx = ok ? centers[2 * c] : 0.0f;
+    cy = ok ? centers[2 * c + 1] : 0.0f;
+    ib = ok ? inv_bw[c] : 0.0f;
+  };
+  // a fixed number of independent evaluations a thread, masked by select
+  // (padded centers and points hold 0 coordinates, so phi is finite)
+  auto build_phi = [&](int t, float cx, float cy, float ib) {
+    float* dst = phi_s + (t & 1) * BN * PHI_LD;
+    const bool c_ok = t * KC + jc < k;
+#pragma unroll
+    for (int i = 0; i < BN * KC / THREADS; ++i) {
+      const int p = tid / KC + i * ROWS;
+      const float d2 = guarded_dist2(px[p], py[p], cx, cy);
+      const float v = basis_phi(__fmul_rn(guarded_dist(d2), ib), basis);
+      dst[p * PHI_LD + jc] = c_ok && n0 + p < n ? v : 0.0f;
+    }
+  };
+
+  // W chunks 0 .. FWD_STAGES - 2 in flight before anything else
+#pragma unroll
+  for (int t = 0; t < FWD_STAGES - 1; ++t) {
+    if (t < chunks) stage_w(t);
+    cp_async_commit();
+  }
+  if (tid < BN) {
+    const int p = n0 + tid;
+    px[tid] = p < n ? coords[2 * (size_t)p] : 0.0f;
+    py[tid] = p < n ? coords[2 * (size_t)p + 1] : 0.0f;
+  }
+  float cx, cy, ib;  // the center of the next chunk to build
+  load_center(0, cx, cy, ib);
+  __syncthreads();  // px, py visible
+  build_phi(0, cx, cy, ib);
+  load_center(1, cx, cy, ib);
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int l = 0; l < 4; ++l) acc[mt][nt][l] = 0.0f;
+
+  for (int t = 0; t < chunks; ++t) {
+    cp_async_wait<FWD_STAGES - 2>();  // this thread's copies of chunk t
+    // everyone's copies of chunk t and phi chunk t are visible; the
+    // buffers of chunk t - 1 are free
+    __syncthreads();
+    if (t + FWD_STAGES - 1 < chunks) stage_w(t + FWD_STAGES - 1);
+    cp_async_commit();
+    if (t + 1 < chunks) {
+      build_phi(t + 1, cx, cy, ib);
+      load_center(t + 2, cx, cy, ib);
+    }
+    const float* a_s = phi_s + (t & 1) * BN * PHI_LD;
+    const float* b_s = w_s + (t % FWD_STAGES) * KC * S::W_LD;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 8) {
+      uint32_t a_hi[MT][4], a_lo[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* a = a_s + ((wm * MT + mt) * 16 + gq) * PHI_LD + kk + tq;
+        split_tf32_trunc(a[0], a_hi[mt][0], a_lo[mt][0]);
+        split_tf32_trunc(a[8 * PHI_LD], a_hi[mt][1], a_lo[mt][1]);
+        split_tf32_trunc(a[4], a_hi[mt][2], a_lo[mt][2]);
+        split_tf32_trunc(a[8 * PHI_LD + 4], a_hi[mt][3], a_lo[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* b = b_s + (kk + tq) * S::W_LD + (wn * NT + nt) * 8 + gq;
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32_trunc(b[0], b_hi[0], b_lo[0]);
+        split_tf32_trunc(b[4 * S::W_LD], b_hi[1], b_lo[1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma_3xtf32(acc[mt][nt], a_hi[mt], a_lo[mt], b_hi, b_lo);
+      }
+    }
+  }
+  // each thread holds column pairs (2 tq, 2 tq + 1): one 8-byte store a
+  // pair where H is even, so 4 lanes fill a 32-byte sector of a row
+  const bool pairs = h % 2 == 0;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = n0 + (wm * MT + mt) * 16 + gq + 8 * half;
+        const int col = h0 + (wn * NT + nt) * 8 + 2 * tq;
+        const float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
+        if (p >= n || col >= h) continue;
+        float* dst = out + (size_t)p * h + col;
+        if (pairs) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          dst[0] = v0;
+          if (col + 1 < h) dst[1] = v1;
+        }
+      }
+}
+
+// One forward launch at tile (BN, BH) on `stream`.
+template <int BN, int BH, int WM, int KC>
+cudaError_t launch_fwd(const float* coords, const float* centers,
+                       const float* inv_bw, const float* w, float* out, int n,
+                       int k, int h, int basis, cudaStream_t stream) {
+  constexpr size_t bytes = FwdSmem<BN, BH, KC>::BYTES;
+  if (bytes > 48 * 1024) {  // above 48 KB only as opted-in dynamic memory
+    const cudaError_t err = cudaFuncSetAttribute(
+        fwd_kernel<BN, BH, WM, KC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
+  const bool vec = h % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const dim3 grid((n + BN - 1) / BN, (h + BH - 1) / BH);
+  fwd_kernel<BN, BH, WM, KC><<<grid, THREADS, bytes, stream>>>(
+      coords, centers, inv_bw, w, out, n, k, h, basis, vec);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -356,7 +476,7 @@ bwd_w_kernel(const float* __restrict__ coords,
       }
       phi_s[j][p] = v;
     }
-    cp_async_wait_prev();
+    cp_async_wait<1>();
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BW_KP; kk += 8) {
@@ -470,7 +590,7 @@ bwd_centers_kernel(const float* __restrict__ coords,
     const int buf = i & 1;
     if (i + 1 < items) stage(i + 1, buf ^ 1);
     cp_async_commit();
-    cp_async_wait_prev();
+    cp_async_wait<1>();
     __syncthreads();
     if (i % nq == 0) {
 #pragma unroll
@@ -546,23 +666,6 @@ bwd_centers_kernel(const float* __restrict__ coords,
       ws[((size_t)s * k + c0 + cl) * 3 + q] = v;
     }
   }
-}
-
-// The second pass of bwd_centers: ws (slabs, k, 3) summed in slab order
-// into d centers (k, 2) and d inv_bw (k,).
-__global__ void centers_sum_kernel(const float* __restrict__ ws,
-                                   float* __restrict__ dcenters,
-                                   float* __restrict__ dinv_bw, int slabs,
-                                   int k) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= 3 * k) return;
-  float acc = ws[e];
-  for (int s = 1; s < slabs; ++s) acc += ws[(size_t)s * 3 * k + e];
-  const int c = e / 3, q = e % 3;
-  if (q < 2)
-    dcenters[2 * c + q] = acc;
-  else
-    dinv_bw[c] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -681,13 +784,28 @@ bwd_points_kernel(const float* __restrict__ coords,
 
 extern "C" {
 
+// h = phi W at the tile (tile_n points x tile_h hidden) that
+// ops/fused_first_layer.py::fwd_tile chose; one of the tiles below.
 int st_fused_first_layer_fwd(const float* coords, const float* centers,
                              const float* inv_bw, const float* w, float* out,
-                             int n, int k, int h, int basis, void* stream) {
-  const dim3 grid((n + FWD_BN - 1) / FWD_BN, (h + FWD_BH - 1) / FWD_BH);
-  fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      coords, centers, inv_bw, w, out, n, k, h, basis);
-  return static_cast<int>(cudaGetLastError());
+                             int n, int k, int h, int basis, int tile_n,
+                             int tile_h, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  // <points, hidden, warps along points, centers a chunk>
+  if (tile_n == 64 && tile_h == 256)
+    err = launch_fwd<64, 256, 2, 16>(coords, centers, inv_bw, w, out, n, k,
+                                     h, basis, st);
+  else if (tile_n == 64 && tile_h == 128)
+    err = launch_fwd<64, 128, 2, 32>(coords, centers, inv_bw, w, out, n, k,
+                                     h, basis, st);
+  else if (tile_n == 32 && tile_h == 64)
+    err = launch_fwd<32, 64, 2, 64>(coords, centers, inv_bw, w, out, n, k, h,
+                                    basis, st);
+  else if (tile_n == 16 && tile_h == 64)
+    err = launch_fwd<16, 64, 1, 64>(coords, centers, inv_bw, w, out, n, k, h,
+                                    basis, st);
+  return static_cast<int>(err);
 }
 
 // dW through the workspace ws (slabs, k, h): two launches, the split-N
@@ -705,8 +823,8 @@ int st_fused_first_layer_bwd_w(const float* coords, const float* centers,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t m = (size_t)k * h;
-  slab_sum_kernel<<<(unsigned)((m + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-      ws, dw, slabs, m);
+  st_slabs::slab_sum_kernel<<<(unsigned)((m + THREADS - 1) / THREADS),
+                              THREADS, 0, st>>>(ws, dw, slabs, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -728,9 +846,8 @@ int st_fused_first_layer_bwd_centers(const float* coords,
       coords, centers, inv_bw, w, g, ws, n, k, h, basis, slabs, vec);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  centers_sum_kernel<<<(3 * k + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-      ws, dcenters, dinv_bw, slabs, k);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      st_slabs::launch_centers_sum(ws, dcenters, dinv_bw, slabs, k, st));
 }
 
 int st_fused_first_layer_bwd_points(const float* coords, const float* centers,

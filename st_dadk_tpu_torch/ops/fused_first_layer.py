@@ -15,6 +15,10 @@ the differentiable entry point (the custom VJP at pallas_fused.py:195-318 as
 an `autograd.Function`); the bandwidth -> inv_bw transform stays in torch so
 log-bandwidth gradients flow through autograd.
 
+The forward kernel owns (BN points x BH hidden) output tiles and builds each
+point tile's phi once for its BH columns; `fwd_tile` picks (BN, BH) from
+(n, k, h) and the wrapper passes it to the C entry point.
+
 dW and d centers contract over the N points. Their kernels split N into
 slabs, one block per (output tile, slab), and write partial sums to a
 workspace that the wrapper allocates: (S, k, h) for dW, (S, k, 3) for
@@ -47,7 +51,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 _KERNELS = None   # (fwd, bwd_w, bwd_centers, bwd_points) C entry points
 # (pointer, int) argument counts of each entry point before its stream
-_SIGNATURES = (("st_fused_first_layer_fwd", 5, 4),
+_SIGNATURES = (("st_fused_first_layer_fwd", 5, 6),
                ("st_fused_first_layer_bwd_w", 6, 5),
                ("st_fused_first_layer_bwd_centers", 8, 5),
                ("st_fused_first_layer_bwd_points", 6, 4))
@@ -67,6 +71,29 @@ def _kernels():
             fns.append(fn)
         _KERNELS = tuple(fns)
     return _KERNELS
+
+
+# ---------------------------------------------------------------------------
+# Tiles of the forward kernel (fwd_kernel)
+# ---------------------------------------------------------------------------
+
+# (points, hidden) tiles the C entry point launches, fewest phi builds first
+FWD_TILES = ((64, 256), (64, 128), (32, 64), (16, 64))
+FWD_MIN_BLOCKS = 128  # about one block an SM
+
+
+def fwd_tile(n: int, k: int, h: int) -> Tuple[int, int]:
+    """(BN, BH) of the forward kernel: the first tile of FWD_TILES no wider
+    than H rounded up to 64 that gives at least FWD_MIN_BLOCKS blocks, else
+    the smallest. Each point's phi is built ceil(h / BH) times. k does not
+    enter: the kernel walks k in chunks whatever its size."""
+    del k
+    wide = max(64, -(-h // 64) * 64)
+    fits = [t for t in FWD_TILES if t[1] <= wide]
+    for bn, bh in fits:
+        if -(-n // bn) * -(-h // bh) >= FWD_MIN_BLOCKS:
+            return bn, bh
+    return fits[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +125,7 @@ def bwd_centers_slabs(n: int, k: int) -> int:
 
 def slab_bounds(n: int, slabs: int):
     """[(begin, end)] of each slab: the kernels' rule (`slab_range` in
-    csrc/fused_first_layer.cu)."""
+    csrc/slabs.cuh)."""
     units = -(-n // SLAB_UNIT)
     length = SLAB_UNIT * -(-units // slabs)
     return [(min(n, s * length), min(n, (s + 1) * length))
@@ -167,7 +194,8 @@ def fused_first_layer_fwd(coords: torch.Tensor, centers: torch.Tensor,
     with torch.cuda.device(coords.device):
         rc = _kernels()[0](
             coords.data_ptr(), centers.data_ptr(), inv_bw.data_ptr(),
-            w.data_ptr(), out.data_ptr(), n, k, h, basis_id, stream(coords))
+            w.data_ptr(), out.data_ptr(), n, k, h, basis_id,
+            *fwd_tile(n, k, h), stream(coords))
     raise_on(rc, "fused_first_layer_fwd")
     fused_first_layer_fwd.launches += 1
     return out

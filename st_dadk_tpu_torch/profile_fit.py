@@ -35,6 +35,12 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 EPOCHS = 12       # the fit chip_smoke.py runs: the basis trains from epoch 10
 REPEATS = 3
+# a csrc kernel's demangled name: "(anonymous namespace)::bwd_w_kernel(...)",
+# "void (anonymous namespace)::fwd_kernel<16, 64, ...>(...)" (a template),
+# "st_slabs::centers_sum_kernel(...)" (csrc/slabs.cuh)
+PORT_KERNEL = re.compile(
+    r"(?:void )?(?:\(anonymous namespace\)|st_slabs)::"
+    r"((?:fwd|bwd_w|bwd_centers|bwd_points|slab_sum|centers_sum)_kernel)[<(]")
 
 
 def _timed_fit(loop, cfg, setup, init_state, seed):
@@ -127,10 +133,11 @@ def main(argv=None) -> int:
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    # the port's own kernels (csrc/*.cu), by function name, a step
+    # the port's own kernels (csrc/*.cu and the slab sums of csrc/slabs.cuh),
+    # by function name (template arguments dropped), a step
     ours = {}
     for name, ms in by_name.items():
-        m = re.match(r"\(anonymous namespace\)::(\w+)\(", name)
+        m = PORT_KERNEL.match(name)
         if m:
             ours[m.group(1)] = ours.get(m.group(1), 0.0) + ms / steps
 

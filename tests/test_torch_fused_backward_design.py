@@ -24,7 +24,9 @@ from st_dadk_tpu_torch.ops.basis import basis_matrix
 GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
 SOURCE = (Path(ffl.__file__).resolve().parent.parent / "csrc" /
           "fused_first_layer.cu").read_text()
-CODE = re.sub(r"//[^\n]*", "", SOURCE)          # without the comments
+SLABS = (Path(ffl.__file__).resolve().parent.parent / "csrc" /
+         "slabs.cuh").read_text()               # the slab rule it includes
+CODE = re.sub(r"//[^\n]*", "", SOURCE + SLABS)  # without the comments
 SHAPES_KH = [(227, 256), (106, 48), (37, 19), (1, 1), (500, 1024)]
 
 
