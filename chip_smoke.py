@@ -8,13 +8,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. build the two CUDA libraries from st_dadk_tpu_torch/csrc with nvcc,
      one nvcc process each, both at once;
   2. hold each of the seven kernels against its plain PyTorch version on
-     the card, at the fit's shapes and two ragged ones, for all three bases
-     and a center lying exactly on a point; launch the forward and the
-     three slab-summing kernels (fused dW and d centers, basis d centers)
-     twice at N=32768 and at (200, 106, 48) and require bitwise equal
-     outputs; at the three fit shapes, time kernel and plain version (CUDA
-     events around 20 eager calls, host included, and the device time a
-     launch from a CUDA-graph replay) beside the kernel's bound;
+     the card, at the fit's shapes, two ragged ones and two with k > 256,
+     for all three bases and a center lying exactly on a point; launch the
+     forward and the four slab-summing kernels (fused dW, d centers and
+     d coords, basis d centers) twice at N=32768 and at (200, 106, 48) and
+     require bitwise equal outputs; at the three fit shapes, time kernel
+     and plain version (CUDA events around 20 eager calls, host included,
+     and the device time a launch from a CUDA-graph replay) beside the
+     kernel's bound, and the launch floor: the device time a launch of a
+     one-element in-place add under the same replay;
   3. the bench-workload DA-STDK fit (12 epochs, basis unfreezing at epoch
      10) through `run_single_experiment`, on the fused route;
   4. a ragged-k lane of that workload (centers 25+81 padded to 227) through
@@ -61,11 +63,16 @@ RAGGED_SHAPE = (200, 106, 48)
 # H not a multiple of 4: the split-N kernels stage g and W with 4-byte
 # copies instead of 16-byte ones
 ODD_SHAPE = (77, 37, 19)
+# k past one block of 256 threads: the basis forward takes one chunk of
+# centers at four a thread (k % 4 == 0) or two chunks at one (k odd), and
+# the fused d coords five k-slabs
+WIDE_K_SHAPES = [(1000, 300, 64), (1000, 301, 64)]
 # the kernels that sum slab partials in a fixed order, and the forward,
 # which sums over k in one: launched twice at these shapes, each must give
 # bitwise equal outputs
 TWO_LAUNCHES = ("fused_first_layer_fwd", "fused_first_layer_bwd_w",
-                "fused_first_layer_bwd_centers", "spatial_basis_bwd_centers")
+                "fused_first_layer_bwd_centers",
+                "fused_first_layer_bwd_points", "spatial_basis_bwd_centers")
 DETERMINISM_SHAPES = (SLICE_SHAPES[-1], RAGGED_SHAPE)
 # peak rates of one H100 SXM (NVIDIA's data sheet): a 3xTF32 product takes
 # three TF32 products on the tensor cores; float32 outside them; HBM
@@ -205,14 +212,16 @@ def _pairs(ffl, sbk, coords, centers, inv_bw, w, grad_h, grad_phi, bid):
 
 
 def kernel_phase(torch, ffl, sbk, basis_ids, cal):
-    """Check every kernel against its plain version; time both."""
+    """Check every kernel against its plain version; time both. Returns
+    (worst max |d| by kernel, times by (kernel, N), the launch floor)."""
     # create the cuBLAS handle on this thread before autograd's device
     # thread needs one in the plain backward
     torch.ones((2, 2), device="cuda") @ torch.ones((2, 2), device="cuda")
     worst = {nm: 0.0 for nm in KERNELS}
     times = {}
-    cases = [(s, b, False) for s in SLICE_SHAPES + [RAGGED_SHAPE, ODD_SHAPE]
-             for b in basis_ids] + [(RAGGED_SHAPE, b, True) for b in basis_ids]
+    shapes = SLICE_SHAPES + [RAGGED_SHAPE, ODD_SHAPE] + WIDE_K_SHAPES
+    cases = ([(s, b, False) for s in shapes for b in basis_ids]
+             + [(RAGGED_SHAPE, b, True) for b in basis_ids])
     for i, ((n, k, h), basis, zero) in enumerate(cases):
         coords, centers, bw, w, grad_h, grad_phi = _inputs(
             torch, n, k, h, seed=i, zero_distance=zero)
@@ -248,15 +257,26 @@ def kernel_phase(torch, ffl, sbk, basis_ids, cal):
     from st_dadk_tpu_torch.utils.timing import (GRAPH_REPLAYS, GRAPH_REPS,
                                                 events_ms, graph_ms, in_turns)
 
+    # the launch floor: a kernel that does next to nothing, timed as the
+    # kernels are; a yardstick for the small-N times, not part of a bound
+    one = torch.zeros((1,), device="cuda")
+    floor = [graph_ms(lambda: one.add_(1.0)) for _ in range(2)]
+    print(f"launch floor: a one-element in-place add, device time a launch "
+          f"{floor[0]:.5f} / {floor[1]:.5f} ms (two CUDA-graph replays)",
+          flush=True)
     print("kernel times on the card at the fit shapes, Wendland basis: "
           "'eager' = CUDA events around 20 calls (host included), 'device' "
           f"= a CUDA graph of {GRAPH_REPS} calls replayed {GRAPH_REPLAYS} "
           "times (device time a launch); each pair in turns plain, kernel, "
           "kernel, plain; 'bound' = the least time the card could take:")
     for (n, k, h) in SLICE_SHAPES:
-        print(f"  N={n}: forward tile {ffl.fwd_tile(n, k, h)}, slabs: fused "
-              f"bwd_w {ffl.bwd_w_slabs(n, k, h)}, fused bwd_centers "
-              f"{ffl.bwd_centers_slabs(n, k)}, basis bwd_centers "
+        print(f"  N={n}: forward tile {ffl.fwd_tile(n, k, h)}, fused "
+              f"bwd_points tile {ffl.bwd_points_tile(n, k, h)}, basis fwd "
+              f"plan (points, centers a thread, threads) "
+              f"{sbk.basis_fwd_plan(n, k)}; slabs: fused bwd_w "
+              f"{ffl.bwd_w_slabs(n, k, h)}, fused bwd_centers "
+              f"{ffl.bwd_centers_slabs(n, k)}, fused bwd_points k-slabs "
+              f"{ffl.bwd_points_slabs(n, k, h)}, basis bwd_centers "
               f"{sbk.basis_bwd_centers_slabs(n, k)}", flush=True)
         coords, centers, bw, w, grad_h, grad_phi = _inputs(torch, n, k, h,
                                                            seed=99)
@@ -291,7 +311,7 @@ def kernel_phase(torch, ffl, sbk, basis_ids, cal):
                   + extra, flush=True)
         del coords, centers, bw, w, grad_h, grad_phi, inv_bw, pairs
         torch.cuda.empty_cache()
-    return worst, times
+    return worst, times, floor
 
 
 def build_all(_build) -> None:
@@ -334,8 +354,8 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     build_all(_build)
-    worst, times = kernel_phase(torch, ffl, sbk, BASIS_IDS,
-                                CALIBRATION_FACTORS)
+    worst, times, floor = kernel_phase(torch, ffl, sbk, BASIS_IDS,
+                                       CALIBRATION_FACTORS)
     launches = {nm: None for nm in KERNELS}
     if not args.kernels_only:
         launches = Phases(torch, ffl, sbk).run()
@@ -347,6 +367,7 @@ def main(argv=None) -> int:
         {"name": nm, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[nm], "max_abs_err": worst[nm],
          **times[(nm, step_n)], "shape_of_ms": list(SLICE_SHAPES[0]),
+         "launch_floor_ms": floor,
          "library_call": ("torch.matmul(phi, w), the product alone on a phi "
                           "computed beforehand"
                           if times[(nm, step_n)]["library_ms"] is not None

@@ -24,10 +24,8 @@
 // at the 3xTF32 rate (495 / 3 TFLOP/s) against 10 us for the bytes.
 //
 // fwd_kernel and bwd_points_kernel contract over k or H, which are short,
-// and own output tiles of points. bwd_points_kernel is a plain
-// shared-memory tiling on float32 FFMA (67 TFLOP/s): 8 gw values against a
-// register slice of W. fwd_kernel, which runs on every step, validation
-// and predict chunk, is designed for this card:
+// and own output tiles of points. fwd_kernel, which runs on every step,
+// validation and predict chunk, is designed for this card:
 //   - a block owns BN points x BH hidden columns and builds each phi chunk
 //     (BN points x 16-64 centers) once in shared memory, for all BH
 //     columns; phi chunk t + 1 is built while the warps take chunk t's
@@ -40,7 +38,21 @@
 //   - the product runs in 3xTF32 on the tensor cores (below; with a
 //     truncating split, two instructions an operand), with W staged
 //     through a 4-deep ring of cp.async copies.
-//
+// bwd_points_kernel (d coords, for a spatial gradient) was first a
+// shared-memory tiling on float32 FFMA (67 TFLOP/s) with 64 points a
+// block: 8 blocks at N=512 on 132 SMs, each walking a serial chain of 64
+// synchronous stages, slower than its plain version. Its design now is
+// the forward's with A = g staged instead of phi built:
+//   - a block owns BP points x CT centers (a k-slab) and forms gw = g W^T
+//     in 3xTF32 mma.sync from a 4-deep cp.async ring of (g, W) stages over
+//     H, keeping gw in registers for the phi' chain.
+//   - splitting k into slabs fills the card at small N: the tile comes
+//     from (n, k, h) in Python (ops/fused_first_layer.py::bwd_points_tile):
+//     16 x 64 at N=512 (32 point tiles x 4 k-slabs, 128 blocks), 32 x 64 at
+//     N=2000 (252 blocks), 64 x 256 at N=32768 (one k-slab, so each point
+//     tile's g is staged once, 512 blocks). Several k-slabs write partials
+//     (slabs, N, 2) that the ordered slab sum of slabs.cuh adds.
+
 // bwd_w_kernel and bwd_centers_kernel contract over N. Owning their small
 // outputs whole and walking all N (the TPU's sequential grid axis) left
 // 16 and 8 blocks on 132 SMs at FFMA rate. Their design for this card:
@@ -52,7 +64,7 @@
 //   - a double-buffered ring of cp.async copies stages g (and W) into
 //     shared memory, so the next tile's loads overlap this tile's mma.
 //
-// 3xTF32 (mma.sync m16n8k8), in all three tensor-core kernels: each
+// 3xTF32 (mma.sync m16n8k8), in all four kernels: each
 // float32 operand splits into hi = tf32(x) and lo = tf32(x - hi), and the
 // sum takes lo*hi' + hi*lo' + hi*hi' in float32, which is as accurate as
 // float32 FFMA. One TF32 pass keeps 10 mantissa bits: it gives gw = g W^T
@@ -669,115 +681,213 @@ bwd_centers_kernel(const float* __restrict__ coords,
 }
 
 // ---------------------------------------------------------------------------
-// d coords: the transpose of bwd_centers_kernel's ownership. One block owns
-// BP_BN points and loops over k in BP_BK-center chunks. Thread (j = tid % 32,
-// pg = tid / 32) owns center j of the chunk and points pg*8 .. pg*8+7: it
-// forms their gw = g . W_j over H (g and W slices staged in shared memory,
-// the W_j slice in registers, as the TPU kernel forms g @ W^T in its body),
-// chains dphi/dr, and keeps per-point partial sums over its centers in
-// registers. At the end each warp (one point group, 32 centers) reduces
-// over its lanes with a fixed shuffle tree: deterministic, no atomics.
+// d coords. Replaces _bwd_pts_kernel (pallas_fused.py:147).
+//
+// Block (blockIdx.x, blockIdx.y) owns BP points x one k-slab of CT centers
+// (slab blockIdx.y) and contracts gw = g W^T (BP x CT) over H in HC-column
+// stages: a BP_STAGES-deep ring of cp.async copies brings each stage's g
+// (points x hidden, the mma's A) and W rows (centers x hidden, its B = W^T)
+// while the warps (WM along points x 8 / WM along centers) take the
+// previous stage's product in 3xTF32 with the truncating split. The gw
+// fragments stay in registers; after the last stage each thread chains its
+// own elements (basis_device.cuh: dphi, spatial_coef) and sums them over
+// its centers in a fixed order (n-tiles, then the two columns of a
+// fragment). A point's row is then summed over the 4 lanes that share it
+// (a fixed shuffle tree) and over the warps along centers in warp order
+// through shared memory. With one k-slab the block writes d coords; with
+// several it writes its partials to ws (slabs, N, 2), which slabs.cuh's
+// ordered slab sum finishes. Points past N and centers past k contribute
+// exactly zero (g and W rows zero-filled by the copies, the chain masked).
 // ---------------------------------------------------------------------------
-constexpr int BP_BN = 64;
-constexpr int BP_BK = 32;
-constexpr int BP_HC = 32;
-constexpr int BP_PG = THREADS / BP_BK;   // 8 point groups (one warp each)
-constexpr int BP_PPT = BP_BN / BP_PG;    // 8 points per thread
-static_assert(BP_BK == 32, "one warp spans the centers of a chunk");
+constexpr int BP_STAGES = 4;  // (g, W) stages in the ring
 
-__global__ void __launch_bounds__(THREADS)
+template <int BP, int CT, int WM, int HC>
+struct BpSmem {
+  static constexpr int WN = THREADS / 32 / WM;  // warps along centers
+  static constexpr int LD = HC + 4;   // A and B fragment loads hit 32 banks
+  static constexpr int STAGE = (BP + CT) * LD;
+  static constexpr size_t BYTES =
+      sizeof(float) * (BP_STAGES * STAGE + 3 * CT + 2 * WN * BP);
+};
+
+template <int BP, int CT, int WM, int HC>
+__global__ void __launch_bounds__(THREADS, 2)
 bwd_points_kernel(const float* __restrict__ coords,
                   const float* __restrict__ centers,
                   const float* __restrict__ inv_bw,
                   const float* __restrict__ w, const float* __restrict__ g,
-                  float* __restrict__ dcoords, int n, int k, int h,
-                  int basis) {
-  __shared__ float g_s[BP_BN][BP_HC + 1];
-  __shared__ float w_s[BP_BK][BP_HC + 1];
-  __shared__ float px[BP_BN];
-  __shared__ float py[BP_BN];
+                  float* __restrict__ out, int n, int k, int h, int basis,
+                  bool vec) {
+  using S = BpSmem<BP, CT, WM, HC>;
+  constexpr int WN = S::WN;
+  constexpr int MT = BP / 16 / WM;  // m-tiles of 16 points a warp
+  constexpr int NT = CT / 8 / WN;   // n-tiles of 8 centers a warp
+  static_assert(MT >= 1 && MT * 16 * WM == BP && NT >= 1 &&
+                    NT * 8 * WN == CT && HC % 8 == 0 && 2 * BP <= THREADS,
+                "the warps tile the block's gw");
+  constexpr int LD = S::LD;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                             // [BP_STAGES][BP + CT][LD]
+  float* cx_s = ring + BP_STAGES * S::STAGE;      // [CT]
+  float* cy_s = cx_s + CT;                        // [CT]
+  float* ib_s = cy_s + CT;                        // [CT]
+  float* red = ib_s + CT;                         // [WN][BP][2]
 
   const int tid = threadIdx.x;
-  const int j = tid % BP_BK;
-  const int pg = tid / BP_BK;
-  const int n0 = blockIdx.x * BP_BN;
-  if (tid < BP_BN) {
-    const int pt = n0 + tid;
-    px[tid] = pt < n ? coords[2 * (size_t)pt] : 0.0f;
-    py[tid] = pt < n ? coords[2 * (size_t)pt + 1] : 0.0f;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment row group, column
+  const int wm = warp % WM, wn = warp / WM;
+  const int n0 = blockIdx.x * BP;
+  const int c0 = blockIdx.y * CT;
+  const int stages = (h + HC - 1) / HC;
+
+  auto stage = [&](int t) {
+    float* dst = ring + (t % BP_STAGES) * S::STAGE;
+    stage_tile<BP, HC, LD, THREADS>(dst, g, h, n0, n, t * HC, h, vec, tid);
+    stage_tile<CT, HC, LD, THREADS>(dst + BP * LD, w, h, c0, k, t * HC, h,
+                                    vec, tid);
+  };
+  // stages 0 .. BP_STAGES - 2 in flight before anything else
+#pragma unroll
+  for (int t = 0; t < BP_STAGES - 1; ++t) {
+    if (t < stages) stage(t);
+    cp_async_commit();
+  }
+  for (int j = tid; j < CT; j += THREADS) {
+    const int c = c0 + j;
+    cx_s[j] = c < k ? centers[2 * c] : 0.0f;
+    cy_s[j] = c < k ? centers[2 * c + 1] : 0.0f;
+    ib_s[j] = c < k ? inv_bw[c] : 0.0f;
+  }
+  // this thread's points: rows gq and gq + 8 of each of its m-tiles
+  float px[MT][2], py[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int pt = n0 + (wm * MT + mt) * 16 + gq + 8 * half;
+      px[mt][half] = pt < n ? coords[2 * (size_t)pt] : 0.0f;
+      py[mt][half] = pt < n ? coords[2 * (size_t)pt + 1] : 0.0f;
+    }
+
+  float gw[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int l = 0; l < 4; ++l) gw[mt][nt][l] = 0.0f;
+
+  for (int t = 0; t < stages; ++t) {
+    cp_async_wait<BP_STAGES - 2>();  // this thread's copies of stage t
+    // everyone's copies of stage t are visible (and cx_s.. at t = 0); the
+    // slot of stage t - 1 is free
+    __syncthreads();
+    if (t + BP_STAGES - 1 < stages) stage(t + BP_STAGES - 1);
+    cp_async_commit();
+    const float* a_s = ring + (t % BP_STAGES) * S::STAGE;
+    const float* b_s = a_s + BP * LD;
+#pragma unroll
+    for (int kk = 0; kk < HC; kk += 8) {
+      uint32_t a_hi[MT][4], a_lo[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* a = a_s + ((wm * MT + mt) * 16 + gq) * LD + kk + tq;
+        split_tf32_trunc(a[0], a_hi[mt][0], a_lo[mt][0]);
+        split_tf32_trunc(a[8 * LD], a_hi[mt][1], a_lo[mt][1]);
+        split_tf32_trunc(a[4], a_hi[mt][2], a_lo[mt][2]);
+        split_tf32_trunc(a[8 * LD + 4], a_hi[mt][3], a_lo[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* b = b_s + ((wn * NT + nt) * 8 + gq) * LD + kk + tq;
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32_trunc(b[0], b_hi[0], b_lo[0]);
+        split_tf32_trunc(b[4], b_hi[1], b_lo[1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma_3xtf32(gw[mt][nt], a_hi[mt], a_lo[mt], b_hi, b_lo);
+      }
+    }
   }
 
-  float acc_x[BP_PPT], acc_y[BP_PPT];
+  // the chain on this thread's gw elements: points (m-tile mt, row gq +
+  // 8 half), centers 8 (wn NT + nt) + 2 tq + u; summed over nt, then u
+  float sx[MT][2], sy[MT][2];
 #pragma unroll
-  for (int i = 0; i < BP_PPT; ++i) acc_x[i] = acc_y[i] = 0.0f;
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) sx[mt][half] = sy[mt][half] = 0.0f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = (wn * NT + nt) * 8 + 2 * tq + u;
+      const bool c_ok = c0 + j < k;
+      const float cx = cx_s[j], cy = cy_s[j], ib = ib_s[j];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float dx = __fsub_rn(px[mt][half], cx);
+          const float dy = __fsub_rn(py[mt][half], cy);
+          const float d2 = guarded_dist2(px[mt][half], py[mt][half], cx, cy);
+          const float d = guarded_dist(d2);
+          const float gphi =
+              gw[mt][nt][2 * half + u] * basis_dphi(__fmul_rn(d, ib), basis);
+          // d d / d s is (s - c)/d
+          const float coef = c_ok ? spatial_coef(gphi, ib, d2, d) : 0.0f;
+          sx[mt][half] += coef * dx;
+          sy[mt][half] += coef * dy;
+        }
+    }
+  // the 4 lanes of a row (tq), then the warps along centers, in order
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float vx = sx[mt][half], vy = sy[mt][half];
+      vx += __shfl_xor_sync(0xffffffffu, vx, 1);
+      vy += __shfl_xor_sync(0xffffffffu, vy, 1);
+      vx += __shfl_xor_sync(0xffffffffu, vx, 2);
+      vy += __shfl_xor_sync(0xffffffffu, vy, 2);
+      if (tq == 0) {
+        const int p = (wm * MT + mt) * 16 + gq + 8 * half;
+        red[(wn * BP + p) * 2] = vx;
+        red[(wn * BP + p) * 2 + 1] = vy;
+      }
+    }
+  __syncthreads();
+  if (tid < 2 * BP) {
+    const int p = tid / 2, q = tid % 2;
+    if (n0 + p < n) {
+      float v = red[p * 2 + q];
+      for (int wi = 1; wi < WN; ++wi) v += red[(wi * BP + p) * 2 + q];
+      out[((size_t)blockIdx.y * n + n0 + p) * 2 + q] = v;
+    }
+  }
+}
 
-  for (int k0 = 0; k0 < k; k0 += BP_BK) {
-    float gw[BP_PPT];
-#pragma unroll
-    for (int i = 0; i < BP_PPT; ++i) gw[i] = 0.0f;
-    for (int hc = 0; hc < h; hc += BP_HC) {
-      __syncthreads();  // previous slice (and px/py) consumed
-      for (int e = tid; e < BP_BN * BP_HC; e += THREADS) {
-        const int p = e / BP_HC;
-        const int q = e % BP_HC;
-        const int pt = n0 + p;
-        const int col = hc + q;
-        g_s[p][q] = (pt < n && col < h) ? g[(size_t)pt * h + col] : 0.0f;
-      }
-      for (int e = tid; e < BP_BK * BP_HC; e += THREADS) {
-        const int jj = e / BP_HC;
-        const int q = e % BP_HC;
-        const int cc = k0 + jj;
-        const int col = hc + q;
-        w_s[jj][q] = (cc < k && col < h) ? w[(size_t)cc * h + col] : 0.0f;
-      }
-      __syncthreads();
-      float wr[BP_HC];
-#pragma unroll
-      for (int q = 0; q < BP_HC; ++q) wr[q] = w_s[j][q];
-#pragma unroll
-      for (int i = 0; i < BP_PPT; ++i) {
-        const int p = pg * BP_PPT + i;
-        float s = gw[i];
-#pragma unroll
-        for (int q = 0; q < BP_HC; ++q) s = fmaf(g_s[p][q], wr[q], s);
-        gw[i] = s;
-      }
-    }
-    const int c = k0 + j;
-    if (c < k) {
-      const float cx = centers[2 * c];
-      const float cy = centers[2 * c + 1];
-      const float ib = inv_bw[c];
-#pragma unroll
-      for (int i = 0; i < BP_PPT; ++i) {
-        const int p = pg * BP_PPT + i;
-        const float dx = __fsub_rn(px[p], cx);
-        const float dy = __fsub_rn(py[p], cy);
-        const float d2 = guarded_dist2(px[p], py[p], cx, cy);
-        const float d = guarded_dist(d2);
-        const float gphi = gw[i] * basis_dphi(__fmul_rn(d, ib), basis);
-        // d d / d s is (s - c)/d
-        const float coef = spatial_coef(gphi, ib, d2, d);
-        acc_x[i] += coef * dx;
-        acc_y[i] += coef * dy;
-      }
-    }
+// One d-coords launch at tile (BP, CT) into out (slabs, n, 2) on `stream`.
+template <int BP, int CT, int WM, int HC>
+cudaError_t launch_bwd_points(const float* coords, const float* centers,
+                              const float* inv_bw, const float* w,
+                              const float* g, float* out, int n, int k,
+                              int h, int basis, int slabs,
+                              cudaStream_t stream) {
+  constexpr size_t bytes = BpSmem<BP, CT, WM, HC>::BYTES;
+  if (bytes > 48 * 1024) {  // above 48 KB only as opted-in dynamic memory
+    const cudaError_t err = cudaFuncSetAttribute(
+        bwd_points_kernel<BP, CT, WM, HC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
   }
-#pragma unroll
-  for (int i = 0; i < BP_PPT; ++i) {
-    float sx = acc_x[i], sy = acc_y[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      sx += __shfl_down_sync(0xffffffffu, sx, off);
-      sy += __shfl_down_sync(0xffffffffu, sy, off);
-    }
-    const int pt = n0 + pg * BP_PPT + i;
-    if (j == 0 && pt < n) {
-      dcoords[2 * (size_t)pt] = sx;
-      dcoords[2 * (size_t)pt + 1] = sy;
-    }
-  }
+  const bool vec = h % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const dim3 grid((n + BP - 1) / BP, slabs);
+  bwd_points_kernel<BP, CT, WM, HC><<<grid, THREADS, bytes, stream>>>(
+      coords, centers, inv_bw, w, g, out, n, k, h, basis, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -850,13 +960,36 @@ int st_fused_first_layer_bwd_centers(const float* coords,
       st_slabs::launch_centers_sum(ws, dcenters, dinv_bw, slabs, k, st));
 }
 
+// d coords at the tile (tile_n points x tile_k centers) that
+// ops/fused_first_layer.py::bwd_points_tile chose, one of the tiles below,
+// over slabs = ceil(k / tile_k) k-slabs: with one the kernel writes
+// dcoords; with more it writes ws (slabs, n, 2) and the slab sum follows.
 int st_fused_first_layer_bwd_points(const float* coords, const float* centers,
                                     const float* inv_bw, const float* w,
-                                    const float* g, float* dcoords, int n,
-                                    int k, int h, int basis, void* stream) {
-  const dim3 grid((n + BP_BN - 1) / BP_BN);
-  bwd_points_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      coords, centers, inv_bw, w, g, dcoords, n, k, h, basis);
+                                    const float* g, float* dcoords, float* ws,
+                                    int n, int k, int h, int basis,
+                                    int tile_n, int tile_k, int slabs,
+                                    void* stream) {
+  if (tile_k < 1 || slabs != (k + tile_k - 1) / tile_k || slabs < 1 ||
+      slabs > 65535)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* out = slabs == 1 ? dcoords : ws;
+  cudaError_t err = cudaErrorInvalidValue;
+  // <points, centers, warps along points, hidden a stage>
+  if (tile_n == 64 && tile_k == 256)
+    err = launch_bwd_points<64, 256, 2, 16>(coords, centers, inv_bw, w, g,
+                                            out, n, k, h, basis, slabs, st);
+  else if (tile_n == 32 && tile_k == 64)
+    err = launch_bwd_points<32, 64, 2, 64>(coords, centers, inv_bw, w, g, out,
+                                           n, k, h, basis, slabs, st);
+  else if (tile_n == 16 && tile_k == 64)
+    err = launch_bwd_points<16, 64, 1, 64>(coords, centers, inv_bw, w, g, out,
+                                           n, k, h, basis, slabs, st);
+  if (err != cudaSuccess || slabs == 1) return static_cast<int>(err);
+  const size_t m = (size_t)2 * n;
+  st_slabs::slab_sum_kernel<<<(unsigned)((m + THREADS - 1) / THREADS),
+                              THREADS, 0, st>>>(ws, dcoords, slabs, m);
   return static_cast<int>(cudaGetLastError());
 }
 

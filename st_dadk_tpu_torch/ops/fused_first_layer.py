@@ -19,6 +19,12 @@ The forward kernel owns (BN points x BH hidden) output tiles and builds each
 point tile's phi once for its BH columns; `fwd_tile` picks (BN, BH) from
 (n, k, h) and the wrapper passes it to the C entry point.
 
+The d-coords kernel owns (BP points x CT centers) tiles: `bwd_points_tile`
+picks them from (n, k, h) and splits k into `bwd_points_slabs` k-slabs so
+that small N still fills the card. With more than one k-slab it writes
+per-point partials to a workspace (slabs, N, 2) and a second kernel sums
+them in slab order; with one it writes d coords directly.
+
 dW and d centers contract over the N points. Their kernels split N into
 slabs, one block per (output tile, slab), and write partial sums to a
 workspace that the wrapper allocates: (S, k, h) for dW, (S, k, 3) for
@@ -54,7 +60,7 @@ _KERNELS = None   # (fwd, bwd_w, bwd_centers, bwd_points) C entry points
 _SIGNATURES = (("st_fused_first_layer_fwd", 5, 6),
                ("st_fused_first_layer_bwd_w", 6, 5),
                ("st_fused_first_layer_bwd_centers", 8, 5),
-               ("st_fused_first_layer_bwd_points", 6, 4))
+               ("st_fused_first_layer_bwd_points", 7, 7))
 
 
 def _kernels():
@@ -94,6 +100,43 @@ def fwd_tile(n: int, k: int, h: int) -> Tuple[int, int]:
         if -(-n // bn) * -(-h // bh) >= FWD_MIN_BLOCKS:
             return bn, bh
     return fits[-1]
+
+
+# ---------------------------------------------------------------------------
+# Tiles and k-slabs of the d-coords kernel (bwd_points_kernel)
+# ---------------------------------------------------------------------------
+
+# (points, centers) tiles the C entry point launches, fewest g stagings first
+BP_TILES = ((64, 256), (32, 64), (16, 64))
+BP_MIN_BLOCKS = 128   # about one block an SM
+
+
+def bwd_points_tile(n: int, k: int, h: int) -> Tuple[int, int]:
+    """(BP, CT) of the d-coords kernel: the first tile of BP_TILES no wider
+    than k rounded up to 64 that gives at least BP_MIN_BLOCKS blocks of BP
+    points x one k-slab of CT centers, else the smallest. Each point
+    tile's g is staged ceil(k / CT) times. h does not enter: the kernel
+    walks H in stages whatever its size."""
+    del h
+    wide = max(64, -(-k // 64) * 64)
+    fits = [t for t in BP_TILES if t[1] <= wide]
+    for bp, ct in fits:
+        if -(-n // bp) * -(-k // ct) >= BP_MIN_BLOCKS:
+            return bp, ct
+    return fits[-1]
+
+
+def bwd_points_slabs(n: int, k: int, h: int) -> int:
+    """k-slabs of the d-coords kernel: one a CT-center tile."""
+    return -(-k // bwd_points_tile(n, k, h)[1])
+
+
+def bwd_points_workspace(n: int, k: int, h: int, device) -> torch.Tensor:
+    """(slabs, n, 2) partials; unused (and 0 slabs long) with one k-slab,
+    where the kernel writes d coords itself."""
+    slabs = bwd_points_slabs(n, k, h)
+    return torch.empty((slabs if slabs > 1 else 0, n, 2),
+                       dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -258,10 +301,12 @@ def fused_first_layer_bwd_points(coords: torch.Tensor, centers: torch.Tensor,
     check("w", w, (k, h))
     check("g", g, (n, h))
     ds = torch.empty((n, 2), dtype=torch.float32, device=coords.device)
+    ws = bwd_points_workspace(n, k, h, coords.device)
     with torch.cuda.device(coords.device):
         rc = _kernels()[3](
             coords.data_ptr(), centers.data_ptr(), inv_bw.data_ptr(),
-            w.data_ptr(), g.data_ptr(), ds.data_ptr(), n, k, h, basis_id,
+            w.data_ptr(), g.data_ptr(), ds.data_ptr(), ws.data_ptr(), n, k,
+            h, basis_id, *bwd_points_tile(n, k, h), bwd_points_slabs(n, k, h),
             stream(coords))
     raise_on(rc, "fused_first_layer_bwd_points")
     fused_first_layer_bwd_points.launches += 1

@@ -1,28 +1,33 @@
-"""Device time a launch of the fused forward and the basis d-centers kernels,
-beside other builds of their sources, on one GPU.
+"""Device time a launch of four of the port's kernels, beside other builds of
+their sources, on one GPU.
 
     python3 -m st_dadk_tpu_torch.time_kernels [--previous DIR] [--variants]
-                                               [--fwd-tiles] [--out FILE]
+                                               [--tiles] [--out FILE]
 
   --previous DIR  a copy of an earlier `st_dadk_tpu_torch/csrc/` (its `.cu`
                   files and headers), e.g. written with `git show
                   <commit>:st_dadk_tpu_torch/csrc/<file>` into a directory
-                  that .gitignore lists. Its two entry points have the
-                  earlier C signatures: the forward without a tile, d
-                  centers without a workspace (PREVIOUS_SIGNATURES).
+                  that .gitignore lists. Its entry points have that
+                  commit's C signatures (PREVIOUS_SIGNATURES: the basis
+                  forward without a plan, the fused d coords without a
+                  workspace, tile or k-slabs).
   --variants      also build the current sources with one part replaced by
                   text (VARIANTS): what a kernel costs without its phi, with
                   one TF32 product instead of three, and so on.
-  --fwd-tiles     also time the current forward at every tile of
-                  `fused_first_layer.FWD_TILES`, not only `fwd_tile`'s.
+  --tiles         also time the current kernels at every tile of their
+                  planners (`fused_first_layer.FWD_TILES`, `BP_TILES`,
+                  `spatial_basis_kernels.BASIS_FWD_TILES_P`), not only the
+                  planner's choice.
 
-Every version is built with the package's nvcc flags into
-`build/time_kernels/<version>/`, all builds at once, loaded with ctypes and
-called directly on preallocated outputs. At each fit shape it times every
-version of a kernel by CUDA-graph replay (`utils/timing.graph_ms`: device
-time a launch), in the order previous, current, variants..., current,
-previous, and reports the two current and the two previous runs' means.
-Prints one line a (kernel, shape, version) and writes `--out` (JSON).
+The kernels: the fused forward (FWD), the fused d coords (BP), the basis
+forward (BFWD) and the basis d centers (BC). Every version is built with the
+package's nvcc flags into `build/time_kernels/<version>/`, all builds at
+once, loaded with ctypes and called directly on preallocated outputs. At
+each fit shape it times every version of a kernel by CUDA-graph replay
+(`utils/timing.graph_ms`: device time a launch), in the order previous,
+current, variants..., current, previous, and reports the two current and
+the two previous runs' means. Prints one line a (kernel, shape, version)
+and writes `--out` (JSON).
 """
 from __future__ import annotations
 
@@ -46,12 +51,14 @@ from st_dadk_tpu_torch.utils.timing import graph_ms
 REPO = Path(__file__).resolve().parents[1]
 OUT_DIR = REPO / "build" / "time_kernels"
 SHAPES = [(512, 227, 256), (2000, 227, 256), (32768, 227, 256)]
-FWD, BC = "st_fused_first_layer_fwd", "st_spatial_basis_bwd_centers"
-LIBS = {FWD: "fused_first_layer", BC: "spatial_basis"}
+FWD, BP = "st_fused_first_layer_fwd", "st_fused_first_layer_bwd_points"
+BFWD, BC = "st_spatial_basis_fwd", "st_spatial_basis_bwd_centers"
+LIBS = {FWD: "fused_first_layer", BP: "fused_first_layer",
+        BFWD: "spatial_basis", BC: "spatial_basis"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (pointer, int) argument counts before the stream
-CURRENT_SIGNATURES = {FWD: (5, 6), BC: (7, 4)}
-PREVIOUS_SIGNATURES = {FWD: (5, 4), BC: (6, 3)}
+CURRENT_SIGNATURES = {FWD: (5, 6), BP: (7, 7), BFWD: (4, 6), BC: (7, 4)}
+PREVIOUS_SIGNATURES = {FWD: (5, 6), BP: (6, 4), BFWD: (4, 3), BC: (7, 4)}
 # name -> (entry point, source file, text, replacement): one part of the
 # current source replaced, to see what it costs
 VARIANTS = {
@@ -64,22 +71,27 @@ VARIANTS = {
         FWD, "fused_first_layer.cu",
         "          mma_3xtf32(acc[mt][nt], a_hi[mt], a_lo[mt], b_hi, b_lo);",
         "          mma_tf32(acc[mt][nt], a_hi[mt], b_hi);"),
-    "fwd_no_store": (
-        FWD, "fused_first_layer.cu",
-        "          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);",
-        "          if (v0 == 1234.5f) *dst = v1;"),
-    "fwd_phi_div_three": (
-        FWD, "basis_device.cuh",
-        "(35.0f * rc * rc + 18.0f * rc + 3.0f) *\n           (1.0f / 3.0f);",
-        "(35.0f * rc * rc + 18.0f * rc + 3.0f) / 3.0f;"),
-    "fwd_rna_split": (
-        FWD, "fused_first_layer.cu",
-        "  hi = __float_as_uint(x) & 0xffffe000u;\n"
-        "  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));",
-        "  split_tf32(x, hi, lo);"),
-    "fwd_16x64_kc16": (
-        FWD, "fused_first_layer.cu",
-        "launch_fwd<16, 64, 1, 64>(", "launch_fwd<16, 64, 1, 16>("),
+    "bp_one_tf32": (
+        BP, "fused_first_layer.cu",
+        "          mma_3xtf32(gw[mt][nt], a_hi[mt], a_lo[mt], b_hi, b_lo);",
+        "          mma_tf32(gw[mt][nt], a_hi[mt], b_hi);"),
+    "bp_no_mma": (
+        BP, "fused_first_layer.cu",
+        "          mma_3xtf32(gw[mt][nt], a_hi[mt], a_lo[mt], b_hi, b_lo);",
+        "          gw[mt][nt][0] += __uint_as_float(a_hi[mt][0] ^ b_lo[1]);"),
+    "bp_cheap_chain": (
+        BP, "fused_first_layer.cu",
+        "              gw[mt][nt][2 * half + u] * basis_dphi(__fmul_rn(d, ib), "
+        "basis);",
+        "              gw[mt][nt][2 * half + u] * d;"),
+    "bfwd_cheap_phi": (
+        BFWD, "spatial_basis.cu",
+        "      v[u] = basis_phi(__fmul_rn(guarded_dist(d2), ib[u]), basis);",
+        "      v[u] = __fmul_rn(d2, ib[u]);"),
+    "bfwd_no_store": (
+        BFWD, "spatial_basis.cu",
+        "      *row = v[0];",
+        "      if (v[0] == 1234.5f) *row = v[0];"),
     "bc_no_dphi": (
         BC, "spatial_basis.cu",
         "          g[(size_t)p * k + c] * basis_dphi(__fmul_rn(d, ib), "
@@ -125,7 +137,7 @@ def _load(path: Path, entry: str, sig) -> ctypes.CDLL:
 def build_versions(previous, variants):
     """{version: {entry point: (ctypes function, current signature?)}}."""
     jobs = {}   # (version, lib) -> (source dir, edit)
-    for lib in LIBS.values():
+    for lib in set(LIBS.values()):
         jobs[("current", lib)] = (_build.CSRC, None)
         if previous is not None:
             jobs[("previous", lib)] = (previous, None)
@@ -141,11 +153,13 @@ def build_versions(previous, variants):
         paths = {key: f.result() for key, f in futs.items()}
     versions = {}
     for (version, lib), path in paths.items():
-        entry = next(e for e, nm in LIBS.items() if nm == lib)
         cur = version != "previous"
-        sig = (CURRENT_SIGNATURES if cur else PREVIOUS_SIGNATURES)[entry]
-        versions.setdefault(version, {})[entry] = (_load(path, entry, sig),
-                                                   cur)
+        for entry in (e for e, nm in LIBS.items() if nm == lib):
+            if version in VARIANTS and VARIANTS[version][0] != entry:
+                continue
+            sig = (CURRENT_SIGNATURES if cur else PREVIOUS_SIGNATURES)[entry]
+            versions.setdefault(version, {})[entry] = (
+                _load(path, entry, sig), cur)
     return versions
 
 
@@ -155,28 +169,42 @@ def _inputs(n, k, h, seed=99):
     centers = torch.rand((k, 2), generator=g)
     inv_bw = 1.0 / (0.1 + 0.7 * torch.rand((k,), generator=g))
     w = 0.1 * torch.randn((k, h), generator=g)
+    grad_h = torch.randn((n, h), generator=g) / n
     grad_phi = torch.randn((n, k), generator=g) / n
-    return [t.cuda() for t in (coords, centers, inv_bw, w, grad_phi)]
+    return [t.cuda() for t in (coords, centers, inv_bw, w, grad_h, grad_phi)]
 
 
 def _call(entry, fn, current, args, n, k, h, tile=None):
     """A closure launching `fn` on outputs allocated here, which it keeps
     alive; returns the C entry point's error code. `tile` overrides the
-    current forward's tile."""
-    coords, centers, inv_bw, w, g = args
+    current kernel's planned tile."""
+    coords, centers, inv_bw, w, grad_h, grad_phi = args
     bid = BASIS_IDS["wendland"]
+
+    def empty(*shape):
+        return torch.empty(shape, device="cuda")
+
     if entry == FWD:
-        bufs = (coords, centers, inv_bw, w, torch.empty((n, h), device="cuda"))
-        ints = (n, k, h, bid) + (tile or ffl.fwd_tile(n, k, h) if current
-                                 else ())
-    else:
-        bufs = (coords, centers, inv_bw, g, torch.empty((k, 2), device="cuda"),
-                torch.empty((k,), device="cuda"))
+        bufs = (coords, centers, inv_bw, w, empty(n, h))
+        ints = (n, k, h, bid) + (tile or ffl.fwd_tile(n, k, h))
+    elif entry == BP:
+        bufs = (coords, centers, inv_bw, w, grad_h, empty(n, 2))
+        ints = (n, k, h, bid)
+        if current:
+            bp, ct = tile or ffl.bwd_points_tile(n, k, h)
+            slabs = -(-k // ct)
+            bufs += (empty(slabs if slabs > 1 else 0, n, 2),)
+            ints += (bp, ct, slabs)
+    elif entry == BFWD:
+        bufs = (coords, centers, inv_bw, empty(n, k))
         ints = (n, k, bid)
         if current:
-            ws = sbk.basis_bwd_centers_workspace(n, k, "cuda")
-            bufs += (ws,)
-            ints += (ws.shape[0],)
+            plan = sbk.basis_fwd_plan(n, k)
+            ints += ((tile,) + plan[1:]) if tile else plan
+    else:
+        ws = sbk.basis_bwd_centers_workspace(n, k, "cuda")
+        bufs = (coords, centers, inv_bw, grad_phi, empty(k, 2), empty(k), ws)
+        ints = (n, k, bid, ws.shape[0])
     ptrs = [t.data_ptr() for t in bufs]
 
     def call():
@@ -185,11 +213,22 @@ def _call(entry, fn, current, args, n, k, h, tile=None):
     return call
 
 
+def _tiles(entry):
+    """{version name: tile} of the current kernel at every planner tile."""
+    if entry == FWD:
+        return {f"current@{bn}x{bh}": (bn, bh) for bn, bh in ffl.FWD_TILES}
+    if entry == BP:
+        return {f"current@{bp}x{ct}": (bp, ct) for bp, ct in ffl.BP_TILES}
+    if entry == BFWD:
+        return {f"current@p{tp}": tp for tp in sbk.BASIS_FWD_TILES_P}
+    return {}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--previous", type=Path, default=None)
     ap.add_argument("--variants", action="store_true")
-    ap.add_argument("--fwd-tiles", action="store_true")
+    ap.add_argument("--tiles", action="store_true")
     ap.add_argument("--out", type=Path,
                     default=REPO / "build" / "time_kernels.json")
     args = ap.parse_args(argv)
@@ -206,13 +245,10 @@ def main(argv=None) -> int:
     result = {"card": card, "ms": {}}
     for n, k, h in SHAPES:
         data = _inputs(n, k, h)
-        for entry in (FWD, BC):
+        for entry in (FWD, BP, BFWD, BC):
             names = [v for v in order if entry in versions[v]]
             runs = {}
-            tiles = {}
-            if entry == FWD and args.fwd_tiles:
-                tiles = {f"current@{bn}x{bh}": (bn, bh)
-                         for bn, bh in ffl.FWD_TILES}
+            tiles = _tiles(entry) if args.tiles else {}
             for v in names + list(tiles) + names[:2][::-1]:
                 fn, cur = versions[v.split("@")[0]][entry]
                 call = _call(entry, fn, cur, data, n, k, h, tiles.get(v))
@@ -224,7 +260,7 @@ def main(argv=None) -> int:
                 mean = sum(ms) / len(ms)
                 result["ms"].setdefault(entry, {}).setdefault(
                     str(n), {})[v] = mean
-                print(f"{entry:30s} N={n:6d} k={k} H={h} {v:15s} "
+                print(f"{entry:32s} N={n:6d} k={k} H={h} {v:17s} "
                       f"{mean:.5f} ms device a launch "
                       f"({', '.join(f'{x:.5f}' for x in ms)})", flush=True)
         del data
