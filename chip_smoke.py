@@ -7,16 +7,18 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. build the two CUDA libraries from st_dadk_tpu_torch/csrc with nvcc,
      one nvcc process each, both at once;
-  2. hold each of the seven kernels against its plain PyTorch version on
-     the card, at the fit's shapes, two ragged ones and two with k > 256,
-     for all three bases and a center lying exactly on a point; launch the
-     forward and the four slab-summing kernels (fused dW, d centers and
-     d coords, basis d centers) twice at N=32768 and at (200, 106, 48) and
-     require bitwise equal outputs; at the three fit shapes, time kernel
-     and plain version (CUDA events around 20 eager calls, host included,
-     and the device time a launch from a CUDA-graph replay) beside the
-     kernel's bound, and the launch floor: the device time a launch of a
-     one-element in-place add under the same replay;
+  2. check that basis d coords' square root equals __fsqrt_rn for every
+     float of its range; hold each of the seven kernels against its plain
+     PyTorch version on the card, at the fit's shapes, two ragged ones and
+     two with k > 256, for all three bases and a center lying exactly on a
+     point; launch the forward, the four slab-summing kernels (fused dW,
+     d centers and d coords, basis d centers) and basis d coords twice at
+     N=32768 and at (200, 106, 48) and require bitwise equal outputs; at
+     the three fit shapes, time kernel and plain version (CUDA events
+     around 20 eager calls, host included, and the device time a launch
+     from a CUDA-graph replay) beside the kernel's bound, and the launch
+     floor: the device time a launch of a one-element in-place add under
+     the same replay;
   3. the bench-workload DA-STDK fit (12 epochs, basis unfreezing at epoch
      10) through `run_single_experiment`, on the fused route;
   4. a ragged-k lane of that workload (centers 25+81 padded to 227) through
@@ -67,12 +69,13 @@ ODD_SHAPE = (77, 37, 19)
 # centers at four a thread (k % 4 == 0) or two chunks at one (k odd), and
 # the fused d coords five k-slabs
 WIDE_K_SHAPES = [(1000, 300, 64), (1000, 301, 64)]
-# the kernels that sum slab partials in a fixed order, and the forward,
-# which sums over k in one: launched twice at these shapes, each must give
-# bitwise equal outputs
+# the kernels that sum slab partials in a fixed order, and the forward and
+# basis d coords, which sum over k in one: launched twice at these shapes,
+# each must give bitwise equal outputs
 TWO_LAUNCHES = ("fused_first_layer_fwd", "fused_first_layer_bwd_w",
                 "fused_first_layer_bwd_centers",
-                "fused_first_layer_bwd_points", "spatial_basis_bwd_centers")
+                "fused_first_layer_bwd_points", "spatial_basis_bwd_centers",
+                "spatial_basis_bwd_points")
 DETERMINISM_SHAPES = (SLICE_SHAPES[-1], RAGGED_SHAPE)
 # peak rates of one H100 SXM (NVIDIA's data sheet): a 3xTF32 product takes
 # three TF32 products on the tensor cores; float32 outside them; HBM
@@ -217,6 +220,13 @@ def kernel_phase(torch, ffl, sbk, basis_ids, cal):
     # create the cuBLAS handle on this thread before autograd's device
     # thread needs one in the plain backward
     torch.ones((2, 2), device="cuda") @ torch.ones((2, 2), device="cuda")
+    # basis d coords forms d = sqrt(max(d2, 1e-24)) by its own sequence:
+    # it must equal __fsqrt_rn bit for bit, so that r is the plain version's
+    bad = sbk.sqrt_check()
+    print(f"basis d coords' square root against __fsqrt_rn: {bad} of every "
+          f"float in [2^-101, FLT_MAX] differ", flush=True)
+    check(bad == 0, f"basis d coords' square root differs from __fsqrt_rn "
+          f"for {bad} floats")
     worst = {nm: 0.0 for nm in KERNELS}
     times = {}
     shapes = SLICE_SHAPES + [RAGGED_SHAPE, ODD_SHAPE] + WIDE_K_SHAPES
@@ -237,8 +247,8 @@ def kernel_phase(torch, ffl, sbk, basis_ids, cal):
                 check(all(torch.equal(a, b) for a, b in
                           zip(_outputs(got[nm]), _outputs(again))),
                       f"{nm}: two launches differ at {line[0]}")
-            line.append("fwd and the slab-summing kernels bitwise equal over "
-                        "two launches;")
+            line.append("fwd, basis d coords and the slab-summing kernels "
+                        "bitwise equal over two launches;")
         for nm, (_, plain) in pairs.items():
             want = plain()
             rtol, atol = BARS[nm]
@@ -273,8 +283,9 @@ def kernel_phase(torch, ffl, sbk, basis_ids, cal):
         print(f"  N={n}: forward tile {ffl.fwd_tile(n, k, h)}, fused "
               f"bwd_points tile {ffl.bwd_points_tile(n, k, h)}, basis fwd "
               f"plan (points, centers a thread, threads) "
-              f"{sbk.basis_fwd_plan(n, k)}; slabs: fused bwd_w "
-              f"{ffl.bwd_w_slabs(n, k, h)}, fused bwd_centers "
+              f"{sbk.basis_fwd_plan(n, k)}, basis bwd_points plan (points, "
+              f"threads) {sbk.basis_bwd_points_plan(n, k)}; slabs: fused "
+              f"bwd_w {ffl.bwd_w_slabs(n, k, h)}, fused bwd_centers "
               f"{ffl.bwd_centers_slabs(n, k)}, fused bwd_points k-slabs "
               f"{ffl.bwd_points_slabs(n, k, h)}, basis bwd_centers "
               f"{sbk.basis_bwd_centers_slabs(n, k)}", flush=True)
@@ -461,9 +472,10 @@ class Phases:
         print(f"per step: epoch 1 {1e3 * first / per_epoch:.3f} ms, epochs "
               f"2-{n_ep} {1e3 * rest / (steps - per_epoch):.3f} ms",
               flush=True)
-        print(f"test RMSE {res['test_rmse']:.6f}  test CRPS "
-              f"{res['test_crps']:.6f}  (valid RMSE {res['valid_rmse']:.6f} "
-              f"CRPS {res['valid_crps']:.6f})", flush=True)
+        # repr: every digit, so that two runs' scores compare bitwise
+        print(f"test RMSE {res['test_rmse']!r}  test CRPS "
+              f"{res['test_crps']!r}  (valid RMSE {res['valid_rmse']!r} "
+              f"CRPS {res['valid_crps']!r})", flush=True)
         tl = np.asarray(hist["train_loss"])
         vl = np.asarray(hist["val_loss"])
         check(n_ep == EPOCHS, f"the fit stopped after {n_ep} of {EPOCHS} "

@@ -93,7 +93,20 @@ class ExperimentConfig:
     save_artifacts: bool = True                # model/prediction/basis npz files
     eval_chunk: int = 32768                    # points per predict chunk
 
-    # unknown keys; the port reads extra['shuffle'] ('none' = identity order)
+    # unknown keys. The port reads 'shuffle' ('none' = identity order),
+    # 'init_subsample' and 'init_gmm_n_init'; `unported_fit_knobs` names the
+    # JAX fit knobs it refuses, and the setup raises on them. Accepted and
+    # ignored on purpose: the JAX package's TPU and lane-engine knobs, which
+    # change how a fit runs there but not its numbers ('pregather', 'remat',
+    # 'profile_dir', 'lanes_per_device', 'packed_upload', 'final_stop_sync',
+    # 'packed_finalize_pull'; the JAX-only fields 'packed_optimizer',
+    # 'scan_unroll', 'tail_compaction', 'compaction_epoch', 'mesh_axis',
+    # 'dropout_rng' (its RNG streams do not cross frameworks anyway) and the
+    # CLI and plotting keys), and 'init_gmm_fused': JAX runs the resolutions'
+    # GMM EMs as one loop with the same seeding keys and the same tol stop
+    # for each (resolution, restart) (st_dadk_tpu/ops/init_centers.py:
+    # 408-434 against :281-303), the EM the port runs per resolution; on
+    # the CPU the two JAX programs give bitwise equal centers and sigmas.
     extra: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
@@ -158,3 +171,24 @@ class ExperimentConfig:
 
     def json(self) -> str:
         return json.dumps(self.to_dict(), indent=2, default=str)
+
+
+def unported_fit_knobs(cfg: ExperimentConfig) -> List[str]:
+    """The JAX fit knobs in `cfg.extra` that change a fit's numbers and that
+    the port does not carry (st_dadk_tpu/train/experiment.py:304-308,
+    train/loop.py:196):
+      - 'init_seed_rounds': R-round k-means++ seeding in place of the exact
+        sequential draw (st_dadk_tpu/ops/init_centers.py:170-177);
+      - 'init_em_dtype: bfloat16': the GMM EM's (n, k) tensors stored in
+        bf16 (any other value keeps float32, init_centers.py:230);
+      - 'ablate_validate: true': the train loss stands in for the
+        validation loss (loop.py:550-551)."""
+    extra = cfg.extra
+    knobs = []
+    if extra.get("init_seed_rounds") is not None:
+        knobs.append("init_seed_rounds")
+    if extra.get("init_em_dtype") == "bfloat16":
+        knobs.append("init_em_dtype")
+    if bool(extra.get("ablate_validate", False)):
+        knobs.append("ablate_validate")
+    return knobs

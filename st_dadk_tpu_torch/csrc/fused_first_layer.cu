@@ -16,7 +16,8 @@
 //   bwd_points_kernel  <- _bwd_pts_kernel (:147; call :257)
 //   bwd_centers_kernel <- _bwd_ctr_kernel (:170; call :275)
 // The shared device functions (_phi / _dphi, pallas_basis.py:44-63) are in
-// basis_device.cuh, the slab rule and the ordered slab sums in slabs.cuh.
+// basis_device.cuh, the slab rule and the ordered slab sums in slabs.cuh,
+// the cp.async copies in cp_async.cuh.
 //
 // What bounds them on an H100: all four are matrix products with one
 // operand computed on the fly (3.8 GFLOP at N=32768, k=227, H=256, on
@@ -85,6 +86,7 @@
 #include <stdint.h>
 
 #include "basis_device.cuh"
+#include "cp_async.cuh"
 #include "slabs.cuh"
 
 namespace {
@@ -94,43 +96,19 @@ using st_basis::basis_phi;
 using st_basis::guarded_dist;
 using st_basis::guarded_dist2;
 using st_basis::spatial_coef;
+using st_async::cp_async16;
+using st_async::cp_async4;
+using st_async::cp_async_commit;
+using st_async::cp_async_wait;
 using st_slabs::SLAB_UNIT;
 using st_slabs::slab_range;
 
 constexpr int THREADS = 256;
 
 // ---------------------------------------------------------------------------
-// Building blocks of the tensor-core kernels: cp.async staging and 3xTF32
-// mma.sync.
+// Building blocks of the tensor-core kernels: cp.async staging
+// (cp_async.cuh) and 3xTF32 mma.sync.
 // ---------------------------------------------------------------------------
-
-// Asynchronous global -> shared copy of 16 (or 4) bytes; with `ok` false it
-// reads nothing and fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups (the newest) are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Stage the (ROWS x COLS) tile at (r0, c0) of the row-major matrix src
 // (leading dimension ld; rows past nrows and columns past ncols read as 0)

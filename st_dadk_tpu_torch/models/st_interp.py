@@ -326,10 +326,11 @@ def sparsity_block(wb: torch.Tensor, penalty_type: str, lambda_l1: float,
 def init_model(generator: torch.Generator, spec: ModelSpec,
                spatial_centers: Optional[np.ndarray] = None,
                spatial_bandwidths: Optional[np.ndarray] = None,
-               device: torch.device | str = "cpu") -> STInterp:
+               device: torch.device | str = "cuda") -> STInterp:
     """Build and initialise the model like the JAX `init_model` (torch
     default Linear init U(+-1/sqrt(fan_in)), LayerNorm 1/0, delta ~
-    N(0, 0.01)), drawing from a CPU `generator`; the centers default to the
+    N(0, 0.01)), drawing from a CPU `generator`, and move it to `device`
+    (the card unless the caller names the CPU); the centers default to the
     uniform multi-resolution grid."""
     if spatial_centers is None or spatial_bandwidths is None:
         spatial_centers, spatial_bandwidths = uniform_grid_centers(
@@ -368,9 +369,10 @@ def _flat(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
 
 def from_jax_params(spec: ModelSpec, params: Dict[str, Any],
                     consts: Dict[str, Any],
-                    device: torch.device | str = "cpu") -> STInterp:
-    """An STInterp holding a JAX (params, consts) pair's values; a padded
-    lane's `spatial_k_mask` in consts becomes the model's mask."""
+                    device: torch.device | str = "cuda") -> STInterp:
+    """An STInterp holding a JAX (params, consts) pair's values on `device`
+    (the card unless the caller names the CPU); a padded lane's
+    `spatial_k_mask` in consts becomes the model's mask."""
     mask = consts.get("spatial_k_mask")
     model = STInterp(spec, np.asarray(consts["spatial_centers_init"]),
                      np.asarray(consts["spatial_bandwidths_init"]),

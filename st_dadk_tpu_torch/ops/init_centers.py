@@ -127,7 +127,7 @@ def _subsample(train_coords: np.ndarray, cap: Optional[int] = None,
 def init_spatial_centers(method: str, n_centers: Sequence[int],
                          train_coords: Optional[np.ndarray] = None,
                          generator: Optional[torch.Generator] = None,
-                         device: torch.device | str = "cpu",
+                         device: torch.device | str = "cuda",
                          rng: Optional[np.random.RandomState] = None,
                          subsample: Optional[int] = None,
                          gmm_n_init: Optional[int] = None
@@ -135,8 +135,9 @@ def init_spatial_centers(method: str, n_centers: Sequence[int],
     """(centers (sum_k, 2), bandwidths (sum_k,)) float32 numpy.
 
     'uniform' is the regular grid; 'gmm' fits each resolution on `device`
-    from the training coords (with their temporal duplicates, i.e. density
-    weighting). Other JAX init methods are not ported yet."""
+    (the card unless the caller names the CPU) from the training coords
+    (with their temporal duplicates, i.e. density weighting). Other JAX
+    init methods are not ported yet."""
     if method == "uniform":
         return uniform_grid_centers(n_centers)
     if method != "gmm":

@@ -9,20 +9,20 @@ their sources, on one GPU.
                   <commit>:st_dadk_tpu_torch/csrc/<file>` into a directory
                   that .gitignore lists. Its entry points have that
                   commit's C signatures (PREVIOUS_SIGNATURES: the basis
-                  forward without a plan, the fused d coords without a
-                  workspace, tile or k-slabs).
+                  d coords without a plan).
   --variants      also build the current sources with one part replaced by
                   text (VARIANTS): what a kernel costs without its phi, with
                   one TF32 product instead of three, and so on.
   --tiles         also time the current kernels at every tile of their
                   planners (`fused_first_layer.FWD_TILES`, `BP_TILES`,
-                  `spatial_basis_kernels.BASIS_FWD_TILES_P`), not only the
-                  planner's choice.
+                  `spatial_basis_kernels.BASIS_FWD_TILES_P`,
+                  `BASIS_BP_TILES_P`), not only the planner's choice.
 
 The kernels: the fused forward (FWD), the fused d coords (BP), the basis
-forward (BFWD) and the basis d centers (BC). Every version is built with the
-package's nvcc flags into `build/time_kernels/<version>/`, all builds at
-once, loaded with ctypes and called directly on preallocated outputs. At
+forward (BFWD), the basis d coords (BPT) and the basis d centers (BC).
+Every version is built with the package's nvcc flags into
+`build/time_kernels/<version>/`, all builds at once, loaded with ctypes
+and called directly on preallocated outputs. At
 each fit shape it times every version of a kernel by CUDA-graph replay
 (`utils/timing.graph_ms`: device time a launch), in the order previous,
 current, variants..., current, previous, and reports the two current and
@@ -53,12 +53,15 @@ OUT_DIR = REPO / "build" / "time_kernels"
 SHAPES = [(512, 227, 256), (2000, 227, 256), (32768, 227, 256)]
 FWD, BP = "st_fused_first_layer_fwd", "st_fused_first_layer_bwd_points"
 BFWD, BC = "st_spatial_basis_fwd", "st_spatial_basis_bwd_centers"
+BPT = "st_spatial_basis_bwd_points"
 LIBS = {FWD: "fused_first_layer", BP: "fused_first_layer",
-        BFWD: "spatial_basis", BC: "spatial_basis"}
+        BFWD: "spatial_basis", BPT: "spatial_basis", BC: "spatial_basis"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (pointer, int) argument counts before the stream
-CURRENT_SIGNATURES = {FWD: (5, 6), BP: (7, 7), BFWD: (4, 6), BC: (7, 4)}
-PREVIOUS_SIGNATURES = {FWD: (5, 6), BP: (6, 4), BFWD: (4, 3), BC: (7, 4)}
+CURRENT_SIGNATURES = {FWD: (5, 6), BP: (7, 7), BFWD: (4, 6), BPT: (5, 5),
+                      BC: (7, 4)}
+PREVIOUS_SIGNATURES = {FWD: (5, 6), BP: (7, 7), BFWD: (4, 6), BPT: (5, 3),
+                       BC: (7, 4)}
 # name -> (entry point, source file, text, replacement): one part of the
 # current source replaced, to see what it costs
 VARIANTS = {
@@ -92,6 +95,30 @@ VARIANTS = {
         BFWD, "spatial_basis.cu",
         "      *row = v[0];",
         "      if (v[0] == 1234.5f) *row = v[0];"),
+    "bpt_no_chain": (
+        BPT, "spatial_basis.cu",
+        "        points_term<BASIS>(px, py, cx[m], cy[m], ib[m], gv, tx, ty);",
+        "        tx = gv * cx[m];\n        ty = gv * cy[m];"),
+    "bpt_ieee_sqrt": (
+        BPT, "spatial_basis.cu",
+        "  sqrt_and_rsqrt(d2g, d, inv_d);",
+        "  d = guarded_dist(d2);\n  inv_d = rsqrtf(d2g);"),
+    "bpt_branchy_dphi": (
+        BPT, "spatial_basis.cu",
+        "  const float gphi = g * points_dphi<BASIS>(__fmul_rn(d, ib));",
+        "  const float gphi = g * basis_dphi(__fmul_rn(d, ib), BASIS);"),
+    "bpt_no_inv_d": (
+        BPT, "spatial_basis.cu",
+        "  const float coef = d2 >= 1e-24f ? gphi * ib * inv_d : 0.0f;",
+        "  const float coef = d2 >= 1e-24f ? gphi * ib : 0.0f;"),
+    "bpt_ieee_div": (
+        BPT, "spatial_basis.cu",
+        "  const float coef = d2 >= 1e-24f ? gphi * ib * inv_d : 0.0f;",
+        "  const float coef = spatial_coef(gphi, ib, d2, d);"),
+    "bpt_no_g_loads": (
+        BPT, "spatial_basis.cu",
+        "      cp_async16(gs + v, src + v, true);",
+        "      ;"),
     "bc_no_dphi": (
         BC, "spatial_basis.cu",
         "          g[(size_t)p * k + c] * basis_dphi(__fmul_rn(d, ib), "
@@ -188,19 +215,20 @@ def _call(entry, fn, current, args, n, k, h, tile=None):
         bufs = (coords, centers, inv_bw, w, empty(n, h))
         ints = (n, k, h, bid) + (tile or ffl.fwd_tile(n, k, h))
     elif entry == BP:
-        bufs = (coords, centers, inv_bw, w, grad_h, empty(n, 2))
-        ints = (n, k, h, bid)
-        if current:
-            bp, ct = tile or ffl.bwd_points_tile(n, k, h)
-            slabs = -(-k // ct)
-            bufs += (empty(slabs if slabs > 1 else 0, n, 2),)
-            ints += (bp, ct, slabs)
+        bp, ct = tile or ffl.bwd_points_tile(n, k, h)
+        slabs = -(-k // ct)
+        bufs = (coords, centers, inv_bw, w, grad_h, empty(n, 2),
+                empty(slabs if slabs > 1 else 0, n, 2))
+        ints = (n, k, h, bid, bp, ct, slabs)
     elif entry == BFWD:
         bufs = (coords, centers, inv_bw, empty(n, k))
+        plan = sbk.basis_fwd_plan(n, k)
+        ints = (n, k, bid) + (((tile,) + plan[1:]) if tile else plan)
+    elif entry == BPT:
+        bufs = (coords, centers, inv_bw, grad_phi, empty(n, 2))
         ints = (n, k, bid)
         if current:
-            plan = sbk.basis_fwd_plan(n, k)
-            ints += ((tile,) + plan[1:]) if tile else plan
+            ints += tile or sbk.basis_bwd_points_plan(n, k)
     else:
         ws = sbk.basis_bwd_centers_workspace(n, k, "cuda")
         bufs = (coords, centers, inv_bw, grad_phi, empty(k, 2), empty(k), ws)
@@ -221,6 +249,9 @@ def _tiles(entry):
         return {f"current@{bp}x{ct}": (bp, ct) for bp, ct in ffl.BP_TILES}
     if entry == BFWD:
         return {f"current@p{tp}": tp for tp in sbk.BASIS_FWD_TILES_P}
+    if entry == BPT:
+        return {f"current@p{tp}": (tp, 32 * min(8, tp))
+                for tp in sbk.BASIS_BP_TILES_P}
     return {}
 
 
@@ -245,7 +276,7 @@ def main(argv=None) -> int:
     result = {"card": card, "ms": {}}
     for n, k, h in SHAPES:
         data = _inputs(n, k, h)
-        for entry in (FWD, BP, BFWD, BC):
+        for entry in (FWD, BP, BFWD, BPT, BC):
             names = [v for v in order if entry in versions[v]]
             runs = {}
             tiles = _tiles(entry) if args.tiles else {}

@@ -24,7 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from st_dadk_tpu_torch.config import ExperimentConfig
+from st_dadk_tpu_torch.config import ExperimentConfig, unported_fit_knobs
 from st_dadk_tpu_torch.dataio.arrays import (PointSet, dense_grid_points,
                                              pointset_from_mask)
 from st_dadk_tpu_torch.dataio.kaust import load_kaust_csv_single
@@ -105,11 +105,18 @@ def evaluate_pointset(cfg: ExperimentConfig, model: STInterp, ps: PointSet,
 
 
 class ExperimentSetup:
-    """Data, masks, point sets and the initialised model of one fit."""
+    """Data, masks, point sets and the initialised model of one fit. Raises
+    NotImplementedError on a JAX fit knob the port does not carry
+    (`config.unported_fit_knobs`)."""
 
     def __init__(self, cfg: ExperimentConfig, experiment_id: int,
                  device: torch.device | str, verbose: bool = False,
                  defer_model: bool = False):
+        knobs = unported_fit_knobs(cfg)
+        if knobs:
+            raise NotImplementedError(
+                f"fit knobs the port does not carry: "
+                f"{', '.join(f'{k}={cfg.extra[k]!r}' for k in knobs)}")
         t0 = time.perf_counter()
         self.cfg = cfg
         self.device = torch.device(device)
@@ -167,7 +174,8 @@ class ExperimentSetup:
                                     device=self.device)
             return
         spec_real = real_lane_spec(self.cfg, self.spec)
-        real = init_model(gen, spec_real, centers, bandwidths)
+        # the real-shape model only carries its values into pad_lane_model
+        real = init_model(gen, spec_real, centers, bandwidths, device="cpu")
         params, consts = pad_lane_model(spec_real, int(self.cfg.k_spatial_pad),
                                         to_jax_params(real), model_consts(real))
         self.model = from_jax_params(self.spec, params, consts,

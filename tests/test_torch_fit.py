@@ -60,7 +60,7 @@ def both(toy_csv):
     setup_j = jexp.ExperimentSetup(cfg_j, 1)
     setup_t = texp.ExperimentSetup(cfg_t, 1, "cpu", defer_model=True)
     setup_t.model = from_jax_params(setup_t.spec, setup_j.params,
-                                    setup_j.consts)
+                                    setup_j.consts, device="cpu")
     return cfg_j, cfg_t, setup_j, setup_t
 
 
@@ -154,3 +154,23 @@ def test_run_single_experiment_gmm_shuffled_with_dropout(toy_csv, tmp_path):
     assert res["n_points"]["test"] == 240
     pred = np.load(tmp_path / "predictions.npz")["predictions"]
     assert pred.shape == (12, 40) and np.all(np.isfinite(pred))
+
+
+def test_fit_scores_runs_chip_smokes_fits():
+    """fit_scores.py, which compares two trees' scores bitwise on the card,
+    runs the fits chip_smoke.py runs, and refuses to run without a card."""
+    import importlib.util
+    from pathlib import Path
+
+    from st_dadk_tpu_torch import fit_scores
+
+    path = Path(fit_scores.__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert fit_scores.EPOCHS == smoke.EPOCHS
+    assert fit_scores.LANE_CENTERS == smoke.LANE_CENTERS
+    assert fit_scores.LANE_PAD == smoke.LANE_PAD
+    assert fit_scores.FITS["ragged lane"]["k_spatial_pad"] == smoke.LANE_PAD
+    if not fit_scores.torch.cuda.is_available():
+        assert fit_scores.main([]) == 2

@@ -1,0 +1,123 @@
+"""Two guards of the port's public surface.
+
+- A JAX fit knob that the port does not carry raises NotImplementedError at
+  setup and names the knob, instead of fitting differently without a word;
+  the JAX package's TPU knobs and `init_gmm_fused` (the same EM, see
+  st_dadk_tpu_torch/config.py) are accepted.
+- The public constructors put what they build on the card unless the
+  caller names the CPU.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from st_dadk_tpu.ops import init_centers as ji
+from st_dadk_tpu_torch.config import ExperimentConfig, unported_fit_knobs
+from st_dadk_tpu_torch.models import st_interp as tm
+from st_dadk_tpu_torch.ops import init_centers as ti
+from st_dadk_tpu_torch.train import experiment as texp
+
+
+@pytest.fixture(scope="module")
+def toy_csv(tmp_path_factory):
+    """A 12-site field over 6 times."""
+    d = tmp_path_factory.mktemp("knobs")
+    rng = np.random.default_rng(1)
+    coords = rng.uniform(size=(12, 2)).round(5)
+    lines = ["x,y,t,z"]
+    for t in range(1, 7):
+        for s in range(12):
+            lines.append(f"{coords[s, 0]},{coords[s, 1]},{t},"
+                         f"{np.sin(3 * coords[s, 0]) + 0.1 * t:.6f}")
+    (d / "toy.csv").write_text("\n".join(lines))
+    return d / "toy.csv"
+
+
+def _cfg(toy_csv, **extra):
+    return ExperimentConfig.from_dict(dict(
+        data_file=str(toy_csv), k_spatial_centers=[4], k_temporal_centers=[3],
+        hidden_dims=[8], regression_type="multi-quantile",
+        quantile_levels=[0.1, 0.5, 0.9], epochs=1, **extra))
+
+
+@pytest.mark.parametrize("knob,value", [("init_seed_rounds", 4),
+                                        ("init_em_dtype", "bfloat16"),
+                                        ("ablate_validate", True)])
+def test_unported_knob_raises_at_setup(toy_csv, tmp_path, knob, value):
+    cfg = _cfg(toy_csv, **{knob: value})
+    assert unported_fit_knobs(cfg) == [knob]
+    with pytest.raises(NotImplementedError, match=knob):
+        texp.ExperimentSetup(cfg, 1, "cpu")
+    with pytest.raises(NotImplementedError, match=knob):
+        texp.run_single_experiment(cfg, 1, tmp_path, device="cpu",
+                                   verbose=False)
+    assert not (tmp_path / "results.json").exists()
+
+
+@pytest.mark.parametrize("knob,value", [("init_gmm_fused", True),
+                                        ("remat", True),
+                                        ("pregather", False),
+                                        ("packed_optimizer", True),
+                                        ("init_em_dtype", "float32"),
+                                        ("ablate_validate", False)])
+def test_accepted_knob_sets_up(toy_csv, knob, value):
+    """TPU knobs, `init_gmm_fused`, and the values of the unported knobs
+    that keep the JAX default fit."""
+    cfg = _cfg(toy_csv, spatial_init_method="gmm", **{knob: value})
+    assert unported_fit_knobs(cfg) == []
+    setup = texp.ExperimentSetup(cfg, 1, "cpu")
+    assert setup.model is not None and cfg.extra[knob] == value
+
+
+def test_init_gmm_fused_gives_the_jax_sequential_numbers():
+    """The knob only batches the resolutions' EMs in JAX: with the default
+    tol the fused program's centers and bandwidths equal the sequential
+    program's, so the port, which runs the EMs one resolution at a time,
+    accepts it."""
+    rng = np.random.default_rng(3)
+    blobs = rng.uniform(0, 1, (6, 2))
+    coords = (blobs[rng.integers(0, 6, 600)]
+              + rng.normal(0, 0.04, (600, 2))).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    seq = ji.init_spatial_centers("gmm", [4, 9], coords, key=key)
+    fused = ji.init_spatial_centers("gmm", [4, 9], coords, key=key,
+                                    gmm_fused=True)
+    for a, b in zip(seq, fused):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_model_constructors_default_to_the_card(monkeypatch):
+    spec = tm.ModelSpec(k_spatial_centers=(4,), k_temporal_centers=(3,),
+                        hidden_dims=(8,))
+    gen = torch.Generator().manual_seed(0)
+    cpu = tm.init_model(gen, spec, device="cpu")
+    params, consts = tm.to_jax_params(cpu), tm.model_consts(cpu)
+    if not torch.cuda.is_available():
+        # no fallback: without a card, a call that names no device fails
+        with pytest.raises(AssertionError, match="CUDA"):
+            tm.init_model(gen, spec)
+        with pytest.raises(AssertionError, match="CUDA"):
+            tm.from_jax_params(spec, params, consts)
+    moved = []
+    monkeypatch.setattr(tm.STInterp, "to",
+                        lambda self, device: moved.append(str(device))
+                        or self)
+    tm.init_model(gen, spec)
+    tm.from_jax_params(spec, params, consts)
+    assert moved == ["cuda", "cuda"]
+
+
+def test_gmm_init_defaults_to_the_card(monkeypatch):
+    as_tensor = torch.as_tensor
+    devices = []
+
+    def record(data, dtype=None, device=None):
+        devices.append(str(device))
+        return as_tensor(data, dtype=dtype, device="cpu")
+
+    X = np.random.default_rng(2).uniform(size=(80, 2)).astype(np.float32)
+    monkeypatch.setattr(torch, "as_tensor", record)
+    centers, bw = ti.init_spatial_centers(
+        "gmm", [4], X, generator=torch.Generator().manual_seed(0))
+    assert devices == ["cuda"] and centers.shape == (4, 2)

@@ -22,11 +22,11 @@ from st_dadk_tpu_torch.ops import fused_first_layer as ffl
 from st_dadk_tpu_torch.ops.basis import basis_matrix
 
 GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
-SOURCE = (Path(ffl.__file__).resolve().parent.parent / "csrc" /
-          "fused_first_layer.cu").read_text()
-SLABS = (Path(ffl.__file__).resolve().parent.parent / "csrc" /
-         "slabs.cuh").read_text()               # the slab rule it includes
-CODE = re.sub(r"//[^\n]*", "", SOURCE + SLABS)  # without the comments
+CSRC = Path(ffl.__file__).resolve().parent.parent / "csrc"
+SOURCE = (CSRC / "fused_first_layer.cu").read_text()
+SLABS = (CSRC / "slabs.cuh").read_text()         # the slab rule it includes
+ASYNC = (CSRC / "cp_async.cuh").read_text()      # its cp.async copies
+CODE = re.sub(r"//[^\n]*", "", SOURCE + SLABS + ASYNC)  # without comments
 SHAPES_KH = [(227, 256), (106, 48), (37, 19), (1, 1), (500, 1024)]
 
 

@@ -48,14 +48,16 @@ def test_seeding_survives_fewer_distinct_points_than_centers():
     seeds = ti.kmeans_plus_plus(torch.as_tensor(X), 12, g)
     assert seeds.shape == (12, 2)
     assert len(np.unique(seeds.numpy(), axis=0)) == 7
-    centers, bw = ti.init_spatial_centers("gmm", [4, 9], X, generator=g)
+    centers, bw = ti.init_spatial_centers("gmm", [4, 9], X, generator=g,
+                                          device="cpu")
     assert centers.shape == (13, 2) and np.all(np.isfinite(bw))
 
 
 def test_bandwidth_floor_and_uniform_path():
     X = _points(2, 500)
     g = torch.Generator().manual_seed(1)
-    centers, bw = ti.init_spatial_centers("gmm", [9, 25], X, generator=g)
+    centers, bw = ti.init_spatial_centers("gmm", [9, 25], X, generator=g,
+                                          device="cpu")
     assert centers.shape == (34, 2)
     assert np.all(bw[:9] >= 0.25 * ti.uniform_bandwidth_for(9) - 1e-7)
     assert np.all(bw[9:] >= 0.25 * ti.uniform_bandwidth_for(25) - 1e-7)

@@ -41,7 +41,7 @@ def test_forward_matches_jax(learnable, delta):
                                  jnp.asarray(coords), jnp.asarray(t),
                                  train=False))
     model = tm.from_jax_params(tm.spec_from_config(ExperimentConfig.from_dict(d)),
-                               params, consts)
+                               params, consts, device="cpu")
     with torch.no_grad():
         got = model(torch.as_tensor(coords), torch.as_tensor(t)).numpy()
     assert got.shape == want.shape
@@ -52,7 +52,8 @@ def test_params_round_trip():
     spec = tm.ModelSpec(k_spatial_centers=(4, 9), k_temporal_centers=(5,),
                         hidden_dims=(8, 4), spatial_learnable=True,
                         output_dim=3, use_delta_reparameterization=True)
-    model = tm.init_model(torch.Generator().manual_seed(0), spec)
+    model = tm.init_model(torch.Generator().manual_seed(0), spec,
+                          device="cpu")
     tree = tm.to_jax_params(model)
     assert tree["mlp"]["linear_0"]["w"].shape == (4 + 9 + 5, 8)
     assert tree["mlp"]["delta"].shape == (3, 5)
@@ -108,7 +109,7 @@ def test_training_loss_and_transformed_grads_match_jax():
 
     cfg_t = ExperimentConfig.from_dict(d)
     spec_t = tm.spec_from_config(cfg_t)
-    model = tm.from_jax_params(spec_t, params, consts)
+    model = tm.from_jax_params(spec_t, params, consts, device="cpu")
     spec_lt = tloop.LoopSpec.from_config(cfg_t, spec_t, 128, 1, 128, 1)
     loss_t = tloop.training_loss(spec_lt, model, torch.as_tensor(coords),
                                  torch.as_tensor(t), torch.as_tensor(y),

@@ -127,10 +127,11 @@ def test_padded_forward_matches_real_and_jax():
     coords, t, _ = _points(2)
     want = np.asarray(jm.forward(spec_pad_j, padded, pconsts, None,
                                  jnp.asarray(coords), jnp.asarray(t)))
-    real = tm.from_jax_params(_port_spec(spec_j), params, consts)
+    real = tm.from_jax_params(_port_spec(spec_j), params, consts,
+                              device="cpu")
     pad_model = tm.from_jax_params(
         _port_spec(spec_pad_j, phi_route=True, padded_lane=True), padded,
-        pconsts)
+        pconsts, device="cpu")
     assert float(pad_model.spatial_k_mask.sum()) == 9
     with torch.no_grad():
         c, tt = torch.as_tensor(coords), torch.as_tensor(t)
@@ -153,7 +154,7 @@ def test_covariate_forward_and_sparsity_match_jax(penalty):
                                  jnp.asarray(coords), jnp.asarray(t)))
     want_pen = jm.sparsity_penalty(spec_j, params, penalty, 1e-3, 1e-2)
     model = tm.from_jax_params(_port_spec(spec_j, phi_route=True), params,
-                               consts)
+                               consts, device="cpu")
     with torch.no_grad():
         got = model(torch.as_tensor(coords), torch.as_tensor(t),
                     X=torch.as_tensor(X)).numpy()
@@ -214,7 +215,7 @@ def test_ragged_fit_matches_jax(toy_csv):
     setup_j = jexp.ExperimentSetup(cfg_j, 1)
     setup_t = texp.ExperimentSetup(cfg_t, 1, "cpu", defer_model=True)
     setup_t.model = tm.from_jax_params(setup_t.spec, setup_j.params,
-                                       setup_j.consts)
+                                       setup_j.consts, device="cpu")
     res_j = jloop.fit(cfg_j, setup_j.spec, setup_j.params, setup_j.consts,
                       setup_j.train_ps, setup_j.valid_ps,
                       seed=setup_j.experiment_seed)
