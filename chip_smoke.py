@@ -18,14 +18,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      around 20 eager calls, host included, and the device time a launch
      from a CUDA-graph replay) beside the kernel's bound, and the launch
      floor: the device time a launch of a one-element in-place add under
-     the same replay;
+     the same replay; the three kernels a fit trains through (fused
+     forward, dW, d centers) with a lane axis, M fits in one launch: against
+     the plain version at three (M, N, k, H), and the forward also at the
+     shapes the lanes phase gives it in validation and in the dense predict,
+     each lane and the M = 1 call bitwise equal to the two-dimensional call,
+     two launches bitwise equal, and the device time a launch at M = 1, 4,
+     8, 16;
   3. the bench-workload DA-STDK fit (12 epochs, basis unfreezing at epoch
      10) through `run_single_experiment`, on the fused route;
   4. a ragged-k lane of that workload (centers 25+81 padded to 227) through
      the materialised-phi kernels, and the same lane unpadded (fused route),
      whose test and valid RMSE it must match;
-  5. the spatial gradient d yhat / d coords through both fitted models.
-Each of phases 3-5 sets the launch counts to 0 just before it and reads
+  5. the spatial gradient d yhat / d coords through both fitted models;
+  6. the lanes phase: M = 4 seeds of the bench workload as lanes of one
+     batched program through `run_multiple_experiments(engine="vmap")`:
+     the results contract and the summary files on disk, the three kernels'
+     launch counts (those of ONE fit, whatever M), and lane 0 of two runs at
+     dropout 0 without shuffling against the single fit of the same seed,
+     loss histories and test scores: the bench schedule, and three epochs
+     with the basis training from the first step.
+Each of phases 3-6 sets the launch counts to 0 just before it and reads
 them just after; it checks the fit's losses, centers and test metrics. The
 last line of standard output is one JSON object with "ok" and the device;
 the line before it lists the kernels.
@@ -77,6 +90,41 @@ TWO_LAUNCHES = ("fused_first_layer_fwd", "fused_first_layer_bwd_w",
                 "fused_first_layer_bwd_points", "spatial_basis_bwd_centers",
                 "spatial_basis_bwd_points")
 DETERMINISM_SHAPES = (SLICE_SHAPES[-1], RAGGED_SHAPE)
+# the kernels with a lane axis, and their (M, N, k, H) cases: the step's
+# shape at 4 and 16 lanes, and the odd shape (H % 4 != 0, k odd) at 3
+LANE_KERNELS = ("fused_first_layer_fwd", "fused_first_layer_bwd_w",
+                "fused_first_layer_bwd_centers")
+LANE_SHAPES = [(4, 512, 227, 256), (3, 77, 37, 19), (16, 512, 227, 256)]
+LANE_TWO_LAUNCHES = LANE_SHAPES[-1]
+# the forward alone at the shapes the lanes phase gives it with LANES lanes:
+# validation (about 2,000 points a lane: any N in 993..4032 takes the same
+# tile), a full chunk of the dense predict and its last chunk (100 x 1000
+# points in chunks of 32,768 leave 1,696); each takes another tile than the
+# step's N=512
+LANE_FWD_SHAPES = [(4, 2000, 227, 256), (4, 32768, 227, 256),
+                   (4, 1696, 227, 256)]
+LANE_TIMED = (1, 4, 8, 16)      # lanes timed at the step's shape
+# the lanes phase: seeds base_seed .. base_seed + LANES - 1
+LANES = 4
+# lane 0 against its single fit at dropout 0, shuffle none: relative gap of
+# the train and validation loss histories. The two run the same arithmetic
+# in other kernels (bmm for mm, another layer norm), and at lr 2e-2 AdamW's
+# normalised updates amplify a rounding difference from epoch to epoch: a
+# single fit whose W_s is moved by one ulp drifts from itself by 1e-2 in 12
+# epochs. So the first epochs show that the lane loop is the single loop,
+# and later the lane may drift from its single fit no further than
+# LANE_DRIFT_FACTOR times what that one-ulp change does (running maxima).
+# The bench schedule freezes the basis until epoch 10, so a second pair
+# runs LANE_EARLY_EPOCHS epochs with the basis training from the first step:
+# the per-lane d-centers gradient, center damping, the basis clipping group
+# and the basis LR column are then held at the early bar, and so are lane
+# 0's scores, which come through the lane forward of the dense predict
+# (measured on an H100: histories within 2.3e-7, scores within 1.6e-8; the
+# bars are 10x that)
+LANE_EARLY_EPOCHS, LANE_EARLY_RTOL = 3, 3e-6
+LANE_DRIFT_FACTOR = 10.0
+LANE_SCORE_RTOL = 1e-6
+LANE_SCORES = ("test_rmse", "test_crps", "valid_rmse", "valid_crps")
 # peak rates of one H100 SXM (NVIDIA's data sheet): a 3xTF32 product takes
 # three TF32 products on the tensor cores; float32 outside them; HBM
 TF32X3_FLOPS, F32_FLOPS, HBM_BYTES_S = 495e12 / 3, 67e12, 3.35e12
@@ -325,6 +373,101 @@ def kernel_phase(torch, ffl, sbk, basis_ids, cal):
     return worst, times, floor
 
 
+def _lane_inputs(torch, lanes, n, k, h, seed):
+    """`_inputs` of `lanes` different seeds stacked on a leading lane axis:
+    coords (M, n, 2), centers (M, k, 2), bw (M, k), W (M, k, h), g
+    (M, n, h)."""
+    per_lane = [_inputs(torch, n, k, h, seed=seed + 100 * m)[:5]
+                for m in range(lanes)]
+    return [torch.stack(ts).contiguous() for ts in zip(*per_lane)]
+
+
+def _lane_calls(ffl, coords, centers, inv_bw, w, grad_h, bid,
+                kernels=LANE_KERNELS):
+    """lane kernel name -> (kernel call, plain call) for `kernels`; the
+    operands carry a lane axis or not."""
+    pairs = _pairs(ffl, None, coords, centers, inv_bw, w, grad_h, None, bid)
+    return {nm: pairs[nm] for nm in kernels}
+
+
+def lane_kernel_phase(torch, ffl, basis_ids, cal, worst):
+    """The lane axis of the fused forward, dW and d centers: M fits in one
+    launch. Returns {kernel: {M: device ms a launch at the step's shape}}."""
+    from st_dadk_tpu_torch.utils.timing import graph_ms
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(_outputs(a), _outputs(b)))
+
+    cases = ([(shape, LANE_KERNELS) for shape in LANE_SHAPES]
+             + [(shape, LANE_KERNELS[:1]) for shape in LANE_FWD_SHAPES])
+    for ci, ((lanes, n, k, h), kernels) in enumerate(cases):
+        for basis in basis_ids:
+            coords, centers, bw, w, grad_h = _lane_inputs(
+                torch, lanes, n, k, h, seed=1000 + ci)
+            inv_bw = (1.0 / (bw * cal[basis])).contiguous()
+            bid = basis_ids[basis]
+            calls = _lane_calls(ffl, coords, centers, inv_bw, w, grad_h, bid,
+                                kernels)
+            got = {nm: kern() for nm, (kern, _) in calls.items()}
+            torch.cuda.synchronize()
+            tile = (f" (the forward alone, tile {ffl.fwd_tile(n, k, h)})"
+                    if len(kernels) == 1 else "")
+            line = [f"M={lanes} n={n} k={k} h={h} {basis}{tile}:"]
+            for nm, (kern, plain) in calls.items():
+                want = plain()
+                rtol, atol = BARS[nm]
+                for a, b in zip(_outputs(got[nm]), _outputs(want)):
+                    check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+                          f"{nm}: bad lane output at {line[0]}")
+                    mx, excess = _err(torch, a, b, rtol, atol)
+                    worst[nm] = max(worst[nm], mx)
+                    line.append(f"{nm.replace('fused_first_layer_', '')} "
+                                f"max|d|={mx:.3e}")
+                    check(excess <= 0.0,
+                          f"{nm} with lanes disagrees with its plain version "
+                          f"at {line[0]} (max |d| {mx:.3e})")
+            # a block works inside one lane: lane m of the M-lane launch,
+            # and the M = 1 launch, are bitwise the two-dimensional call
+            for m in range(lanes):
+                ops = [t[m].contiguous() for t in
+                       (coords, centers, inv_bw, w, grad_h)]
+                flat = _lane_calls(ffl, *ops, bid, kernels)
+                one = _lane_calls(ffl, *[t[None] for t in ops], bid, kernels)
+                for nm in kernels:
+                    two_d = flat[nm][0]()
+                    check(same(tuple(o[m] for o in _outputs(got[nm])), two_d),
+                          f"{nm}: lane {m} of {lanes} differs from the "
+                          f"two-dimensional call at {line[0]}")
+                    check(same(tuple(o[0] for o in _outputs(one[nm][0]())),
+                               two_d),
+                          f"{nm}: the M = 1 call differs from the "
+                          f"two-dimensional call at {line[0]}")
+            line.append("every lane and M=1 bitwise the 2-D call;")
+            if (lanes, n, k, h) == LANE_TWO_LAUNCHES:
+                for nm, (kern, _) in calls.items():
+                    check(same(got[nm], kern()),
+                          f"{nm}: two launches differ at {line[0]}")
+                line.append("two launches bitwise equal;")
+            print("  " + " ".join(line), flush=True)
+
+    n, k, h = SLICE_SHAPES[0]
+    print(f"lane kernels, device time a launch (CUDA-graph replay) at N={n} "
+          f"k={k} H={h}, Wendland, beside M times the M = 1 time:")
+    lane_ms = {nm: {} for nm in LANE_KERNELS}
+    for lanes in LANE_TIMED:
+        coords, centers, bw, w, grad_h = _lane_inputs(torch, lanes, n, k, h,
+                                                      seed=99)
+        calls = _lane_calls(ffl, coords, centers, (1.0 / bw).contiguous(), w,
+                            grad_h, basis_ids["wendland"])
+        for nm, (kern, _) in calls.items():
+            lane_ms[nm][lanes] = (graph_ms(kern) + graph_ms(kern)) / 2
+    for nm, by_m in lane_ms.items():
+        print(f"  {nm:31s} " + "  ".join(
+            f"M={m}: {t:.4f} ms (M x M=1: {m * by_m[1]:.4f})"
+            for m, t in by_m.items()), flush=True)
+    return lane_ms
+
+
 def build_all(_build) -> None:
     """One nvcc process per library, both started together."""
     t0 = time.time()
@@ -367,9 +510,14 @@ def main(argv=None) -> int:
     build_all(_build)
     worst, times, floor = kernel_phase(torch, ffl, sbk, BASIS_IDS,
                                        CALIBRATION_FACTORS)
+    lane_ms = lane_kernel_phase(torch, ffl, BASIS_IDS, CALIBRATION_FACTORS,
+                                worst)
     launches = {nm: None for nm in KERNELS}
+    lane_launches = {}
     if not args.kernels_only:
-        launches = Phases(torch, ffl, sbk).run()
+        phases = Phases(torch, ffl, sbk)
+        launches = phases.run()
+        lane_launches = phases.lane_launches
 
     # ms, plain_ms, bound_ms and library_ms at the training step's shape
     # (device time a launch); "by_n" holds all three fit shapes
@@ -383,7 +531,12 @@ def main(argv=None) -> int:
                           "computed beforehand"
                           if times[(nm, step_n)]["library_ms"] is not None
                           else None),
-         "by_n": {str(n): times[(nm, n)] for n, _, _ in SLICE_SHAPES}}
+         "by_n": {str(n): times[(nm, n)] for n, _, _ in SLICE_SHAPES},
+         # the lane axis (three kernels): launches in the LANES-lane fit
+         # and device ms a launch by lane count at the step's shape
+         "lane_launches": lane_launches.get(nm),
+         "lanes_ms": ({str(m): t for m, t in lane_ms[nm].items()}
+                      if nm in lane_ms else None)}
         for nm, (src, replaces) in KERNELS.items()]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
@@ -398,6 +551,7 @@ class Phases:
 
     def __init__(self, torch, ffl, sbk):
         self.torch, self.ffl, self.sbk = torch, ffl, sbk
+        self.lane_launches = {}
 
     def counted(self, fn):
         """(fn(), launch counts of every kernel during fn)."""
@@ -421,6 +575,7 @@ class Phases:
         lane = self.ragged_fit(launches)
         self.lane_comparison(lane)
         self.spatial_gradients(bench, lane, launches)
+        self.lanes_phase(bench)
         return launches
 
     def fit(self, name, out_dir, **overrides):
@@ -615,6 +770,212 @@ class Phases:
                   f"{res[key]:.6f}  |d| {d:.3e}", flush=True)
             check(d <= LANE_RMSE_BAR, f"{key} of the ragged lane is {d:.3e} "
                   f"from the unpadded lane's (bar {LANE_RMSE_BAR})")
+
+    def lanes_phase(self, bench):
+        """Phase 6: LANES seeds of the bench workload as lanes of one
+        batched program, through the runner's engine="vmap"."""
+        import csv
+        import shutil
+
+        import numpy as np
+
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.train.loop import n_predict_chunks
+        from st_dadk_tpu_torch.train.runner import (AGG_METRICS,
+                                                    QUANTILE_METRICS,
+                                                    run_multiple_experiments)
+
+        _, bench_res, _ = bench
+        out_dir = REPO / "build" / "chip_smoke_lanes"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        cfg = bench_workload(data_file=str(self.data_file), epochs=EPOCHS,
+                             n_experiments=LANES, save_artifacts=True)
+        print(f"lanes phase: {LANES} seeds x {EPOCHS} epochs as lanes of one "
+              f"program (engine='vmap')", flush=True)
+        t0 = time.time()
+        summary, counts = self.counted(lambda: run_multiple_experiments(
+            cfg, out_dir, engine="vmap", device="cuda", verbose=True))
+        wall = time.time() - t0
+        print("launches: " + json.dumps(counts), flush=True)
+        check(summary is not None and summary["n_experiments"] == LANES,
+              f"the summary holds {summary and summary['n_experiments']} "
+              f"experiments, not {LANES}")
+
+        # the results contract of every lane, and the summary files
+        results = []
+        for i in range(1, LANES + 1):
+            exp = out_dir / "experiments" / str(i)
+            for f in ("results.json", "training_history.csv",
+                      "model_final.npz", "model_best.npz", "predictions.npz",
+                      "basis_info.npz"):
+                check((exp / f).exists(), f"lane {i}: {f} is missing")
+            res = json.loads((exp / "results.json").read_text())
+            results.append(res)
+            check(res["experiment_id"] == i
+                  and res["experiment_seed"] == cfg["base_seed"] + i - 1,
+                  f"lane {i}: id {res['experiment_id']} seed "
+                  f"{res['experiment_seed']}")
+            check(res["n_epochs_run"] == EPOCHS
+                  and len(res["training_history"]["train_loss"]) == EPOCHS,
+                  f"lane {i} ran {res['n_epochs_run']} of {EPOCHS} epochs")
+            hist = res["training_history"]
+            check(bool(np.all(np.isfinite(hist["train_loss"]))
+                       and np.all(np.isfinite(hist["val_loss"]))),
+                  f"lane {i}: non-finite loss in the history")
+            check(hist["train_loss"][-1] < hist["train_loss"][0],
+                  f"lane {i}: train loss did not fall")
+            shift = np.asarray(res["basis_center_shift"])
+            unfreeze = cfg["basis_unfreeze_epoch"]
+            check(bool(np.all(shift[:unfreeze] == 0.0)) and shift[-1] > 0.0,
+                  f"lane {i}: centers moved while frozen or never moved")
+            check(bool(np.isfinite(res["test_rmse"])
+                       and np.isfinite(res["test_crps"])),
+                  f"lane {i}: non-finite test metrics")
+            print(f"lane {i} (seed {res['experiment_seed']}): test RMSE "
+                  f"{res['test_rmse']!r}  test CRPS {res['test_crps']!r}  "
+                  f"(valid RMSE {res['valid_rmse']!r} CRPS "
+                  f"{res['valid_crps']!r})", flush=True)
+        check(len({r["test_rmse"] for r in results}) == LANES,
+              "lanes of different seeds gave equal scores")
+        stats = json.loads((out_dir / "summary" /
+                            "summary_statistics.json").read_text())
+        check(set(stats["statistics"]) == set(AGG_METRICS + QUANTILE_METRICS),
+              f"summary statistics hold {sorted(stats['statistics'])}")
+        with open(out_dir / "summary" / "all_experiments.csv", newline="") as f:
+            rows = list(csv.reader(f))
+        check(rows[0] == ["experiment_id", "experiment_seed"] + AGG_METRICS
+              + QUANTILE_METRICS and len(rows) == LANES + 1,
+              f"all_experiments.csv: header {rows[0]}, {len(rows) - 1} rows")
+
+        # the lanes share launches: one fit's training counts, whatever M
+        steps = results[0]["n_steps"]
+        check(all(r["n_steps"] == steps for r in results)
+              and steps == bench_res["n_steps"],
+              f"lane steps {[r['n_steps'] for r in results]} != the single "
+              f"fit's {bench_res['n_steps']}")
+        dense = results[0]["n_points"]["dense"]
+        expect_fwd = (steps + EPOCHS * results[0]["n_val_chunks"]
+                      + n_predict_chunks(dense))
+        check(counts["fused_first_layer_fwd"] == expect_fwd,
+              f"forward launches {counts['fused_first_layer_fwd']} != steps + "
+              f"validations + dense predict chunks = {expect_fwd} for "
+              f"{LANES} lanes")
+        for nm in LANE_KERNELS[1:]:
+            check(counts[nm] == steps, f"{nm} launches {counts[nm]} != one "
+                  f"fit's steps {steps} for {LANES} lanes")
+        for nm, c in counts.items():
+            if nm not in LANE_KERNELS:
+                check(c == 0, f"{nm} launched {c} times in the lanes phase")
+        self.lane_launches = {nm: counts[nm] for nm in LANE_KERNELS}
+
+        st = results[0]["stage_timings"]
+        B = int(st["steps_per_epoch_batch"])
+        later = ((st["epochs_seconds"] - st["first_epoch_seconds"])
+                 / ((EPOCHS - 1) * B))
+        print(f"batch of {LANES} lanes: setup {st['batch_setup_seconds']:.3f} "
+              f"s (init a lane {st['init_seconds']:.3f} s), epochs "
+              f"{st['epochs_seconds']:.3f} s, finalize eval "
+              f"{st['batch_eval_seconds']:.3f} s, wall {wall:.3f} s; a step "
+              f"(validation included) in epochs 2-{EPOCHS}: "
+              f"{1e3 * later:.3f} ms = {1e3 * later / LANES:.3f} ms a lane; "
+              f"{3600.0 * LANES / wall:.1f} {EPOCHS}-epoch fits an hour "
+              f"at this width, set-up and finalize included", flush=True)
+
+        # lane 0 against the single fit of its seed: dropout 0, no shuffle;
+        # on the bench schedule, and with the basis training from step 1
+        quiet = dict(cfg, dropout=0.0, shuffle="none", save_artifacts=False)
+        self.lane_pair("bench schedule", quiet, drift=True)
+        self.lane_pair(f"basis unfrozen, {LANE_EARLY_EPOCHS} epochs",
+                       dict(quiet, basis_unfreeze_epoch=0,
+                            epochs=LANE_EARLY_EPOCHS), drift=False)
+
+    def lane_pair(self, name, quiet, drift):
+        """LANES lanes of config `quiet` (no dropout, no shuffling) and the
+        single fit of lane 0's seed: loss histories within LANE_EARLY_RTOL
+        in the first LANE_EARLY_EPOCHS epochs. With `drift` the later epochs
+        and the scores are held to LANE_DRIFT_FACTOR times what a one-ulp
+        change of W_s does to the single fit; without it the run ends after
+        the early epochs, the centers must have moved, and lane 0's scores
+        are held to LANE_SCORE_RTOL."""
+        import shutil
+
+        import numpy as np
+
+        from st_dadk_tpu_torch.config import ExperimentConfig
+        from st_dadk_tpu_torch.train import loop
+        from st_dadk_tpu_torch.train.experiment import (ExperimentSetup,
+                                                        run_single_experiment)
+        from st_dadk_tpu_torch.train.runner import run_multiple_experiments
+
+        pair_dir = REPO / "build" / "chip_smoke_lanes_pair"
+        shutil.rmtree(pair_dir, ignore_errors=True)
+        run_multiple_experiments(quiet, pair_dir / "lanes", engine="vmap",
+                                 device="cuda")
+        lane0 = json.loads((pair_dir / "lanes" / "experiments" / "1" /
+                            "results.json").read_text())
+        single = run_single_experiment(quiet, 1, pair_dir / "single",
+                                       device="cuda", verbose=False)
+        n_ep = single["n_epochs_run"]
+        check(lane0["n_epochs_run"] == n_ep == quiet["epochs"],
+              f"{name}: lane 0 ran {lane0['n_epochs_run']} epochs, its single "
+              f"fit {n_ep}, of {quiet['epochs']}")
+        score_bar = LANE_SCORE_RTOL
+        drifts = {}
+        if drift:
+            # the same single fit with W_s one ulp up: what rounding alone does
+            quiet_cfg = ExperimentConfig.from_dict(quiet)
+            setup = ExperimentSetup(quiet_cfg, 1, "cuda")
+            with self.torch.no_grad():
+                w = setup.model.mlp.linear_0.w
+                w.copy_(self.torch.nextafter(w, self.torch.full_like(w, 10.0)))
+            nudged = loop.fit(quiet_cfg, setup.spec, setup.model,
+                              setup.train_ps, setup.valid_ps,
+                              seed=setup.experiment_seed)
+        else:
+            shift = (np.asarray(lane0["basis_center_shift"]),
+                     np.asarray(single["basis_center_shift"]))
+            check(shift[0][0] > 0.0 and shift[1][0] > 0.0,
+                  f"{name}: the centers did not move in epoch 1")
+            gap = float((np.abs(shift[0] - shift[1]) / shift[1]).max())
+            print(f"lane 0 vs its single fit ({name}), center shift by epoch: "
+                  f"relative gap {gap:.1e}", flush=True)
+            check(gap <= LANE_EARLY_RTOL, f"{name}: lane 0's centers are "
+                  f"{gap:.3e} from its single fit's (bar {LANE_EARLY_RTOL})")
+        for key in ("train_loss", "val_loss"):
+            a = np.asarray(lane0["training_history"][key])
+            b = np.asarray(single["training_history"][key])
+            gaps = np.abs(a - b) / np.abs(b)
+            early = float(gaps[:LANE_EARLY_EPOCHS].max())
+            print(f"lane 0 vs its single fit ({name}; dropout 0, shuffle "
+                  f"none), {key}, relative gap by epoch: "
+                  + " ".join(f"{g:.1e}" for g in gaps), flush=True)
+            check(early <= LANE_EARLY_RTOL,
+                  f"{name}: lane 0's {key} is {early:.3e} from its single "
+                  f"fit's in epochs 1-{LANE_EARLY_EPOCHS} (bar "
+                  f"{LANE_EARLY_RTOL})")
+            if not drift:
+                continue
+            drifts[key] = np.abs(np.asarray(nudged.history[key]) - b) / np.abs(b)
+            bar = np.maximum(LANE_EARLY_RTOL, LANE_DRIFT_FACTOR
+                             * np.maximum.accumulate(drifts[key]))
+            print(f"  the single fit with W_s one ulp up: "
+                  + " ".join(f"{g:.1e}" for g in drifts[key]) + "; bar: "
+                  + " ".join(f"{g:.1e}" for g in bar), flush=True)
+            over = np.maximum.accumulate(gaps) > bar
+            check(not over.any(),
+                  f"{name}: lane 0's {key} drifts from its single fit further "
+                  f"than {LANE_DRIFT_FACTOR} x a one-ulp change of W_s does, "
+                  f"from epoch {int(np.argmax(over)) + 1}")
+        if drift:
+            score_bar = max(LANE_SCORE_RTOL, LANE_DRIFT_FACTOR * max(
+                float(d.max()) for d in drifts.values()))
+        for key in LANE_SCORES:
+            gap = abs(lane0[key] - single[key]) / abs(single[key])
+            print(f"lane 0 vs its single fit ({name}), {key}: "
+                  f"{lane0[key]!r} / {single[key]!r}  relative gap {gap:.1e} "
+                  f"(bar {score_bar:.1e})", flush=True)
+            check(gap <= score_bar, f"{name}: lane 0's {key} is {gap:.3e} "
+                  f"from its single fit's (bar {score_bar:.1e})")
 
     def saved_model(self, cfg, out_dir, device, pad=None):
         """The fit's saved params as a model on `device`; with `pad`, padded

@@ -21,6 +21,7 @@ class ExperimentConfig:
     tag: str = "default"
     data_file: str = "data/2b/2b_7.csv"
     base_seed: int = 42
+    n_experiments: int = 10       # repeats of the runner (seeds base_seed + i - 1)
     device: str = "cuda"          # the port's default torch device
 
     # -- model architecture ---------------------------------------------------

@@ -75,6 +75,18 @@
 // tests/test_torch_kernel_design.py emulate both in numpy).
 // wgmma and TMA (the full tensor-core rate) are later work.
 //
+// The lane axis. The forward, dW and d centers (the kernels a fit trains
+// through) take M independent fits ("lanes") in one launch: every operand
+// carries a leading lane dimension (coords (M, N, 2), centers (M, k, 2),
+// inv_bw (M, k), W (M, k, H), g and h (M, N, H), the split-N workspaces
+// (M, slabs, ...)), the lane is one more grid dimension, and a block offsets
+// its pointers by its lane before anything else. A block works inside one
+// lane and no sum crosses lanes, so M = 1 is bitwise the two-dimensional
+// call. cp.async's 16-byte alignment holds at every lane's base: the staged
+// operands (W, g) have lane strides k H and N H floats, multiples of 4
+// whenever H % 4 == 0, which the 16-byte path already requires; centers and
+// inv_bw, whose lane strides may be odd (k = 227), are read by scalar loads.
+//
 // No kernel uses atomics: every sum runs in a fixed order, so results are
 // bitwise deterministic from launch to launch. Ragged edges are masked in
 // the kernels: a basis column past k, a point past N or a hidden column
@@ -203,7 +215,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
 // is short; the 64 x 256 tile takes chunks of 16 to keep two blocks an SM.
 // Padded centers and points past N get phi = 0, W rows past k and columns
 // past H are zero-filled by the copies, and the stores are masked. Shared
-// memory does not depend on k, so any k runs.
+// memory does not depend on k, so any k runs. blockIdx.z is the lane.
 // ---------------------------------------------------------------------------
 constexpr int FWD_STAGES = 4;  // W chunks in the ring
 
@@ -235,6 +247,14 @@ fwd_kernel(const float* __restrict__ coords, const float* __restrict__ centers,
   using S = FwdSmem<BN, BH, KC>;
   constexpr int PHI_LD = S::PHI_LD;
   extern __shared__ __align__(16) float smem[];
+  {  // this block's lane: its own slice of every operand
+    const size_t fit = blockIdx.z;
+    coords += fit * 2 * n;
+    centers += fit * 2 * k;
+    inv_bw += fit * k;
+    w += fit * k * h;
+    out += fit * n * h;
+  }
   float* w_s = smem;                    // [FWD_STAGES][KC][S::W_LD]
   float* phi_s = smem + S::W_FLOATS;    // [2][BN][PHI_LD]
   float* px = phi_s + S::PHI_FLOATS;    // [BN]
@@ -359,11 +379,12 @@ fwd_kernel(const float* __restrict__ coords, const float* __restrict__ centers,
       }
 }
 
-// One forward launch at tile (BN, BH) on `stream`.
+// One forward launch at tile (BN, BH) for `lanes` lanes on `stream`.
 template <int BN, int BH, int WM, int KC>
 cudaError_t launch_fwd(const float* coords, const float* centers,
                        const float* inv_bw, const float* w, float* out, int n,
-                       int k, int h, int basis, cudaStream_t stream) {
+                       int k, int h, int basis, int lanes,
+                       cudaStream_t stream) {
   constexpr size_t bytes = FwdSmem<BN, BH, KC>::BYTES;
   if (bytes > 48 * 1024) {  // above 48 KB only as opted-in dynamic memory
     const cudaError_t err = cudaFuncSetAttribute(
@@ -372,7 +393,7 @@ cudaError_t launch_fwd(const float* coords, const float* centers,
     if (err != cudaSuccess) return err;
   }
   const bool vec = h % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const dim3 grid((n + BN - 1) / BN, (h + BH - 1) / BH);
+  const dim3 grid((n + BN - 1) / BN, (h + BH - 1) / BH, lanes);
   fwd_kernel<BN, BH, WM, KC><<<grid, THREADS, bytes, stream>>>(
       coords, centers, inv_bw, w, out, n, k, h, basis, vec);
   return cudaGetLastError();
@@ -382,8 +403,8 @@ cudaError_t launch_fwd(const float* coords, const float* centers,
 // dW = phi^T g. Replaces _bwd_w_kernel (pallas_fused.py:129).
 //
 // Block (blockIdx.x, blockIdx.y, blockIdx.z) owns the (BW_BK centers x
-// BW_BH hidden) tile of dW over slab blockIdx.z and writes its partial sum
-// to ws (slabs, k, h). It walks the slab in BW_KP-point sub-tiles: the
+// BW_BH hidden) tile of dW over slab blockIdx.z % slabs of lane blockIdx.z /
+// slabs and writes its partial sum to ws (lanes, slabs, k, h). It walks the slab in BW_KP-point sub-tiles: the
 // cp.async ring brings the next g sub-tile (points x hidden) while the
 // threads build this sub-tile's phi^T (centers x points) once in shared
 // memory; then 8 warps (2 along centers x 4 along hidden, 16 x 32 outputs
@@ -423,7 +444,15 @@ bwd_w_kernel(const float* __restrict__ coords,
   const int wm = warp % BW_WM, wn = warp / BW_WM;  // the warp's outputs
   const int c0 = blockIdx.x * BW_BK;
   const int h0 = blockIdx.y * BW_BH;
-  const int s = blockIdx.z;
+  const int s = blockIdx.z % slabs;
+  {  // this block's lane: its own slice of every operand
+    const size_t fit = blockIdx.z / slabs;
+    coords += fit * 2 * n;
+    centers += fit * 2 * k;
+    inv_bw += fit * k;
+    g += fit * n * h;
+    ws += fit * slabs * k * h;
+  }
   int p_begin, p_end;
   slab_range(n, slabs, s, p_begin, p_end);
   const int nsub = (p_end - p_begin + BW_KP - 1) / BW_KP;
@@ -502,8 +531,9 @@ bwd_w_kernel(const float* __restrict__ coords,
 // ---------------------------------------------------------------------------
 // d centers, d inv_bw. Replaces _bwd_ctr_kernel (pallas_fused.py:170).
 //
-// Block (blockIdx.x, blockIdx.y) owns BC_CT centers over slab blockIdx.y
-// and writes its partial (dcx, dcy, dinv_bw) to ws (slabs, k, 3). It walks
+// Block (blockIdx.x, blockIdx.y, blockIdx.z) owns BC_CT centers over slab
+// blockIdx.y of lane blockIdx.z and writes its partial (dcx, dcy, dinv_bw)
+// to ws (lanes, slabs, k, 3). It walks
 // the slab in BC_P-point sub-tiles and H in BC_HC-column stages; the
 // cp.async ring brings the next stage's g (points x hidden) and W
 // (centers x hidden) while 4 warps (16 points each) take gw = g W^T in
@@ -543,6 +573,15 @@ bwd_centers_kernel(const float* __restrict__ coords,
   const int gq = lane / 4, tq = lane % 4;  // fragment row group, column
   const int c0 = blockIdx.x * BC_CT;
   const int s = blockIdx.y;
+  {  // this block's lane: its own slice of every operand
+    const size_t fit = blockIdx.z;
+    coords += fit * 2 * n;
+    centers += fit * 2 * k;
+    inv_bw += fit * k;
+    w += fit * k * h;
+    g += fit * n * h;
+    ws += fit * slabs * k * 3;
+  }
   int p_begin, p_end;
   slab_range(n, slabs, s, p_begin, p_end);
   const int nq = (h + BC_HC - 1) / BC_HC;
@@ -872,70 +911,81 @@ cudaError_t launch_bwd_points(const float* coords, const float* centers,
 
 extern "C" {
 
-// h = phi W at the tile (tile_n points x tile_h hidden) that
-// ops/fused_first_layer.py::fwd_tile chose; one of the tiles below.
+// The grid's y and z dimensions end at 65535: a lane count (times the slab
+// count, where the two share a dimension) beyond that is refused, not wrapped.
+constexpr int MAX_GRID_YZ = 65535;
+
+// h = phi W for `lanes` lanes at the tile (tile_n points x tile_h hidden)
+// that ops/fused_first_layer.py::fwd_tile chose; one of the tiles below.
 int st_fused_first_layer_fwd(const float* coords, const float* centers,
                              const float* inv_bw, const float* w, float* out,
                              int n, int k, int h, int basis, int tile_n,
-                             int tile_h, void* stream) {
+                             int tile_h, int lanes, void* stream) {
+  if (lanes < 1 || lanes > MAX_GRID_YZ) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   // <points, hidden, warps along points, centers a chunk>
   if (tile_n == 64 && tile_h == 256)
     err = launch_fwd<64, 256, 2, 16>(coords, centers, inv_bw, w, out, n, k,
-                                     h, basis, st);
+                                     h, basis, lanes, st);
   else if (tile_n == 64 && tile_h == 128)
     err = launch_fwd<64, 128, 2, 32>(coords, centers, inv_bw, w, out, n, k,
-                                     h, basis, st);
+                                     h, basis, lanes, st);
   else if (tile_n == 32 && tile_h == 64)
     err = launch_fwd<32, 64, 2, 64>(coords, centers, inv_bw, w, out, n, k, h,
-                                    basis, st);
+                                    basis, lanes, st);
   else if (tile_n == 16 && tile_h == 64)
     err = launch_fwd<16, 64, 1, 64>(coords, centers, inv_bw, w, out, n, k, h,
-                                    basis, st);
+                                    basis, lanes, st);
   return static_cast<int>(err);
 }
 
-// dW through the workspace ws (slabs, k, h): two launches, the split-N
-// kernel and the slab sum.
+// dW (lanes, k, h) through the workspace ws (lanes, slabs, k, h): two
+// launches for all lanes, the split-N kernel and the slab sum.
 int st_fused_first_layer_bwd_w(const float* coords, const float* centers,
                                const float* inv_bw, const float* g, float* dw,
                                float* ws, int n, int k, int h, int basis,
-                               int slabs, void* stream) {
-  if (slabs < 1 || slabs > 65535) return cudaErrorInvalidValue;
+                               int slabs, int lanes, void* stream) {
+  if (slabs < 1 || lanes < 1 || lanes > MAX_GRID_YZ ||
+      (long long)slabs * lanes > MAX_GRID_YZ)
+    return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = h % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  const dim3 grid((k + BW_BK - 1) / BW_BK, (h + BW_BH - 1) / BW_BH, slabs);
+  const dim3 grid((k + BW_BK - 1) / BW_BK, (h + BW_BH - 1) / BW_BH,
+                  slabs * lanes);
   bwd_w_kernel<<<grid, THREADS, 0, st>>>(coords, centers, inv_bw, g, ws, n,
                                          k, h, basis, slabs, vec);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t m = (size_t)k * h;
-  st_slabs::slab_sum_kernel<<<(unsigned)((m + THREADS - 1) / THREADS),
-                              THREADS, 0, st>>>(ws, dw, slabs, m);
+  const dim3 sum_grid((unsigned)((m + THREADS - 1) / THREADS), lanes);
+  st_slabs::slab_sum_kernel<<<sum_grid, THREADS, 0, st>>>(ws, dw, slabs, m);
   return static_cast<int>(cudaGetLastError());
 }
 
-// d centers, d inv_bw through the workspace ws (slabs, k, 3): two launches,
-// the split-N kernel and the slab sum.
+// d centers (lanes, k, 2), d inv_bw (lanes, k) through the workspace ws
+// (lanes, slabs, k, 3): two launches for all lanes, the split-N kernel and
+// the slab sum.
 int st_fused_first_layer_bwd_centers(const float* coords,
                                      const float* centers,
                                      const float* inv_bw, const float* w,
                                      const float* g, float* dcenters,
                                      float* dinv_bw, float* ws, int n, int k,
-                                     int h, int basis, int slabs,
+                                     int h, int basis, int slabs, int lanes,
                                      void* stream) {
-  if (slabs < 1 || slabs > 65535) return cudaErrorInvalidValue;
+  if (slabs < 1 || slabs > MAX_GRID_YZ || lanes < 1 || lanes > MAX_GRID_YZ)
+    return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = h % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const dim3 grid((k + BC_CT - 1) / BC_CT, slabs);
+  const dim3 grid((k + BC_CT - 1) / BC_CT, slabs, lanes);
   bwd_centers_kernel<<<grid, BC_THREADS, 0, st>>>(
       coords, centers, inv_bw, w, g, ws, n, k, h, basis, slabs, vec);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      st_slabs::launch_centers_sum(ws, dcenters, dinv_bw, slabs, k, st));
+      st_slabs::launch_centers_sum(ws, dcenters, dinv_bw, slabs, k, st,
+                                   lanes));
 }
 
 // d coords at the tile (tile_n points x tile_k centers) that
@@ -949,7 +999,7 @@ int st_fused_first_layer_bwd_points(const float* coords, const float* centers,
                                     int tile_n, int tile_k, int slabs,
                                     void* stream) {
   if (tile_k < 1 || slabs != (k + tile_k - 1) / tile_k || slabs < 1 ||
-      slabs > 65535)
+      slabs > MAX_GRID_YZ)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* out = slabs == 1 ? dcoords : ws;

@@ -21,11 +21,19 @@ w[p:p+k_s] is a contiguous row slice, and parameter names equal the JAX
 param-dict paths (`from_jax_params` / `to_jax_params` carry params across;
 `pad_lane_model` / `strip_lane_padding` pad a lane to a shared width and
 back).
+
+`STInterpLanes` is M such models of one spec as one module: every parameter
+and per-lane buffer carries a leading lane dimension, the first layer goes
+through the lane axis of the fused kernels (one launch for all lanes) and
+the other layers through `torch.baddbmm`. `stack_lane_models` builds it from
+M `STInterp`s and `lane_params` gives lane i's weights back in the JAX
+layout, so weights cross lane by lane through `from_jax_params` /
+`to_jax_params`.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -306,21 +314,223 @@ class STInterp(nn.Module):
 
 
 def sparsity_block(wb: torch.Tensor, penalty_type: str, lambda_l1: float,
-                   lambda_group: float) -> torch.Tensor:
+                   lambda_group: float, lanes: bool = False) -> torch.Tensor:
     """Sparsity penalty of one first-layer block (rows = basis functions).
     Exact-zero entries and rows get a zero gradient (guards of
-    st_interp.py:431-449)."""
+    st_interp.py:431-449). With `lanes`, wb is (M, rows, H) and the penalty
+    (M,), a lane each."""
+    def total(x: torch.Tensor) -> torch.Tensor:
+        return x.sum(dim=tuple(range(1, x.dim()))) if lanes else x.sum()
+
     def abs_l1(w: torch.Tensor) -> torch.Tensor:
-        return torch.where(w != 0, torch.abs(w), torch.zeros_like(w)).sum()
+        return total(torch.where(w != 0, torch.abs(w), torch.zeros_like(w)))
 
     if penalty_type == "element":
         return lambda_l1 * abs_l1(wb)
-    s = torch.sum(wb * wb, dim=1)
+    s = torch.sum(wb * wb, dim=-1)
     nz = s > 0
     group = torch.sqrt(torch.where(nz, s, torch.ones_like(s))) * nz.to(wb.dtype)
     if penalty_type == "group":
-        return lambda_group * group.sum()
-    return lambda_group * group.sum() + lambda_l1 * abs_l1(wb)
+        return lambda_group * total(group)
+    return lambda_group * total(group) + lambda_l1 * abs_l1(wb)
+
+
+# ---------------------------------------------------------------------------
+# M models of one spec as lanes of one module
+# ---------------------------------------------------------------------------
+
+
+class _LinearLanes(nn.Module):
+    def __init__(self, lanes: int, fan_in: int, fan_out: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(lanes, fan_in, fan_out))
+        self.b = nn.Parameter(torch.empty(lanes, fan_out))
+
+
+class _LayerNormLanes(nn.Module):
+    def __init__(self, lanes: int, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(lanes, dim))
+        self.bias = nn.Parameter(torch.zeros(lanes, dim))
+
+
+class STInterpLanes(nn.Module):
+    """M DA-STDK networks of one `ModelSpec` as lanes of one module.
+
+    Parameters have `STInterp`'s names with a leading lane dimension M:
+    `basis.centers` (M, k, 2), `basis.log_bandwidths` (M, k),
+    `mlp.linear_i.w` (M, in, out), `.b` (M, out), `mlp.ln_i.{scale,bias}`
+    (M, h), `mlp.out.{w,b}` or `mlp.delta` (M, Q, d + 1); so have the buffers
+    `spatial_centers_init` (M, k, 2) and `spatial_bandwidths_init` (M, k).
+    Lanes share no parameter, so a sum of lane losses gives each lane its
+    own gradient. Only the fused route is carried: a spec on the
+    materialised-phi route (ragged-k lanes, covariates, `use_pallas_training`)
+    raises NotImplementedError, because those kernels have no lane axis yet."""
+
+    def __init__(self, spec: ModelSpec, spatial_centers: np.ndarray,
+                 spatial_bandwidths: np.ndarray):
+        super().__init__()
+        if not spec.hidden_dims:
+            raise NotImplementedError("the port's first layer needs a hidden layer")
+        if spec.phi_route or spec.padded_lane or spec.p > 0:
+            raise NotImplementedError(
+                "lanes run the fused first layer only: ragged-k lanes, "
+                "covariates and use_pallas_training need a lane axis on the "
+                "spatial-basis kernels (ROADMAP Queue 1: config stacking)")
+        self.spec = spec
+        centers = torch.tensor(np.asarray(spatial_centers, np.float32))
+        bws = torch.tensor(np.asarray(spatial_bandwidths, np.float32))
+        if (centers.dim() != 3 or tuple(centers.shape[1:])
+                != (spec.k_spatial, 2)
+                or tuple(bws.shape) != tuple(centers.shape[:2])):
+            raise ValueError(f"lane centers {tuple(centers.shape)} / bandwidths "
+                             f"{tuple(bws.shape)}: expected (M, "
+                             f"{spec.k_spatial}, 2) / (M, {spec.k_spatial})")
+        M = self.lanes = centers.shape[0]
+        t_centers, t_bw = temporal_grid_centers(spec.k_temporal_centers)
+        self.register_buffer("spatial_centers_init", centers.clone())
+        self.register_buffer("spatial_bandwidths_init", bws.clone())
+        self.register_buffer("temporal_centers", torch.as_tensor(t_centers))
+        self.register_buffer("temporal_bandwidths", torch.as_tensor(t_bw))
+        if spec.spatial_learnable:
+            self.basis = _Basis(centers, bws)
+        self.mlp = nn.Module()
+        prev = spec.input_dim
+        for i, h in enumerate(spec.hidden_dims):
+            setattr(self.mlp, f"linear_{i}", _LinearLanes(M, prev, h))
+            if spec.layernorm:
+                setattr(self.mlp, f"ln_{i}", _LayerNormLanes(M, h))
+            prev = h
+        if spec.delta_head:
+            self.mlp.delta = nn.Parameter(
+                torch.zeros(M, spec.output_dim, prev + 1))
+        else:
+            self.mlp.out = _LinearLanes(M, prev, spec.output_dim)
+
+    def spatial_params(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.spec.spatial_learnable:
+            return self.basis.centers, torch.exp(self.basis.log_bandwidths)
+        return self.spatial_centers_init, self.spatial_bandwidths_init
+
+    def forward(self, coords: torch.Tensor, t: torch.Tensor,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """yhat: coords (M, B, 2), t (M, B, 1) -> (M, B, output_dim), lane
+        i from lane i's weights. Dropout (train=True, dropout > 0) draws one
+        (M, B, sum(hidden)) uniform block from `generator` for all lanes."""
+        spec = self.spec
+        M, B = coords.shape[0], coords.shape[1]
+        if M != self.lanes or tuple(t.shape) != (M, B, 1):
+            raise ValueError(f"coords {tuple(coords.shape)} / t "
+                             f"{tuple(t.shape)}: expected ({self.lanes}, B, 2) "
+                             f"/ ({self.lanes}, B, 1)")
+        centers, bandwidths = self.spatial_params()
+        lin0 = self.mlp.linear_0
+        k_s = spec.k_spatial
+        psi = temporal_basis_embed(t, self.temporal_centers,
+                                   self.temporal_bandwidths).reshape(M, B, -1)
+        h = fused_spatial_first_layer(coords, centers, bandwidths,
+                                      lin0.w[:, :k_s],
+                                      spec.spatial_basis_function)
+        h = h + torch.baddbmm(lin0.b[:, None, :], psi, lin0.w[:, k_s:])
+
+        use_dropout = train and spec.dropout > 0.0
+        if use_dropout:
+            if generator is None:
+                raise ValueError("generator required for dropout in train mode")
+            keep = torch.rand((M, B, int(sum(spec.hidden_dims))),
+                              generator=generator,
+                              device=h.device) < (1.0 - spec.dropout)
+        off = 0
+        for i, hdim in enumerate(spec.hidden_dims):
+            if i > 0:
+                lin = getattr(self.mlp, f"linear_{i}")
+                h = torch.baddbmm(lin.b[:, None, :], h, lin.w)
+            if spec.layernorm:
+                ln = getattr(self.mlp, f"ln_{i}")
+                h = torch.nn.functional.layer_norm(h, (hdim,), eps=1e-5)
+                h = h * ln.scale[:, None, :] + ln.bias[:, None, :]
+            h = torch.relu(h)
+            if use_dropout:
+                h = torch.where(keep[..., off:off + hdim],
+                                h / (1.0 - spec.dropout),
+                                torch.zeros((), dtype=h.dtype, device=h.device))
+            off += hdim
+        if spec.delta_head:
+            beta = torch.cumsum(self.mlp.delta, dim=1)          # (M, Q, d+1)
+            return (beta[:, None, :, 0]
+                    + torch.bmm(h, beta[:, :, 1:].transpose(1, 2)))
+        return torch.baddbmm(self.mlp.out.b[:, None, :], h, self.mlp.out.w)
+
+    # -- penalties, (M,) each ---------------------------------------------------
+    def domain_penalty(self, bounds: Tuple[float, float] = (0.0, 1.0)
+                       ) -> torch.Tensor:
+        c = self.basis.centers
+        lo, hi = bounds
+        return torch.sum((torch.relu(lo - c) + torch.relu(c - hi)) ** 2,
+                         dim=(1, 2))
+
+    def movement_penalty(self) -> torch.Tensor:
+        return torch.sum((self.basis.centers - self.spatial_centers_init) ** 2,
+                         dim=(1, 2))
+
+    def sparsity_penalty(self, penalty_type: str, lambda_l1: float,
+                         lambda_group: float) -> Dict[str, torch.Tensor]:
+        w0 = self.mlp.linear_0.w
+        if penalty_type == "none":
+            zero = w0.new_zeros((self.lanes,))
+            return {"spatial_penalty": zero, "temporal_penalty": zero,
+                    "total_penalty": zero}
+        if penalty_type not in ("element", "group", "sparse_group"):
+            raise ValueError(f"Unknown penalty_type: {penalty_type}")
+        k_s, k_t = self.spec.k_spatial, self.spec.k_temporal
+        sp = sparsity_block(w0[:, :k_s], penalty_type, lambda_l1,
+                            lambda_group, lanes=True)
+        tp = sparsity_block(w0[:, k_s:k_s + k_t], penalty_type, lambda_l1,
+                            lambda_group, lanes=True)
+        return {"spatial_penalty": sp, "temporal_penalty": tp,
+                "total_penalty": sp + tp}
+
+
+def stack_lane_models(models: Sequence[STInterp]) -> STInterpLanes:
+    """One `STInterpLanes` holding the given models' weights and init
+    buffers, lane i from models[i], on their device. They must share a spec
+    on the fused route."""
+    if not models:
+        raise ValueError("stack_lane_models: no models")
+    spec = models[0].spec
+    if any(m.spec != spec for m in models):
+        raise ValueError("stack_lane_models: the models' specs differ")
+    lanes = STInterpLanes(
+        spec,
+        np.stack([m.spatial_centers_init.detach().cpu().numpy()
+                  for m in models]),
+        np.stack([m.spatial_bandwidths_init.detach().cpu().numpy()
+                  for m in models]))
+    lanes = lanes.to(next(models[0].parameters()).device)
+    per_lane = [dict(m.named_parameters()) for m in models]
+    with torch.no_grad():
+        for name, p in lanes.named_parameters():
+            p.copy_(torch.stack([d[name].detach() for d in per_lane]))
+    return lanes
+
+
+def lane_tree(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """A flat {dotted name: array} dict as the nested JAX-layout dict."""
+    tree: Dict[str, Any] = {}
+    for name, v in flat.items():
+        node = tree
+        parts = name.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def lane_params(lanes_model: STInterpLanes, i: int) -> Dict[str, Any]:
+    """Lane i's parameters as a nested numpy dict in the JAX layout."""
+    return lane_tree({name: p.detach()[i].cpu().numpy().copy()
+                      for name, p in lanes_model.named_parameters()})
 
 
 def init_model(generator: torch.Generator, spec: ModelSpec,
@@ -403,14 +613,8 @@ def load_jax_params(model: STInterp, params: Dict[str, Any]) -> None:
 
 def to_jax_params(model: STInterp) -> Dict[str, Any]:
     """The model's parameters as a nested numpy dict in the JAX layout."""
-    tree: Dict[str, Any] = {}
-    for name, p in model.named_parameters():
-        node = tree
-        parts = name.split(".")
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = p.detach().cpu().numpy().copy()
-    return tree
+    return lane_tree({name: p.detach().cpu().numpy().copy()
+                      for name, p in model.named_parameters()})
 
 
 def count_parameters(model: STInterp) -> int:

@@ -52,6 +52,34 @@ def check_basis(what: str, coords: torch.Tensor, centers: torch.Tensor,
     return n, k
 
 
+def check_basis_lanes(what: str, coords: torch.Tensor, centers: torch.Tensor,
+                      inv_bw: torch.Tensor, basis_id: int,
+                      *dims: int) -> Tuple[Tuple[int, ...], int, int]:
+    """(lead, n, k) of a call with or without a lane axis: lead is () for
+    coords (n, 2), centers (k, 2), inv_bw (k,), and (M,) for coords
+    (M, n, 2), centers (M, k, 2), inv_bw (M, k). Checks as `check_basis`,
+    and that M lanes of the largest operand still index within int32 a
+    lane (the kernels offset lanes in size_t)."""
+    if coords.dim() == 2:
+        n, k = check_basis(what, coords, centers, inv_bw, basis_id, *dims)
+        return (), n, k
+    if coords.dim() != 3 or centers.dim() != 3:
+        raise ValueError(f"{what}: coords must be (n, 2) or (M, n, 2), got "
+                         f"{tuple(coords.shape)}, centers "
+                         f"{tuple(centers.shape)}")
+    lanes, n, k = coords.shape[0], coords.shape[1], centers.shape[1]
+    if min(lanes, n, k, *dims) < 1:
+        raise ValueError(f"{what}: empty shape M={lanes} n={n} k={k} {dims}")
+    if max(n, k, *dims) * 2 >= 2 ** 31:
+        raise ValueError(f"{what}: a dimension exceeds int32")
+    if basis_id not in BASIS_IDS.values():
+        raise ValueError(f"unknown basis id {basis_id}")
+    check("coords", coords, (lanes, n, 2))
+    check("centers", centers, (lanes, k, 2))
+    check("inv_bw", inv_bw, (lanes, k))
+    return (lanes,), n, k
+
+
 def raise_on(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")

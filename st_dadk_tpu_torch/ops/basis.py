@@ -50,11 +50,13 @@ def basis_matrix(coords: torch.Tensor, centers: torch.Tensor,
                  inv_bw: torch.Tensor, basis_function: str) -> torch.Tensor:
     """phi (N, k) from inverse calibrated bandwidths, r = dist * inv_bw: the
     form the fused kernels compute. The max-guard keeps sqrt's gradient
-    finite when a learnable center lands exactly on a data point."""
-    dx = coords[:, 0:1] - centers[None, :, 0]
-    dy = coords[:, 1:2] - centers[None, :, 1]
+    finite when a learnable center lands exactly on a data point. Leading
+    lane dimensions broadcast: coords (M, N, 2), centers (M, k, 2) and
+    inv_bw (M, k) give phi (M, N, k), each lane from its own operands."""
+    dx = coords[..., 0:1] - centers[..., None, :, 0]
+    dy = coords[..., 1:2] - centers[..., None, :, 1]
     dist = torch.sqrt(torch.clamp(dx * dx + dy * dy, min=1e-24))
-    return apply_basis(dist * inv_bw[None, :], basis_function)
+    return apply_basis(dist * inv_bw[..., None, :], basis_function)
 
 
 def spatial_basis_embed(coords: torch.Tensor, centers: torch.Tensor,

@@ -33,8 +33,16 @@ so each of these wrappers makes two device launches a call and its results
 are bitwise deterministic. The slab count S is a function of (n, k, h)
 alone (`bwd_w_slabs`, `bwd_centers_slabs`; slabs per `slab_bounds`).
 
+The forward, dW and d centers (the kernels a fit trains through) take a
+lane axis: coords (M, N, 2), centers (M, k, 2), inv_bw (M, k), w (M, k, H)
+and g (M, N, H) are M independent fits, and one launch (plus its slab sum)
+serves them all, the lane being one more grid dimension. The tiles and slab
+counts stay chosen by one lane's N. The two-dimensional call is the M = 1
+case of the same kernels. The plain versions broadcast over the lane axis.
+
 Each wrapper counts its calls that reach the card in `<wrapper>.launches`:
-one a call, however many device launches the call makes.
+one a call, however many device launches the call makes and however many
+lanes it serves.
 """
 from __future__ import annotations
 
@@ -44,7 +52,8 @@ from typing import Dict, Tuple
 import torch
 
 from st_dadk_tpu_torch.ops._build import load_library
-from st_dadk_tpu_torch.ops._launch import (check, check_basis, on_cpu,
+from st_dadk_tpu_torch.ops._launch import (check, check_basis,
+                                           check_basis_lanes, on_cpu,
                                            raise_on, stream)
 from st_dadk_tpu_torch.ops.basis import (BASIS_IDS, CALIBRATION_FACTORS,
                                          basis_matrix)
@@ -57,9 +66,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 _KERNELS = None   # (fwd, bwd_w, bwd_centers, bwd_points) C entry points
 # (pointer, int) argument counts of each entry point before its stream
-_SIGNATURES = (("st_fused_first_layer_fwd", 5, 6),
-               ("st_fused_first_layer_bwd_w", 6, 5),
-               ("st_fused_first_layer_bwd_centers", 8, 5),
+_SIGNATURES = (("st_fused_first_layer_fwd", 5, 7),
+               ("st_fused_first_layer_bwd_w", 6, 6),
+               ("st_fused_first_layer_bwd_centers", 8, 6),
                ("st_fused_first_layer_bwd_points", 7, 7))
 
 
@@ -175,31 +184,53 @@ def slab_bounds(n: int, slabs: int):
             for s in range(slabs)]
 
 
-def bwd_w_workspace(n: int, k: int, h: int, device) -> torch.Tensor:
-    return torch.empty((bwd_w_slabs(n, k, h), k, h), dtype=torch.float32,
-                       device=device)
+MAX_GRID_YZ = 65535   # where a grid's y and z dimensions end
 
 
-def bwd_centers_workspace(n: int, k: int, device) -> torch.Tensor:
-    return torch.empty((bwd_centers_slabs(n, k), k, 3), dtype=torch.float32,
-                       device=device)
+def bwd_w_workspace(n: int, k: int, h: int, device,
+                    lead: Tuple[int, ...] = ()) -> torch.Tensor:
+    """(slabs, k, h) partials, behind the lane axis `lead` = (M,) if any."""
+    return torch.empty(lead + (bwd_w_slabs(n, k, h), k, h),
+                       dtype=torch.float32, device=device)
+
+
+def bwd_centers_workspace(n: int, k: int, device,
+                          lead: Tuple[int, ...] = ()) -> torch.Tensor:
+    """(slabs, k, 3) partials, behind the lane axis `lead` = (M,) if any."""
+    return torch.empty(lead + (bwd_centers_slabs(n, k), k, 3),
+                       dtype=torch.float32, device=device)
+
+
+def _lanes(what: str, lead: Tuple[int, ...], slabs: int = 1) -> int:
+    """The lane count of a launch; raises where lanes x slabs would pass
+    the end of a grid dimension (the C entry point refuses it too)."""
+    lanes = lead[0] if lead else 1
+    if lanes * slabs > MAX_GRID_YZ:
+        raise ValueError(f"{what}: {lanes} lanes x {slabs} slabs exceed the "
+                         f"grid's {MAX_GRID_YZ}")
+    return lanes
 
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path and the on-card reference)
 # ---------------------------------------------------------------------------
 
+# Each broadcasts over a leading lane axis: lanes share no operand, so a
+# lane's result (and, through autograd, its gradient) is its own.
+
 def plain_fwd(coords, centers, inv_bw, w, basis_id: int) -> torch.Tensor:
     return basis_matrix(coords, centers, inv_bw, _BASIS_NAMES[basis_id]) @ w
 
 
 def plain_bwd_w(coords, centers, inv_bw, g, basis_id: int) -> torch.Tensor:
-    return basis_matrix(coords, centers, inv_bw, _BASIS_NAMES[basis_id]).T @ g
+    phi = basis_matrix(coords, centers, inv_bw, _BASIS_NAMES[basis_id])
+    return phi.transpose(-1, -2) @ g
 
 
 def plain_bwd_centers(coords, centers, inv_bw, w, g, basis_id: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(d centers (k, 2), d inv_bw (k,)) by autograd through `plain_fwd`."""
+    """(d centers (k, 2), d inv_bw (k,)) by autograd through `plain_fwd`
+    (a leading lane axis on every operand is kept)."""
     with torch.enable_grad():
         c = centers.detach().requires_grad_(True)
         ib = inv_bw.detach().requires_grad_(True)
@@ -227,18 +258,22 @@ def fused_first_layer_fwd(coords: torch.Tensor, centers: torch.Tensor,
                           inv_bw: torch.Tensor, w: torch.Tensor,
                           basis_id: int) -> torch.Tensor:
     """h = phi(coords; centers, inv_bw) @ w: (N, 2), (k, 2), (k,), (k, H)
-    -> (N, H) float32."""
+    -> (N, H) float32; with a lane axis (M, N, 2), (M, k, 2), (M, k),
+    (M, k, H) -> (M, N, H) in one launch."""
     if on_cpu(_WHAT, coords, centers, inv_bw, w):
         return plain_fwd(coords, centers, inv_bw, w, basis_id)
     h = w.shape[-1]
-    n, k = check_basis(_WHAT, coords, centers, inv_bw, basis_id, h)
-    check("w", w, (k, h))
-    out = torch.empty((n, h), dtype=torch.float32, device=coords.device)
+    lead, n, k = check_basis_lanes(_WHAT, coords, centers, inv_bw, basis_id,
+                                   h)
+    check("w", w, lead + (k, h))
+    lanes = _lanes("fused_first_layer_fwd", lead)
+    out = torch.empty(lead + (n, h), dtype=torch.float32,
+                      device=coords.device)
     with torch.cuda.device(coords.device):
         rc = _kernels()[0](
             coords.data_ptr(), centers.data_ptr(), inv_bw.data_ptr(),
             w.data_ptr(), out.data_ptr(), n, k, h, basis_id,
-            *fwd_tile(n, k, h), stream(coords))
+            *fwd_tile(n, k, h), lanes, stream(coords))
     raise_on(rc, "fused_first_layer_fwd")
     fused_first_layer_fwd.launches += 1
     return out
@@ -247,19 +282,24 @@ def fused_first_layer_fwd(coords: torch.Tensor, centers: torch.Tensor,
 def fused_first_layer_bwd_w(coords: torch.Tensor, centers: torch.Tensor,
                             inv_bw: torch.Tensor, g: torch.Tensor,
                             basis_id: int) -> torch.Tensor:
-    """dW = phi^T g: g (N, H) -> (k, H) float32."""
+    """dW = phi^T g: g (N, H) -> (k, H) float32; with a lane axis g
+    (M, N, H) -> (M, k, H) in one launch and one slab sum."""
     if on_cpu(_WHAT, coords, centers, inv_bw, g):
         return plain_bwd_w(coords, centers, inv_bw, g, basis_id)
     h = g.shape[-1]
-    n, k = check_basis(_WHAT, coords, centers, inv_bw, basis_id, h)
-    check("g", g, (n, h))
-    dw = torch.empty((k, h), dtype=torch.float32, device=coords.device)
-    ws = bwd_w_workspace(n, k, h, coords.device)
+    lead, n, k = check_basis_lanes(_WHAT, coords, centers, inv_bw, basis_id,
+                                   h)
+    check("g", g, lead + (n, h))
+    dw = torch.empty(lead + (k, h), dtype=torch.float32,
+                     device=coords.device)
+    ws = bwd_w_workspace(n, k, h, coords.device, lead)
+    slabs = ws.shape[-3]
+    lanes = _lanes("fused_first_layer_bwd_w", lead, slabs)
     with torch.cuda.device(coords.device):
         rc = _kernels()[1](
             coords.data_ptr(), centers.data_ptr(), inv_bw.data_ptr(),
             g.data_ptr(), dw.data_ptr(), ws.data_ptr(), n, k, h, basis_id,
-            ws.shape[0], stream(coords))
+            slabs, lanes, stream(coords))
     raise_on(rc, "fused_first_layer_bwd_w")
     fused_first_layer_bwd_w.launches += 1
     return dw
@@ -269,21 +309,26 @@ def fused_first_layer_bwd_centers(coords: torch.Tensor, centers: torch.Tensor,
                                   inv_bw: torch.Tensor, w: torch.Tensor,
                                   g: torch.Tensor, basis_id: int
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(d centers (k, 2), d inv_bw (k,)) through gw = g @ w^T."""
+    """(d centers (k, 2), d inv_bw (k,)) through gw = g @ w^T; with a lane
+    axis ((M, k, 2), (M, k)) in one launch and one slab sum."""
     if on_cpu(_WHAT, coords, centers, inv_bw, w, g):
         return plain_bwd_centers(coords, centers, inv_bw, w, g, basis_id)
     h = w.shape[-1]
-    n, k = check_basis(_WHAT, coords, centers, inv_bw, basis_id, h)
-    check("w", w, (k, h))
-    check("g", g, (n, h))
-    dc = torch.empty((k, 2), dtype=torch.float32, device=coords.device)
-    dib = torch.empty((k,), dtype=torch.float32, device=coords.device)
-    ws = bwd_centers_workspace(n, k, coords.device)
+    lead, n, k = check_basis_lanes(_WHAT, coords, centers, inv_bw, basis_id,
+                                   h)
+    check("w", w, lead + (k, h))
+    check("g", g, lead + (n, h))
+    dc = torch.empty(lead + (k, 2), dtype=torch.float32,
+                     device=coords.device)
+    dib = torch.empty(lead + (k,), dtype=torch.float32, device=coords.device)
+    ws = bwd_centers_workspace(n, k, coords.device, lead)
+    lanes = _lanes("fused_first_layer_bwd_centers", lead)
     with torch.cuda.device(coords.device):
         rc = _kernels()[2](
             coords.data_ptr(), centers.data_ptr(), inv_bw.data_ptr(),
             w.data_ptr(), g.data_ptr(), dc.data_ptr(), dib.data_ptr(),
-            ws.data_ptr(), n, k, h, basis_id, ws.shape[0], stream(coords))
+            ws.data_ptr(), n, k, h, basis_id, ws.shape[-3], lanes,
+            stream(coords))
     raise_on(rc, "fused_first_layer_bwd_centers")
     fused_first_layer_bwd_centers.launches += 1
     return dc, dib
@@ -348,6 +393,10 @@ class FusedFirstLayer(torch.autograd.Function):
         g = g.contiguous()
         ds = dw = dc = dib = None
         if ctx.needs_input_grad[0]:
+            if coords.dim() == 3:
+                raise NotImplementedError(
+                    "the fused d-coords kernel has no lane axis: take a "
+                    "spatial gradient lane by lane")
             ds = fused_first_layer_bwd_points(coords, centers, inv_bw, w, g,
                                               ctx.basis_id)
         if ctx.needs_input_grad[3]:
@@ -363,7 +412,9 @@ def fused_spatial_first_layer(coords: torch.Tensor, centers: torch.Tensor,
                               bandwidths: torch.Tensor, w_spatial: torch.Tensor,
                               basis_function: str = "wendland") -> torch.Tensor:
     """Differentiable h1_spatial = phi(coords) @ w_spatial: coords (N, 2),
-    centers (k, 2), bandwidths (k,), w_spatial (k, H) -> (N, H)."""
+    centers (k, 2), bandwidths (k,), w_spatial (k, H) -> (N, H), or with a
+    lane axis on all four (M, ...) -> (M, N, H). With lanes, coords are
+    data: their gradient (the d-coords kernel) has no lane axis yet."""
     inv_bw = 1.0 / (bandwidths * CALIBRATION_FACTORS[basis_function])
     return FusedFirstLayer.apply(coords.contiguous(), centers.contiguous(),
                                  inv_bw.contiguous(), w_spatial.contiguous(),

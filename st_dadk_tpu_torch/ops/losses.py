@@ -85,6 +85,59 @@ def p_nc_delta_penalty(delta: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Lane forms: M independent fits, one loss a lane. y_pred (M, B, Q or 1),
+# y_true (M, B, 1), weights (M, B); each returns (M,), lane i equal to the
+# single form on lane i's slices up to the order of the sums.
+# ---------------------------------------------------------------------------
+
+def _lane_weighted_mean(x: torch.Tensor, weights: torch.Tensor
+                        ) -> torch.Tensor:
+    w = weights.reshape(*weights.shape, *([1] * (x.dim() - 2)))
+    per_point = x[0, 0].numel()
+    denom = torch.clamp(torch.sum(weights, dim=1) * per_point, min=1e-12)
+    return torch.sum(x * w, dim=tuple(range(1, x.dim()))) / denom
+
+
+def multi_quantile_loss_lanes(y_pred: torch.Tensor, y_true: torch.Tensor,
+                              quantile_levels: torch.Tensor,
+                              weights: torch.Tensor) -> torch.Tensor:
+    errors = y_true - y_pred
+    q = quantile_levels[None, None, :]
+    per_elem = torch.maximum((q - 1.0) * errors, q * errors)
+    denom = torch.clamp(torch.sum(weights, dim=1), min=1e-12)
+    return (torch.sum(per_elem * weights[..., None], dim=(1, 2))
+            / (denom * per_elem.shape[2]))
+
+
+def mse_loss_lanes(y_pred: torch.Tensor, y_true: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    return _lane_weighted_mean((y_pred - y_true) ** 2, weights)
+
+
+def non_crossing_penalty_lanes(y_pred_multi_q: torch.Tensor, power: int,
+                               weights: torch.Tensor) -> torch.Tensor:
+    """Mean-reduced prediction-level hinge penalty on quantile crossings."""
+    if y_pred_multi_q.shape[-1] < 2:
+        return y_pred_multi_q.new_zeros((y_pred_multi_q.shape[0],))
+    violations = torch.relu(y_pred_multi_q[..., :-1] - y_pred_multi_q[..., 1:])
+    if power == 2:
+        violations = violations ** 2
+    elif power != 1:
+        raise ValueError(f"Unsupported power={power}; use 1 or 2.")
+    return _lane_weighted_mean(violations.sum(dim=-1), weights)
+
+
+def p_nc_delta_penalty_lanes(delta: torch.Tensor) -> torch.Tensor:
+    """P_nc(delta) of each lane's stacked delta matrix: (M, Q, d+1) -> (M,)."""
+    if delta.shape[1] < 2:
+        return delta.new_zeros((delta.shape[0],))
+    d = delta[:, 1:]
+    d0 = d[..., 0]
+    sum_negative = torch.relu(-d[..., 1:]).sum(dim=-1)
+    return (d0 - torch.maximum(d0, sum_negative)).sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # Offline (numpy) scores
 # ---------------------------------------------------------------------------
 

@@ -17,6 +17,23 @@ The profiler slows the host, so the busy share it reports is lower than
 that of an unprofiled fit; the JSON also gives the profiled fit's wall
 against the unprofiled median. Writes `--out` (JSON) and the profiler's
 table beside it (`.txt`).
+
+    python3 -m st_dadk_tpu_torch.profile_fit --lanes 1,2,4,8,16,32 \
+        [--profile-lanes 16] [--out build/profile_lanes.json]
+
+The width sweep of the lane engine instead: the widest batch is set up once
+(`batch_engine._prepare_job_batch`, seeds base_seed ..), and for each width
+M its first M lanes run `train.loop.fit_lanes` for `EPOCHS` epochs, a
+warm-up and `REPEATS` timed fits from the same initial weights. It prints
+the wall ms a step (an epoch's wall over its steps, validation and
+bookkeeping included; epochs 2 onwards) and that over M, beside the single
+fit's `train.loop.fit` timed the same way over the same epochs, and profiles
+one fit at `--profile-lanes` (default: the width with the least ms a step a
+lane). At the widest width it also runs the batch's finalize evaluation
+(`batch_engine._batched_eval`: one dense predict of the T x S grid for all
+lanes) and records its seconds and its peak device memory, since a chunk's
+activations grow with the lane count. `batch_engine.LANES_PER_DEVICE` takes
+the width this sweep finds best.
 """
 from __future__ import annotations
 
@@ -78,16 +95,186 @@ def _union_us(intervals):
     return total
 
 
+def _device_profile(prof, steps):
+    """Device activities of a profiled run: their count, summed device ms,
+    the union of their intervals, the 12 largest by name, and the port's
+    own kernels (csrc/*.cu and the slab sums of csrc/slabs.cuh), by function
+    name (template arguments dropped), in device ms a step."""
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    ours = {}
+    for name, ms in by_name.items():
+        m = PORT_KERNEL.match(name)
+        if m:
+            ours[m.group(1)] = ours.get(m.group(1), 0.0) + ms / steps
+    return {"activities": len(dev),
+            "device_ms": sum(e.device_time for e in dev) / 1e3,
+            "busy_ms": _union_us([(e.time_range.start, e.time_range.end)
+                                  for e in dev]) / 1e3,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:12],
+            "ours": ours}
+
+
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def lanes_sweep(widths, profile_width, out: Path) -> int:
+    """The lane engine's width sweep (module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from st_dadk_tpu_torch.bench_workload import bench_workload
+    from st_dadk_tpu_torch.config import ExperimentConfig
+    from st_dadk_tpu_torch.dataio.synthetic import bench_data_file
+    from st_dadk_tpu_torch.train import batch_engine as be
+    from st_dadk_tpu_torch.train import loop
+
+    card = _card()
+    print(f"card: {card}", flush=True)
+    cfg = ExperimentConfig.from_dict(bench_workload(
+        data_file=str(bench_data_file()), epochs=EPOCHS,
+        n_experiments=max(widths)))
+    t0 = time.perf_counter()
+    prep = be._prepare_job_batch(
+        [(cfg, i, REPO / "build" / "profile_lanes" / str(i))
+         for i in range(1, max(widths) + 1)], device="cuda")
+    setups = prep["setups"]
+    setup_s = time.perf_counter() - t0
+    print(f"set up {len(setups)} lanes in {setup_s:.1f} s "
+          f"(spatial init a lane: "
+          f"{statistics.median(s.timings['init_seconds'] for s in setups):.3f}"
+          f" s median)", flush=True)
+
+    def _later_ms(tm, B):
+        """ms a step in epochs 2 onwards: the loop's wall over its steps."""
+        return 1e3 * ((tm["epochs_seconds"] - tm["first_epoch_seconds"])
+                      / ((EPOCHS - 1) * B))
+
+    def lane_fit(m):
+        """One fit of the first m lanes: (wall s, ms a step in epochs 2
+        onwards, steps an epoch, the lanes' FitResults)."""
+        stacked = be._stack_lane_host(cfg, setups[:m], prep["device"])
+        model = be._init_lane_carries(setups[:m])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = loop.fit_lanes(cfg, setups[0].spec, model, stacked["data"],
+                             stacked["lr_steps"], stacked["lr_recorded"],
+                             [s.experiment_seed for s in setups[:m]])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tm = res[0].timings
+        B = int(tm["steps_per_epoch_batch"])
+        return wall, _later_ms(tm, B), B, res
+
+    # the single fit, timed the same way: a warm-up fit, then the loop's
+    # wall over its steps in epochs 2 onwards
+    single = setups[0]
+    init_state = copy.deepcopy(single.model.state_dict())
+    single_ms = []
+    for _ in range(1 + REPEATS):
+        res, _ = _timed_fit(loop, cfg, single, init_state,
+                            single.experiment_seed)
+        single_ms.append(_later_ms(res.timings,
+                                   res.n_steps // res.n_epochs_run))
+    single.model.load_state_dict(init_state)
+    single_ms = statistics.median(single_ms[1:])
+    print(f"single fit (train.loop.fit): {single_ms:.3f} ms a step in epochs "
+          f"2-{EPOCHS}, validation included (median of {REPEATS})", flush=True)
+
+    rows = []
+    for m in widths:
+        lane_fit(m)                                        # warm-up
+        runs = [lane_fit(m) for _ in range(REPEATS)]
+        ms = statistics.median(r[1] for r in runs)
+        wall = statistics.median(r[0] for r in runs)
+        rows.append({"lanes": m, "ms_per_step": ms,
+                     "ms_per_step_per_lane": ms / m, "fit_wall_s": wall,
+                     "ms_per_step_runs": [r[1] for r in runs],
+                     "steps_per_epoch": runs[0][2],
+                     "single_fits_ms_per_step_per_lane": single_ms})
+        print(f"M={m:3d}: {ms:8.3f} ms a step (runs "
+              f"{', '.join(f'{r[1]:.3f}' for r in runs)}), {ms / m:7.3f} ms a "
+              f"step a lane ({single_ms * m / ms:.2f}x {m} single fits), "
+              f"{EPOCHS}-epoch fit wall {wall:.3f} s", flush=True)
+    best = min(rows, key=lambda r: r["ms_per_step_per_lane"])["lanes"]
+    print(f"least ms a step a lane at M={best}", flush=True)
+
+    # the batch's finalize evaluation at the widest width: one dense
+    # predict of the T x S grid for all lanes
+    wide = max(widths)
+    fits = lane_fit(wide)[3]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    be._batched_eval(cfg, setups[:wide], fits)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"finalize evaluation of {wide} lanes (one dense predict of "
+          f"{setups[0].T} x {setups[0].S} points a lane, chunks of "
+          f"{cfg.eval_chunk}): {eval_s:.3f} s, peak device memory "
+          f"{eval_gib:.3f} GiB", flush=True)
+
+    m = profile_width or best
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall, _, B, _ = lane_fit(m)
+    steps = EPOCHS * B
+    d = _device_profile(prof, steps)
+    report = {"card": card, "epochs": EPOCHS, "single_fit_ms_per_step":
+              single_ms, "setup_lanes": len(setups), "setup_seconds": setup_s,
+              "widths": rows, "least_ms_per_step_per_lane_at": best,
+              "finalize_eval": {"lanes": wide, "seconds": eval_s,
+                                "peak_device_memory_gib": eval_gib},
+              "profiled": {
+                  "lanes": m, "wall_s": prof_wall,
+                  "device_activities_per_step": d["activities"] / steps,
+                  "device_ms_per_step": d["device_ms"] / steps,
+                  "busy_ms": d["busy_ms"],
+                  "busy_share": d["busy_ms"] / (1e3 * prof_wall),
+                  "top_device_ms": d["top"],
+                  "port_kernels_ms_per_step": d["ours"]}}
+    p = report["profiled"]
+    print(f"profiled fit at M={m}: {prof_wall:.4f} s wall, "
+          f"{p['device_activities_per_step']:.1f} device activities a step "
+          f"incl. validation, {p['device_ms_per_step']:.4f} ms device time a "
+          f"step, busy {d['busy_ms']:.3f} ms = share {p['busy_share']:.4f} "
+          f"of the same fit's wall", flush=True)
+    for name, ms in d["top"]:
+        print(f"  {ms:9.3f} ms  {name[:90]}")
+    print("the port's kernels, device ms a step: " + ", ".join(
+        f"{k} {v:.5f}" for k, v in sorted(d["ours"].items())), flush=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    print(f"wrote {out}", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", type=Path, default=REPO / "build" /
-                    "profile_fit.json")
+    ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--lanes", default=None,
+                    help="comma-separated lane widths: run the lane "
+                         "engine's width sweep instead of the single fit")
+    ap.add_argument("--profile-lanes", type=int, default=None,
+                    help="the width profiled in the sweep (default: the "
+                         "one with the least ms a step a lane)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fit: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.lanes:
+        return lanes_sweep([int(x) for x in args.lanes.split(",")],
+                           args.profile_lanes,
+                           args.out or REPO / "build" / "profile_lanes.json")
+    args.out = args.out or REPO / "build" / "profile_fit.json"
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -97,9 +284,7 @@ def main(argv=None) -> int:
     from st_dadk_tpu_torch.train import loop
     from st_dadk_tpu_torch.train.experiment import ExperimentSetup
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    card = _card()
     print(f"card: {card}", flush=True)
     cfg = ExperimentConfig.from_dict(bench_workload(
         data_file=str(bench_data_file()), epochs=EPOCHS))
@@ -124,22 +309,10 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res, prof_wall = _timed_fit(loop, cfg, setup, init_state, seed)
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(e.device_time for e in dev) / 1e3
-    busy_ms = _union_us([(e.time_range.start, e.time_range.end)
-                         for e in dev]) / 1e3
-    by_name = {}
-    for e in dev:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    # the port's own kernels (csrc/*.cu and the slab sums of csrc/slabs.cuh),
-    # by function name (template arguments dropped), a step
-    ours = {}
-    for name, ms in by_name.items():
-        m = PORT_KERNEL.match(name)
-        if m:
-            ours[m.group(1)] = ours.get(m.group(1), 0.0) + ms / steps
+    d = _device_profile(prof, steps)
+    dev_ms, busy_ms, top, ours = (d["device_ms"], d["busy_ms"], d["top"],
+                                  d["ours"])
+    n_dev = d["activities"]
 
     report = {
         "card": card, "epochs": EPOCHS, "steps": steps,
@@ -149,8 +322,8 @@ def main(argv=None) -> int:
         "profiled": {
             "wall_s": prof_wall,
             "wall_vs_unprofiled_median": prof_wall / statistics.median(walls),
-            "device_activities": len(dev),
-            "device_activities_per_step": len(dev) / steps,
+            "device_activities": n_dev,
+            "device_activities_per_step": n_dev / steps,
             "device_ms": dev_ms, "device_ms_per_step": dev_ms / steps,
             "busy_ms": busy_ms,
             "busy_share": busy_ms / (1e3 * prof_wall),
@@ -161,7 +334,7 @@ def main(argv=None) -> int:
     p = report["profiled"]
     print(f"profiled fit: {prof_wall:.4f} s wall "
           f"({p['wall_vs_unprofiled_median']:.3f}x the unprofiled median), "
-          f"{len(dev)} device activities "
+          f"{n_dev} device activities "
           f"({p['device_activities_per_step']:.1f} a step incl. validation), "
           f"{dev_ms:.3f} ms device time ({p['device_ms_per_step']:.4f} ms a "
           f"step), busy {busy_ms:.3f} ms = share {p['busy_share']:.4f} of "

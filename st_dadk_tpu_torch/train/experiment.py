@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import csv
 import dataclasses
+import json
 import time
 from datetime import datetime
 from pathlib import Path
@@ -193,11 +194,18 @@ def run_single_experiment(config: ExperimentConfig | Dict[str, Any],
                           experiment_id: int, output_dir: Path,
                           device: Optional[torch.device | str] = None,
                           verbose: bool = True,
-                          write_artifacts: bool = True) -> Dict[str, Any]:
+                          write_artifacts: bool = True,
+                          skip_existing: bool = False) -> Dict[str, Any]:
     """One fit end to end on `device` (default: the config's), for
-    multi-quantile and mean regressions."""
+    multi-quantile and mean regressions. With `skip_existing`, a
+    `results.json` already in `output_dir` is returned as stored and nothing
+    runs (JAX experiment.py:147-150)."""
     cfg = (config if isinstance(config, ExperimentConfig)
            else ExperimentConfig.from_dict(config))
+    output_dir = Path(output_dir)
+    if skip_existing and (output_dir / "results.json").exists():
+        with open(output_dir / "results.json", "r", encoding="utf-8") as f:
+            return json.load(f)
     if cfg.regression_type not in ("multi-quantile", "mean"):
         raise NotImplementedError(
             f"regression_type {cfg.regression_type!r} is not ported yet")
@@ -207,7 +215,6 @@ def run_single_experiment(config: ExperimentConfig | Dict[str, Any],
         raise NotImplementedError(
             "p_covariates > 0: the fit feeds no covariates (JAX "
             "train/loop.py:226 passes X=None); STInterp takes X directly")
-    output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     return _run_one_fit(cfg, experiment_id, output_dir,
                         torch.device(device or cfg.device), verbose,
@@ -240,11 +247,18 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
                         result: FitResult, output_dir: Path,
                         total_time: float, verbose: bool = False,
                         stage_timings: Optional[Dict[str, float]] = None,
-                        write_artifacts: bool = True) -> Dict[str, Any]:
+                        write_artifacts: bool = True,
+                        precomputed: Optional[Dict[str, Any]] = None,
+                        steps_per_epoch: Optional[int] = None
+                        ) -> Dict[str, Any]:
     """Evaluate the serving params on the three splits and write the
     results contract. A ragged-k lane is stripped of its padding first
     (JAX experiment.py:460-479), so evaluation, `model_parameters` and every
-    artifact carry the lane's real shapes."""
+    artifact carry the lane's real shapes. `precomputed` (the lane engine's
+    batched evaluation) holds 'train_metrics', 'val_metrics', 'test_metrics'
+    and the dense median field 'all_predictions' (T, S), which then are not
+    computed again; `steps_per_epoch` is the batch's shared step count
+    where it differs from this fit's own."""
     t_eval = time.time()
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -257,9 +271,15 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
     serving = from_jax_params(spec, params, consts, device=setup.device)
     chunk = int(cfg.eval_chunk)
 
-    train_metrics, _ = evaluate_pointset(cfg, serving, setup.train_ps, chunk)
-    val_metrics, _ = evaluate_pointset(cfg, serving, setup.valid_ps, chunk)
-    test_metrics, _ = evaluate_pointset(cfg, serving, setup.test_ps, chunk)
+    if precomputed is not None:
+        train_metrics = precomputed["train_metrics"]
+        val_metrics = precomputed["val_metrics"]
+        test_metrics = precomputed["test_metrics"]
+    else:
+        train_metrics, _ = evaluate_pointset(cfg, serving, setup.train_ps,
+                                             chunk)
+        val_metrics, _ = evaluate_pointset(cfg, serving, setup.valid_ps, chunk)
+        test_metrics, _ = evaluate_pointset(cfg, serving, setup.test_ps, chunk)
     if verbose:
         print(f"  test: {test_metrics}", flush=True)
 
@@ -295,8 +315,9 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
     results["stage_timings"]["eval_seconds"] = time.time() - t_eval
     train_s = results["stage_timings"].get("train_seconds")
     if train_s:
-        bs = adaptive_batch_size(setup.train_ps.n_real, cfg.batch_size)
-        steps_per_epoch = max(1, -(-setup.train_ps.n_real // bs))
+        if steps_per_epoch is None:
+            bs = adaptive_batch_size(setup.train_ps.n_real, cfg.batch_size)
+            steps_per_epoch = max(1, -(-setup.train_ps.n_real // bs))
         results["steps_per_second"] = (result.n_epochs_run * steps_per_epoch
                                        / train_s)
     for split, m in (("train", train_metrics), ("valid", val_metrics),
@@ -325,12 +346,14 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
     if cfg.save_artifacts and write_artifacts:
         save_params_npz(params, output_dir / "model_final.npz")
         save_params_npz(params, output_dir / "model_best.npz")
-        coords_rep, t_rep = dense_grid_points(setup.T, setup.coords)
-        dense = predict(serving, coords_rep, t_rep, chunk)
-        col = (len(cfg.quantile_levels) // 2
-               if cfg.regression_type == "multi-quantile" else 0)
-        np.savez(output_dir / "predictions.npz",
-                 predictions=dense[:, col].reshape(setup.T, setup.S),
+        field = (precomputed or {}).get("all_predictions")
+        if field is None:
+            coords_rep, t_rep = dense_grid_points(setup.T, setup.coords)
+            dense = predict(serving, coords_rep, t_rep, chunk)
+            col = (len(cfg.quantile_levels) // 2
+                   if cfg.regression_type == "multi-quantile" else 0)
+            field = dense[:, col].reshape(setup.T, setup.S)
+        np.savez(output_dir / "predictions.npz", predictions=field,
                  true=setup.z_full, coords=setup.coords,
                  train_mask=setup.train_mask, valid_mask=setup.valid_mask,
                  test_mask=setup.test_mask)

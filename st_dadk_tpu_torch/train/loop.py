@@ -18,6 +18,16 @@ tests); anything else draws `torch.randperm` from the fit's generator. The
 JAX hash/sort permutations and RNG streams do not cross frameworks, so the
 two packages agree on batch order only under 'none', and on dropout masks
 only at dropout 0.
+
+`fit_lanes` runs M such fits of one spec as lanes of one eager program
+(JAX `_run_epoch` / `_epoch_bookkeeping` under vmap): every op serves all
+lanes, the NaN flag, the loss sum and the early-stopping state stay on the
+device, and the host reads one flag an epoch (all lanes stopped). Each lane
+shuffles its own capacity from its own generator seeded with its experiment
+seed; dropout masks for all lanes come from one generator of the batch in
+one draw, so a lane's dropout stream differs from its sequential fit's: a
+lane and its single fit agree closely only at dropout 0 under
+`shuffle: none`, and statistically otherwise.
 """
 from __future__ import annotations
 
@@ -25,20 +35,29 @@ import copy
 import math
 import time
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.dataio.arrays import PointSet, pad_pointset
-from st_dadk_tpu_torch.models.st_interp import ModelSpec, STInterp, to_jax_params
-from st_dadk_tpu_torch.ops.losses import (mse_loss, multi_quantile_loss,
+from st_dadk_tpu_torch.models.st_interp import (ModelSpec, STInterp,
+                                                STInterpLanes, lane_tree,
+                                                to_jax_params)
+from st_dadk_tpu_torch.ops.losses import (mse_loss, mse_loss_lanes,
+                                          multi_quantile_loss,
+                                          multi_quantile_loss_lanes,
                                           non_crossing_penalty,
-                                          p_nc_delta_penalty)
-from st_dadk_tpu_torch.train.optimizer import (AdamW, build_lr_tables,
+                                          non_crossing_penalty_lanes,
+                                          p_nc_delta_penalty,
+                                          p_nc_delta_penalty_lanes)
+from st_dadk_tpu_torch.train.optimizer import (AdamW, AdamWLanes,
+                                               build_lr_tables,
                                                clip_by_global_norm_,
-                                               ema_update, gradient_damping)
+                                               clip_by_global_norm_lanes_,
+                                               ema_update, ema_update_lanes,
+                                               gradient_damping)
 
 
 @dataclass(frozen=True)
@@ -251,17 +270,21 @@ def adaptive_batch_size(n_train: int, batch_size: int,
 
 def prepare_train_data(train_ps: PointSet, valid_ps: PointSet,
                        batch_size: int, device: torch.device,
-                       val_chunk: Optional[int] = None
+                       val_chunk: Optional[int] = None,
+                       cap_tr: Optional[int] = None,
+                       cap_va: Optional[int] = None
                        ) -> Tuple[TrainData, int, int]:
     """Pad the point sets and move them to `device`:
-    (TrainData, batches per epoch, validation chunk)."""
+    (TrainData, batches per epoch, validation chunk). `cap_tr` / `cap_va`
+    pad to a capacity shared with other lanes; B and the EMA decay stay the
+    set's own."""
     n_tr = train_ps.n_real
     B = max(1, -(-n_tr // batch_size))
-    tr = pad_pointset(train_ps, B * batch_size)
+    tr = pad_pointset(train_ps, cap_tr or B * batch_size)
     n_va = max(1, valid_ps.n_real)
     vchunk = val_chunk or min(max(batch_size * 16, 32768), n_va)
     n_chunks = max(1, -(-n_va // vchunk))
-    va = pad_pointset(valid_ps, n_chunks * vchunk)
+    va = pad_pointset(valid_ps, cap_va or n_chunks * vchunk)
     dev = lambda a: torch.as_tensor(a, device=device)
     data = TrainData(
         tr_coords=dev(tr.coords), tr_t=dev(tr.t), tr_y=dev(tr.y),
@@ -314,11 +337,12 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
                                     "val_rmse": []}
     center_shift: List[float] = []
     n_steps = 0
-    t_steps = t_val = t_first = 0.0
+    t_steps = t_val = t_first = t_first_epoch = 0.0
     cap = data.tr_coords.shape[0]
     packed_tr = torch.cat([data.tr_coords, data.tr_t, data.tr_y,
                            data.tr_w[:, None]], dim=1)          # (cap, 5)
 
+    t_loop = time.perf_counter()
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()
         idx = epoch_batch_indices(cap, batch_size, B, spec.shuffle, gen, device)
@@ -372,6 +396,8 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
                 c = model.basis.centers
                 center_shift.append(float(torch.max(torch.abs(
                     c - model.spatial_centers_init))))
+        if epoch == 0:
+            t_first_epoch = time.perf_counter() - t0
         if verbose:
             print(f"  epoch {epoch + 1:4d} train {train_loss:.6f} "
                   f"val {val_loss:.6f} rmse {val_rmse:.6f}", flush=True)
@@ -380,6 +406,7 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
             if verbose:
                 print(f"Early stopping at epoch {stop_epoch}")
             break
+    t_epochs = time.perf_counter() - t_loop
 
     n_run = stop_epoch if stopped else cfg.epochs
     history = {k: np.asarray(v[:n_run], np.float64) for k, v in hist.items()}
@@ -394,8 +421,12 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
         best_val=float(best_val), n_epochs_run=n_run, stopped_early=stopped,
         center_shift=np.asarray(center_shift[:n_run]), n_steps=n_steps,
         n_val_chunks=spec.n_val_chunks,
+        # epochs_seconds / first_epoch_seconds: the loop's wall, steps,
+        # validation and bookkeeping, as `fit_lanes` records them
         timings={"train_steps_seconds": t_steps, "validate_seconds": t_val,
-                 "first_epoch_steps_seconds": t_first})
+                 "first_epoch_steps_seconds": t_first,
+                 "epochs_seconds": t_epochs,
+                 "first_epoch_seconds": t_first_epoch})
 
 
 # ---------------------------------------------------------------------------
@@ -423,3 +454,353 @@ def predict(model: STInterp, coords: np.ndarray, t: np.ndarray,
 
 def n_predict_chunks(n: int, chunk: int = 32768) -> int:
     return -(-n // chunk)
+
+
+# ---------------------------------------------------------------------------
+# M fits as lanes of one program (JAX _run_epoch / _epoch_bookkeeping, vmapped)
+# ---------------------------------------------------------------------------
+
+class LaneData(NamedTuple):
+    """M lanes' padded buffers on the fit's device, stacked on a leading
+    lane dimension and padded to shared capacities."""
+    packed_tr: torch.Tensor   # (M, cap_tr, 5): coords | t | y | w
+    va_coords: torch.Tensor   # (M, cap_va, 2)
+    va_t: torch.Tensor        # (M, cap_va, 1)
+    va_y: torch.Tensor        # (M, cap_va, 1)
+    va_w: torch.Tensor        # (M, cap_va)
+    n_batches: Tuple[int, ...]       # each lane's real batches per epoch
+    ema_decay: Tuple[float, ...]     # each lane's 1 - 1/(10 B_lane), float32
+    batch_size: int
+    val_chunk: int
+
+    @property
+    def B_shared(self) -> int:
+        return self.packed_tr.shape[1] // self.batch_size
+
+    @property
+    def n_val_chunks(self) -> int:
+        return self.va_coords.shape[1] // self.val_chunk
+
+
+def stack_lane_data(cfg: ExperimentConfig, train_sets: Sequence[PointSet],
+                    valid_sets: Sequence[PointSet], device: torch.device
+                    ) -> LaneData:
+    """Lane stacking (JAX batch_engine.py:715-743): one batch size for all
+    lanes, from the smallest training set; the widest lane's batch count and
+    validation set give the shared capacities; each lane keeps its own batch
+    count and EMA decay."""
+    batch_size = adaptive_batch_size(min(p.n_real for p in train_sets),
+                                     cfg.batch_size)
+    B_shared = max(max(1, -(-p.n_real // batch_size)) for p in train_sets)
+    max_val = max(max(1, p.n_real) for p in valid_sets)
+    val_chunk = min(max(batch_size * 16, 32768), max_val)
+    n_val_chunks = max(1, -(-max_val // val_chunk))
+    datas, n_batches = [], []
+    for tr, va in zip(train_sets, valid_sets):
+        d, B_lane, _ = prepare_train_data(
+            tr, va, batch_size, device, val_chunk=val_chunk,
+            cap_tr=B_shared * batch_size, cap_va=n_val_chunks * val_chunk)
+        datas.append(d)
+        n_batches.append(B_lane)
+    stack = lambda name: torch.stack([getattr(d, name) for d in datas])
+    packed = torch.cat([stack("tr_coords"), stack("tr_t"), stack("tr_y"),
+                        stack("tr_w")[..., None]], dim=2)
+    return LaneData(packed_tr=packed, va_coords=stack("va_coords"),
+                    va_t=stack("va_t"), va_y=stack("va_y"),
+                    va_w=stack("va_w"), n_batches=tuple(n_batches),
+                    ema_decay=tuple(d.ema_decay for d in datas),
+                    batch_size=batch_size, val_chunk=val_chunk)
+
+
+def shuffle_lane_indices_(idx: torch.Tensor, n_batches: Sequence[int],
+                          batch_size: int,
+                          generators: Sequence[torch.Generator]) -> None:
+    """In place: row i of idx (M, B_shared * batch_size) gets a fresh
+    permutation of lane i's own capacity, n_batches[i] * batch_size, from
+    lane i's generator. A lane's executed batches (its first n_batches[i])
+    then hold all of its points, however many batches the widest lane has;
+    the rest of the row is never executed."""
+    for i, g in enumerate(generators):
+        cap_lane = n_batches[i] * batch_size
+        idx[i, :cap_lane] = torch.randperm(cap_lane, generator=g,
+                                           device=idx.device)
+
+
+def lane_losses_from_preds(spec: LoopSpec, model: STInterpLanes,
+                           preds: torch.Tensor, y: torch.Tensor,
+                           w: torch.Tensor, train: bool) -> torch.Tensor:
+    """`loss_from_preds` a lane: preds (M, B, Q), y (M, B, 1), w (M, B) ->
+    (M,) composite objectives."""
+    m = spec.model
+    if spec.regression_type == "mean":
+        loss = mse_loss_lanes(preds, y, w)
+    elif spec.regression_type == "multi-quantile":
+        q = torch.tensor(spec.quantile_levels, dtype=torch.float32,
+                         device=preds.device)
+        loss = multi_quantile_loss_lanes(preds, y, q, w)
+        if m.use_delta_reparameterization and m.delta_head:
+            if spec.non_crossing_lambda > 0:
+                p_nc = p_nc_delta_penalty_lanes(model.mlp.delta)
+                if spec.non_crossing_delta_mode == "abs":
+                    p_nc = -p_nc
+                loss = loss + spec.non_crossing_lambda * p_nc
+        elif spec.non_crossing_weight > 0:
+            loss = loss + spec.non_crossing_weight * non_crossing_penalty_lanes(
+                preds, spec.non_crossing_power, w)
+    else:
+        raise ValueError(f"Unknown regression_type: {spec.regression_type}")
+
+    if train:
+        if m.spatial_learnable:
+            if spec.domain_penalty_weight > 0:
+                loss = loss + spec.domain_penalty_weight * model.domain_penalty()
+            if spec.movement_penalty_weight > 0:
+                loss = loss + (spec.movement_penalty_weight
+                               * model.movement_penalty())
+        if spec.sparsity_penalty_type != "none":
+            pen = model.sparsity_penalty(spec.sparsity_penalty_type,
+                                         spec.sparsity_lambda_l1,
+                                         spec.sparsity_lambda_group)
+            if spec.sparsity_apply_to_spatial:
+                loss = loss + pen["spatial_penalty"]
+            if spec.sparsity_apply_to_temporal:
+                loss = loss + pen["temporal_penalty"]
+    return loss
+
+
+def _transform_grads_lanes(spec: LoopSpec, model: STInterpLanes) -> None:
+    """`_transform_grads` with each lane's own clipping norms."""
+    m = spec.model
+    if m.spatial_learnable and spec.gradient_damping:
+        c = model.basis.centers
+        c.grad = gradient_damping(c.grad, c, model.spatial_centers_init,
+                                  spec.damping_threshold, spec.damping_strength)
+    if spec.grad_clip > 0:
+        if m.spatial_learnable:
+            clip_by_global_norm_lanes_(
+                [p.grad for p in model.basis.parameters()],
+                spec.grad_clip * 0.1)
+        clip_by_global_norm_lanes_([p.grad for p in model.mlp.parameters()],
+                                   spec.grad_clip)
+
+
+@torch.no_grad()
+def _validate_lanes(spec: LoopSpec, ema: STInterpLanes, data: LaneData
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_validate` for all lanes in one forward per chunk: (val_loss (M,),
+    val_rmse (M,)) on the device."""
+    C = spec.val_chunk
+    loss_sum = valid = se = cnt = 0.0
+    for i in range(spec.n_val_chunks):
+        sl = slice(i * C, (i + 1) * C)
+        ck, tk, yk, wk = (data.va_coords[:, sl], data.va_t[:, sl],
+                          data.va_y[:, sl], data.va_w[:, sl])
+        preds = ema(ck, tk, train=False)
+        loss = lane_losses_from_preds(spec, ema, preds, yk, wk, train=False)
+        if spec.regression_type == "multi-quantile":
+            mid = len(spec.quantile_levels) // 2
+            preds = preds[..., mid:mid + 1]
+        n_real = torch.sum(wk, dim=1)
+        has_real = (n_real > 0).float()
+        loss_sum = loss_sum + loss * has_real
+        valid = valid + has_real
+        se = se + torch.sum((preds - yk) ** 2 * wk[..., None], dim=(1, 2))
+        cnt = cnt + n_real
+    return (loss_sum / torch.clamp(valid, min=1.0),
+            torch.sqrt(se / torch.clamp(cnt, min=1.0)))
+
+
+def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
+              model: STInterpLanes, data: LaneData, lr_steps: np.ndarray,
+              lr_recorded: Sequence[np.ndarray], seeds: Sequence[int],
+              verbose: bool = False) -> List[FitResult]:
+    """Train the M lanes of `model` in place; one FitResult a lane.
+
+    `lr_steps` (M, epochs, B_shared, 2) holds each lane's per-step (MLP,
+    basis) LRs and is uploaded once; `lr_recorded[i]` (epochs,) is lane i's
+    recorded LR; `seeds[i]` seeds lane i's shuffle. A step executes in a
+    lane only while b < the lane's batch count, no earlier batch of the
+    epoch gave the lane a non-finite loss, and the lane has not stopped; a
+    stopped lane keeps its whole state and writes NaN history rows. No step
+    reads a device value on the host or loops over lanes; the host reads
+    `stopped.all()` once an epoch. Histories are cut at each lane's own stop
+    epoch. `timings['epochs_seconds']` is the loop's wall (steps,
+    validation and bookkeeping; the card is waited for once an epoch)."""
+    device = data.packed_tr.device
+    M, cap = data.packed_tr.shape[0], data.packed_tr.shape[1]
+    bs, B = data.batch_size, data.B_shared
+    E = int(cfg.epochs)
+    if model.lanes != M or len(seeds) != M or lr_steps.shape != (M, E, B, 2):
+        raise ValueError(f"{M} lanes of data: model has {model.lanes}, "
+                         f"{len(seeds)} seeds, lr_steps {lr_steps.shape} "
+                         f"(expected {(M, E, B, 2)})")
+    spec = LoopSpec.from_config(cfg, spec_model, bs, B, data.val_chunk,
+                                data.n_val_chunks)
+    f32 = dict(dtype=torch.float32, device=device)
+    lr_t = torch.as_tensor(np.ascontiguousarray(
+        np.transpose(lr_steps, (1, 2, 0, 3)), np.float32), device=device)
+    n_batches = torch.tensor(data.n_batches, dtype=torch.int32, device=device)
+    n_batches_f = torch.clamp(n_batches.to(torch.float32), min=1.0)
+    in_lane = (torch.arange(B, device=device)[:, None]
+               < n_batches[None, :])                              # (B, M)
+    decay = torch.tensor(data.ema_decay, **f32)
+    one_minus_decay = torch.tensor([np.float32(1.0 - d)
+                                    for d in data.ema_decay], **f32)
+
+    params = list(model.parameters())
+    groups = {"mlp": list(model.mlp.parameters())}
+    if spec_model.spatial_learnable:
+        groups["basis"] = list(model.basis.parameters())
+    else:
+        lr_t = lr_t[..., :1]
+    opt = AdamWLanes(groups, spec.weight_decay)
+    ema_model = copy.deepcopy(model)
+    ema = list(ema_model.parameters())
+    for p in ema:
+        p.requires_grad_(False)
+    best_ema = [p.detach().clone() for p in ema]
+
+    inf = torch.full((M,), math.inf, **f32)
+    best_val, sig_best = inf.clone(), inf.clone()
+    has_best = torch.zeros((M,), dtype=torch.bool, device=device)
+    stopped = has_best.clone()
+    patience_ctr = torch.zeros((M,), dtype=torch.int32, device=device)
+    stop_epoch = patience_ctr.clone()
+    nan = torch.full((M,), math.nan, **f32)
+    hist = {k: torch.full((E, M), math.nan, **f32)
+            for k in ("train_loss", "val_loss", "val_rmse", "center_shift")}
+
+    shuffled = spec.shuffle != "none"
+    lane_gens = [torch.Generator(device=device).manual_seed(int(sd))
+                 for sd in seeds]
+    drop_gen = torch.Generator(device=device).manual_seed(int(seeds[0]))
+    idx = (torch.arange(B * bs, device=device) % cap).repeat(M, 1)  # (M, B bs)
+    lane_ar = torch.arange(M, device=device)[:, None]
+
+    def epoch_batches() -> Tuple[torch.Tensor, ...]:
+        """The epoch's minibatches, step-major and contiguous: coords
+        (B, M, bs, 2), t and y (B, M, bs, 1), w (B, M, bs)."""
+        if shuffled:
+            shuffle_lane_indices_(idx, data.n_batches, bs, lane_gens)
+        packed = data.packed_tr[lane_ar, idx].reshape(M, B, bs, 5)
+        packed = packed.transpose(0, 1)
+        return (packed[..., 0:2].contiguous(), packed[..., 2:3].contiguous(),
+                packed[..., 3:4].contiguous(), packed[..., 4].contiguous())
+
+    t_first = 0.0
+    epochs_done = 0
+    t_loop = time.perf_counter()
+    for epoch in range(E):
+        t0 = time.perf_counter()
+        coords_e, t_e, y_e, w_e = epoch_batches()
+        alive = ~stopped
+        nan_epoch = torch.zeros_like(stopped)
+        loss_sum = torch.zeros((M,), **f32)
+        for b in range(B):
+            for p in params:
+                p.grad = None
+            preds = model(coords_e[b], t_e[b], train=True, generator=drop_gen)
+            loss = lane_losses_from_preds(spec, model, preds, y_e[b], w_e[b],
+                                          train=True)
+            # lanes share no parameter: the sum's gradient is each lane's own
+            loss.sum().backward()
+            _transform_grads_lanes(spec, model)
+            executes = in_lane[b] & ~nan_epoch & alive
+            opt.step(lr_t[epoch, b], executes)
+            ema_update_lanes(ema, params, decay, one_minus_decay, executes)
+            with torch.no_grad():
+                loss_d = loss.detach()
+                loss_sum = loss_sum + torch.where(executes, loss_d,
+                                                  torch.zeros_like(loss_d))
+                nan_epoch = nan_epoch | (executes & ~torch.isfinite(loss_d))
+        with torch.no_grad():
+            train_loss = torch.where(nan_epoch, nan, loss_sum / n_batches_f)
+            val_loss, val_rmse = _validate_lanes(spec, ema_model, data)
+
+            # JAX _epoch_bookkeeping, a lane each
+            finite = torch.isfinite(val_loss)
+            improved = finite & (val_loss < best_val) & alive
+            sig_thresh = torch.where(
+                torch.isfinite(sig_best),
+                sig_best - spec.min_rel_delta * torch.abs(sig_best), sig_best)
+            sig_improved = finite & (val_loss < sig_thresh)
+            ctr = torch.where(sig_improved, torch.zeros_like(patience_ctr),
+                              patience_ctr + 1)
+            stop_now = (ctr >= spec.patience) & alive
+            best_val = torch.where(improved, val_loss, best_val)
+            has_best = has_best | improved
+            sig_best = torch.where(sig_improved & alive, val_loss, sig_best)
+            patience_ctr = torch.where(alive, ctr, patience_ctr)
+            stop_epoch = torch.where(stop_now,
+                                     torch.full_like(stop_epoch, epoch + 1),
+                                     stop_epoch)
+            stopped = stopped | stop_now
+            for dst, src in zip(best_ema, ema):
+                dst.copy_(torch.where(
+                    improved.reshape(M, *([1] * (dst.dim() - 1))), src, dst))
+            hist["train_loss"][epoch] = torch.where(alive, train_loss, nan)
+            hist["val_loss"][epoch] = torch.where(alive, val_loss, nan)
+            hist["val_rmse"][epoch] = torch.where(alive, val_rmse, nan)
+            if spec.record_centers:
+                hist["center_shift"][epoch] = torch.amax(torch.abs(
+                    model.basis.centers - model.spatial_centers_init),
+                    dim=(1, 2))
+            epochs_done = epoch + 1
+            all_stopped = bool(stopped.all())     # the epoch's one host read
+        if epoch == 0:
+            t_first = time.perf_counter() - t0
+        if verbose and (epoch % 25 == 0 or all_stopped or epoch == E - 1):
+            print(f"  epoch {epoch + 1:4d} lanes stopped "
+                  f"{int(stopped.sum())}/{M}  val "
+                  f"{np.array2string(val_loss.cpu().numpy(), precision=5)}",
+                  flush=True)
+        if all_stopped:
+            break
+    t_epochs = time.perf_counter() - t_loop
+
+    with torch.no_grad():
+        serving = {name: torch.where(
+            has_best.reshape(M, *([1] * (b.dim() - 1))), b, e).cpu().numpy()
+            for (name, e), b in zip(ema_model.named_parameters(), best_ema)}
+    hist_h = {k: v.cpu().numpy().astype(np.float64) for k, v in hist.items()}
+    stopped_h = stopped.cpu().numpy()
+    stop_epoch_h = stop_epoch.cpu().numpy()
+    best_val_h = best_val.cpu().numpy()
+    steps_h = opt.step_count.cpu().numpy()
+    results = []
+    for i in range(M):
+        n_run = int(stop_epoch_h[i]) if stopped_h[i] else epochs_done
+        history = {k: hist_h[k][:n_run, i].copy()
+                   for k in ("train_loss", "val_loss", "val_rmse")}
+        history["lr"] = np.asarray(lr_recorded[i][:n_run]).copy()
+        results.append(FitResult(
+            params=lane_tree({name: v[i].copy()
+                              for name, v in serving.items()}),
+            history=history, best_val=float(best_val_h[i]),
+            n_epochs_run=n_run, stopped_early=bool(stopped_h[i]),
+            center_shift=(hist_h["center_shift"][:n_run, i].copy()
+                          if spec.record_centers else np.asarray([])),
+            n_steps=int(steps_h[i]), n_val_chunks=spec.n_val_chunks,
+            timings={"epochs_seconds": t_epochs,
+                     "first_epoch_seconds": t_first,
+                     "epochs_run_batch": float(epochs_done),
+                     "steps_per_epoch_batch": float(B)}))
+    return results
+
+
+@torch.no_grad()
+def predict_lanes(model: STInterpLanes, coords: np.ndarray, t: np.ndarray,
+                  chunk: int = 32768) -> np.ndarray:
+    """Dense inference of M lanes on shared points, one forward a chunk for
+    all lanes: (M, n, out_dim) numpy."""
+    device = next(model.parameters()).device
+    M, n = model.lanes, coords.shape[0]
+    outs = []
+    for s in range(0, n, chunk):
+        c = torch.as_tensor(np.ascontiguousarray(coords[s:s + chunk],
+                                                 np.float32), device=device)
+        tt = torch.as_tensor(np.ascontiguousarray(
+            t[s:s + chunk].reshape(-1, 1), np.float32), device=device)
+        outs.append(model(c.expand(M, -1, -1).contiguous(),
+                          tt.expand(M, -1, -1).contiguous(), train=False))
+    return torch.cat(outs, dim=1).cpu().numpy()

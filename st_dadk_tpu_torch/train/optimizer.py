@@ -7,11 +7,19 @@ as is. AdamW follows the JAX `adamw_update` formula exactly (decoupled decay
 p * (1 - lr*wd), bias-corrected moments, eps after the sqrt) with one LR per
 parameter group read from the tables each step; parameters and moments are
 updated in place.
+
+The lane forms (`AdamWLanes`, `ema_update_lanes`,
+`clip_by_global_norm_lanes_`) run M independent fits whose parameters carry
+a leading lane dimension: per-lane LRs, Adam step counts, EMA decays and
+clipping norms are device tensors (M,), and an `executes` (M,) mask leaves
+a lane's parameters, moments and EMA untouched (JAX loop.py:527-539). They
+loop over parameters, never over lanes, and read no device value on the
+host.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,9 +91,9 @@ def gradient_damping(center_grad: torch.Tensor, centers: torch.Tensor,
                      centers_init: torch.Tensor, threshold: float,
                      strength: float) -> torch.Tensor:
     """Centers that moved beyond `threshold` from their init get
-    exponentially damped gradients."""
+    exponentially damped gradients; (k, 2) or, with lanes, (M, k, 2)."""
     with torch.no_grad():
-        distances = torch.linalg.norm(centers - centers_init, dim=1,
+        distances = torch.linalg.norm(centers - centers_init, dim=-1,
                                       keepdim=True)
         factor = torch.exp(-strength * torch.clamp(distances - threshold,
                                                    min=0.0))
@@ -130,3 +138,80 @@ def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor],
     """In place: shadow = decay*shadow + (1-decay)*param."""
     for s, p in zip(ema, params):
         s.mul_(decay).add_(p, alpha=1.0 - decay)
+
+
+# ---------------------------------------------------------------------------
+# Lane forms
+# ---------------------------------------------------------------------------
+
+def _per_lane(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(M,) as (M, 1, ...) broadcasting against `like` (M, ...)."""
+    return x.reshape(x.shape[0], *([1] * (like.dim() - 1)))
+
+
+def clip_by_global_norm_lanes_(grads: List[torch.Tensor], max_norm: float
+                               ) -> None:
+    """In place: scale each lane's group by its own global L2 norm
+    (`clip_by_global_norm_` a lane)."""
+    total = torch.sqrt(sum(torch.sum(g * g, dim=tuple(range(1, g.dim())))
+                           for g in grads))                       # (M,)
+    scale = torch.clamp(max_norm / (total + 1e-6), max=1.0)
+    for g in grads:
+        g.mul_(_per_lane(scale, g))
+
+
+class AdamWLanes:
+    """`AdamW` for parameters with a leading lane dimension M. `groups`
+    keeps its order: column j of `step`'s `lrs` (M, n_groups) is group j's
+    LR a lane. The Adam step count is per lane and advances only where the
+    lane executes."""
+
+    def __init__(self, groups: Dict[str, Iterable[torch.nn.Parameter]],
+                 weight_decay: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.groups = {g: list(ps) for g, ps in groups.items()}
+        self.weight_decay = weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+        params = [p for ps in self.groups.values() for p in ps]
+        self.step_count = torch.zeros((params[0].shape[0],), dtype=torch.int32,
+                                      device=params[0].device)
+        self.m = {id(p): torch.zeros_like(p) for p in params}
+        self.v = {id(p): torch.zeros_like(p) for p in params}
+
+    @torch.no_grad()
+    def step(self, lrs: torch.Tensor, executes: torch.Tensor) -> None:
+        """One update from each parameter's `.grad`: lrs (M, n_groups)
+        float32, executes (M,) bool."""
+        t = (self.step_count + 1).to(torch.float32)
+        bc1 = 1.0 - torch.pow(torch.full_like(t, self.b1), t)     # (M,)
+        bc2 = 1.0 - torch.pow(torch.full_like(t, self.b2), t)
+        for j, params in enumerate(self.groups.values()):
+            lr = lrs[:, j]
+            decay = 1.0 - lr * self.weight_decay
+            for p in params:
+                m, v, grad = self.m[id(p)], self.v[id(p)], p.grad
+                ex = _per_lane(executes, p)
+                m_new = torch.add(m * self.b1, grad, alpha=1 - self.b1)
+                v_new = torch.addcmul(v * self.b2, grad, grad,
+                                      value=1 - self.b2)
+                upd = ((m_new / _per_lane(bc1, p))
+                       / (torch.sqrt(v_new / _per_lane(bc2, p)) + self.eps))
+                p_new = p * _per_lane(decay, p) - _per_lane(lr, p) * upd
+                # where, not a product with the mask: a lane that does not
+                # execute may hold a non-finite gradient
+                m.copy_(torch.where(ex, m_new, m))
+                v.copy_(torch.where(ex, v_new, v))
+                p.copy_(torch.where(ex, p_new, p))
+        self.step_count += executes.to(torch.int32)
+
+
+@torch.no_grad()
+def ema_update_lanes(ema: Sequence[torch.Tensor],
+                     params: Sequence[torch.Tensor], decay: torch.Tensor,
+                     one_minus_decay: torch.Tensor,
+                     executes: torch.Tensor) -> None:
+    """In place, where a lane executes: shadow = decay*shadow +
+    (1-decay)*param with per-lane decay (M,)."""
+    for s, p in zip(ema, params):
+        new = s * _per_lane(decay, s) + p * _per_lane(one_minus_decay, s)
+        s.copy_(torch.where(_per_lane(executes, s), new, s))

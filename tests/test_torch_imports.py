@@ -30,6 +30,8 @@ def test_port_imports_no_jax_yaml_pandas_or_reference():
     assert "st_dadk_tpu_torch.ops.fused_first_layer" in res["modules"]
     assert "st_dadk_tpu_torch.ops.spatial_basis_kernels" in res["modules"]
     assert "st_dadk_tpu_torch.train.experiment" in res["modules"]
+    assert "st_dadk_tpu_torch.train.runner" in res["modules"]
+    assert "st_dadk_tpu_torch.train.batch_engine" in res["modules"]
     assert res["forbidden"] == []
 
 
@@ -42,3 +44,42 @@ def test_sources_name_no_jax_package():
                 mod = s.split()[1].split(".")[0]
                 assert mod not in ("jax", "st_dadk_tpu", "pandas"), \
                     f"{path}: {s}"
+
+
+def _imported_modules(path):
+    import ast
+    tree = ast.parse(path.read_text())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module.split(".")[0])
+    return mods
+
+
+def test_port_scripts_import_no_jax_package():
+    """The scripts that run on the machine with the GPU (the port's accuracy
+    run and the comparer) import neither jax, pandas nor the JAX package,
+    and the port imports none of the scripts."""
+    forbidden = {"jax", "jaxlib", "yaml", "pandas", "st_dadk_tpu"}
+    for name in ("port_accuracy_torch.py", "port_accuracy_compare.py"):
+        mods = _imported_modules(REPO / "scripts" / name)
+        assert not mods & forbidden, (name, mods & forbidden)
+    assert "torch" not in _imported_modules(
+        REPO / "scripts" / "port_accuracy_compare.py")
+    for path in (REPO / "st_dadk_tpu_torch").rglob("*.py"):
+        assert "scripts" not in _imported_modules(path), path
+
+
+def test_port_accuracy_script_refuses_to_run_without_a_card(tmp_path):
+    import torch
+    if torch.cuda.is_available():
+        return
+    out = subprocess.run([sys.executable,
+                          str(REPO / "scripts" / "port_accuracy_torch.py"),
+                          "--output_dir", str(tmp_path / "run")], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2 and "no CUDA device" in out.stderr
+    assert not (tmp_path / "run").exists()
+    assert "jax" not in out.stderr

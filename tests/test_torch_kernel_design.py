@@ -283,7 +283,7 @@ def test_profile_attributes_the_port_kernels(name, kernel):
 def test_fwd_entry_point_takes_the_tile():
     m = re.search(r"int st_fused_first_layer_fwd\(([^)]*)\)", FUSED)
     names = [p.split()[-1] for p in m.group(1).split(",")]
-    assert names[-3:] == ["tile_n", "tile_h", "stream"]
+    assert names[-4:] == ["tile_n", "tile_h", "lanes", "stream"]
 
 
 # ---------------------------------------------------------------------------
