@@ -24,7 +24,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      shapes the lanes phase gives it in validation and in the dense predict,
      each lane and the M = 1 call bitwise equal to the two-dimensional call,
      two launches bitwise equal, and the device time a launch at M = 1, 4,
-     8, 16;
+     8, 16; the same for the two kernels a ragged-k batch trains through
+     (basis forward and d centers), with and without a per-lane column mask
+     of different real widths: each lane bitwise the two-dimensional call on
+     its real columns and exactly 0 on its masked ones;
   3. the bench-workload DA-STDK fit (12 epochs, basis unfreezing at epoch
      10) through `run_single_experiment`, on the fused route;
   4. a ragged-k lane of that workload (centers 25+81 padded to 227) through
@@ -37,8 +40,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      launch counts (those of ONE fit, whatever M), and lane 0 of two runs at
      dropout 0 without shuffling against the single fit of the same seed,
      loss histories and test scores: the bench schedule, and three epochs
-     with the basis training from the first step.
-Each of phases 3-6 sets the launch counts to 0 just before it and reads
+     with the basis training from the first step;
+  7. the ragged-lanes phase: the grid {[25, 81], [25, 81, 121]} padded to
+     227 centers x seeds 2025, 2026 as 4 lanes of one program through
+     `run_job_batch`: the results contract at each lane's real shapes and
+     real parameter count, the basis forward's and d centers' launch counts
+     (those of ONE fit) with no fused launch, junk rows exactly 0 after
+     training, each lane's RMSEs against its own unpadded single fit (as
+     another sample of it with dropout and shuffling on; within the ragged
+     bar at dropout 0 without shuffling), and lane 0 at dropout 0 without
+     shuffling against the single padded-lane fit by the bars of phase 6;
+  8. the pipeline phase: 6 jobs of that grid at 2 lanes a batch through
+     `run_lane_jobs` (prepare and finalize threads) and as three batches one
+     after another, in turns: results bitwise equal, both walls printed;
+  9. the batched GMM init of phase 7's lanes against the lane-by-lane init:
+     centers, bandwidths, EM iteration counts, seconds a lane both ways and
+     the lane-by-lane init's split into seeding and EM.
+Each of phases 3-7 sets the launch counts to 0 just before it and reads
 them just after; it checks the fit's losses, centers and test metrics. The
 last line of standard output is one JSON object with "ok" and the device;
 the line before it lists the kernels.
@@ -104,6 +122,11 @@ LANE_TWO_LAUNCHES = LANE_SHAPES[-1]
 LANE_FWD_SHAPES = [(4, 2000, 227, 256), (4, 32768, 227, 256),
                    (4, 1696, 227, 256)]
 LANE_TIMED = (1, 4, 8, 16)      # lanes timed at the step's shape
+# the lane axis and column mask of the two kernels a ragged batch trains
+# through; a lane's real width under the mask cycles through these shares
+# of k (106 and 227 of 227: the grid's two resolutions; one lane fully real)
+BASIS_LANE_KERNELS = ("spatial_basis_fwd", "spatial_basis_bwd_centers")
+MASK_REAL_OF_227 = (106, 227, 151, 1)
 # the lanes phase: seeds base_seed .. base_seed + LANES - 1
 LANES = 4
 # lane 0 against its single fit at dropout 0, shuffle none: relative gap of
@@ -135,7 +158,33 @@ PHI_OPS, DPHI_OPS = 20, 25
 EPOCHS = 12
 # the ragged lane: the narrower lane of a grid over {[25,81],[25,81,121]}
 LANE_CENTERS, LANE_PAD = [25, 81], 227
+# the ragged-lanes phase: that grid x these experiment ids (seeds 2025, 2026)
+RAGGED_GRID = ([25, 81], [25, 81, 121])
+RAGGED_IDS = (1, 2)
+# the pipeline phase: jobs, and lanes a batch
+PIPELINE_JOBS, PIPELINE_WIDTH = 6, 2
+# the batched GMM init against the lane-by-lane init, centers and bandwidths:
+# a lane's EM takes its sums a run at a time whatever shares its batch
+INIT_BATCH_ATOL = 0.0
+# and with every second lane cut to this many training points, under the
+# 10,000-point cap and odd: lanes of two subsample sizes in one call
+UNEQUAL_INIT_POINTS = 7001
 LANE_RMSE_BAR = 5e-3            # tests/test_ragged_k.py:171
+# a lane of the lane engine against its single fit with dropout and
+# shuffling on, after EPOCHS epochs: the lane draws other dropout masks and
+# another batch order than its single fit (train/loop.py), so it is another
+# sample of the same fit, and at lr 2e-2 even a one-ulp change moves a fit's
+# scores by 5e-3 in 12 epochs (the lanes phase prints it). Measured on an
+# H100: test RMSE 2.8e-3 to 4.6e-3, valid RMSE (2,000 points) 1.2e-3 to
+# 8.0e-3 apart, where lanes of two seeds differ by up to 2e-2. The bar of
+# tests/test_ragged_k.py holds where the two runs share their streams: the
+# padded single fit (phase 4), and every ragged lane at dropout 0 without
+# shuffling in its first epochs (RAGGED_QUIET_EPOCHS)
+LANE_STREAM_BAR = 2e-2
+# there the two runs differ only in their kernels' float32 sums (measured on
+# an H100: the three RMSEs of every lane at most 9e-6 apart; the bar is 10x
+# that, far inside LANE_RMSE_BAR and the 2e-2 between seeds)
+RAGGED_QUIET_EPOCHS, RAGGED_QUIET_BAR = 3, 1e-4
 GRAD_POINTS = 2000
 # bars: (rtol, atol) of each kernel against its plain version
 BARS = {
@@ -468,6 +517,137 @@ def lane_kernel_phase(torch, ffl, basis_ids, cal, worst):
     return lane_ms
 
 
+def _basis_lane_inputs(torch, lanes, n, k, seed):
+    """coords (M, n, 2), centers (M, k, 2), bw (M, k), g (M, n, k) of `lanes`
+    seeds, and the column mask (M, k) of MASK_REAL_OF_227's real widths."""
+    per_lane = [_inputs(torch, n, k, 1, seed=seed + 100 * m)
+                for m in range(lanes)]
+    coords, centers, bw, _, _, grad_phi = (
+        torch.stack(ts).contiguous() for ts in zip(*per_lane))
+    real = [max(1, -(-k * MASK_REAL_OF_227[m % len(MASK_REAL_OF_227)] // 227))
+            for m in range(lanes)]
+    mask = (torch.arange(k, device="cuda")[None]
+            < torch.tensor(real, device="cuda")[:, None]).float()
+    return coords, centers, bw, grad_phi, mask, real
+
+
+def _basis_lane_calls(sbk, coords, centers, inv_bw, grad_phi, bid, mask,
+                      kernels=BASIS_LANE_KERNELS):
+    calls = {
+        "spatial_basis_fwd": (
+            lambda: sbk.spatial_basis_fwd(coords, centers, inv_bw, bid, mask),
+            lambda: sbk.plain_fwd(coords, centers, inv_bw, bid, mask)),
+        "spatial_basis_bwd_centers": (
+            lambda: sbk.spatial_basis_bwd_centers(coords, centers, inv_bw,
+                                                  grad_phi, bid, mask),
+            lambda: sbk.plain_bwd_centers(coords, centers, inv_bw, grad_phi,
+                                          bid, mask))}
+    return {nm: calls[nm] for nm in kernels}
+
+
+def basis_lane_kernel_phase(torch, sbk, basis_ids, cal, worst):
+    """The lane axis and the per-lane column mask of the basis forward and
+    d centers. Returns {kernel: {M: device ms a launch at the step's
+    shape, with the mask}}."""
+    from st_dadk_tpu_torch.utils.timing import graph_ms
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(_outputs(a), _outputs(b)))
+
+    cases = ([(shape, BASIS_LANE_KERNELS) for shape in LANE_SHAPES]
+             + [(shape, BASIS_LANE_KERNELS[:1]) for shape in LANE_FWD_SHAPES])
+    for ci, ((lanes, n, k, _), kernels) in enumerate(cases):
+        for basis in basis_ids:
+            coords, centers, bw, grad_phi, mask, real = _basis_lane_inputs(
+                torch, lanes, n, k, seed=2000 + ci)
+            inv_bw = (1.0 / (bw * cal[basis])).contiguous()
+            bid = basis_ids[basis]
+            plan = (f" (the forward alone, plan {sbk.basis_fwd_plan(n, k)})"
+                    if len(kernels) == 1 else "")
+            line = [f"M={lanes} n={n} k={k} {basis} real widths "
+                    f"{real[:4]}{' ...' if lanes > 4 else ''}{plan}:"]
+            # the two-dimensional call of every lane, once
+            two_d = [_basis_lane_calls(sbk, *[t[m].contiguous() for t in
+                                              (coords, centers, inv_bw,
+                                               grad_phi)], bid, None, kernels)
+                     for m in range(lanes)]
+            two_d = [{nm: call[0]() for nm, call in d.items()} for d in two_d]
+            for mk, label in ((None, "no mask"), (mask, "mask")):
+                calls = _basis_lane_calls(sbk, coords, centers, inv_bw,
+                                          grad_phi, bid, mk, kernels)
+                got = {nm: kern() for nm, (kern, _) in calls.items()}
+                torch.cuda.synchronize()
+                for nm, (kern, plain) in calls.items():
+                    want = plain()
+                    rtol, atol = BARS[nm]
+                    for a, b in zip(_outputs(got[nm]), _outputs(want)):
+                        check(a.shape == b.shape
+                              and bool(torch.isfinite(a).all()),
+                              f"{nm}: bad lane output at {line[0]} {label}")
+                        mx, excess = _err(torch, a, b, rtol, atol)
+                        worst[nm] = max(worst[nm], mx)
+                        line.append(f"{nm.replace('spatial_basis_', '')} "
+                                    f"({label}) max|d|={mx:.3e}")
+                        check(excess <= 0.0,
+                              f"{nm} with lanes ({label}) disagrees with its "
+                              f"plain version at {line[0]} (max |d| {mx:.3e})")
+                    # a block works inside one lane: its real columns are
+                    # bitwise the two-dimensional call, its masked ones 0
+                    for m in range(lanes):
+                        kr = real[m] if mk is not None else k
+                        for a, b in zip(_outputs(got[nm]),
+                                        _outputs(two_d[m][nm])):
+                            # columns: phi's last axis, d centers' first
+                            a_m = a[m].movedim(-1, 0) if nm.endswith("fwd") \
+                                else a[m]
+                            b_m = b.movedim(-1, 0) if nm.endswith("fwd") else b
+                            check(torch.equal(a_m[:kr], b_m[:kr]),
+                                  f"{nm}: lane {m} of {lanes} ({label}) "
+                                  f"differs from the two-dimensional call on "
+                                  f"its real columns at {line[0]}")
+                            check(bool((a_m[kr:] == 0).all()),
+                                  f"{nm}: lane {m} of {lanes} is not exactly "
+                                  f"0 on its masked columns at {line[0]}")
+                    if (lanes, n, k) == LANE_TWO_LAUNCHES[:3]:
+                        check(same(got[nm], kern()),
+                              f"{nm}: two launches ({label}) differ at "
+                              f"{line[0]}")
+            # M = 1 without a mask is the two-dimensional call, bit for bit
+            one = _basis_lane_calls(sbk, *[t[:1].contiguous() for t in
+                                           (coords, centers, inv_bw,
+                                            grad_phi)], bid, None, kernels)
+            for nm in kernels:
+                check(same(tuple(o[0] for o in _outputs(one[nm][0]())),
+                           two_d[0][nm]),
+                      f"{nm}: the M = 1 call differs from the "
+                      f"two-dimensional call at {line[0]}")
+            line.append("every lane bitwise the 2-D call on its real columns "
+                        "and 0 on its masked ones, M=1 bitwise the 2-D call;")
+            if (lanes, n, k) == LANE_TWO_LAUNCHES[:3]:
+                line.append("two launches bitwise equal;")
+            print("  " + " ".join(line), flush=True)
+
+    n, k, h = SLICE_SHAPES[0]
+    print(f"basis lane kernels with the mask, device time a launch "
+          f"(CUDA-graph replay) at N={n} k={k}, Wendland, beside M times the "
+          f"M = 1 time and M times the one-lane bound:")
+    lane_ms = {nm: {} for nm in BASIS_LANE_KERNELS}
+    for lanes in LANE_TIMED:
+        coords, centers, bw, grad_phi, mask, _ = _basis_lane_inputs(
+            torch, lanes, n, k, seed=99)
+        calls = _basis_lane_calls(sbk, coords, centers,
+                                  (1.0 / bw).contiguous(), grad_phi,
+                                  basis_ids["wendland"], mask)
+        for nm, (kern, _) in calls.items():
+            lane_ms[nm][lanes] = (graph_ms(kern) + graph_ms(kern)) / 2
+    for nm, by_m in lane_ms.items():
+        b1 = bound_ms(nm, n, k, h)[0]
+        print(f"  {nm:31s} " + "  ".join(
+            f"M={m}: {t:.4f} ms (M x M=1: {m * by_m[1]:.4f}, M x bound: "
+            f"{m * b1:.5f})" for m, t in by_m.items()), flush=True)
+    return lane_ms
+
+
 def build_all(_build) -> None:
     """One nvcc process per library, both started together."""
     t0 = time.time()
@@ -512,6 +692,8 @@ def main(argv=None) -> int:
                                        CALIBRATION_FACTORS)
     lane_ms = lane_kernel_phase(torch, ffl, BASIS_IDS, CALIBRATION_FACTORS,
                                 worst)
+    lane_ms.update(basis_lane_kernel_phase(torch, sbk, BASIS_IDS,
+                                           CALIBRATION_FACTORS, worst))
     launches = {nm: None for nm in KERNELS}
     lane_launches = {}
     if not args.kernels_only:
@@ -532,8 +714,9 @@ def main(argv=None) -> int:
                           if times[(nm, step_n)]["library_ms"] is not None
                           else None),
          "by_n": {str(n): times[(nm, n)] for n, _, _ in SLICE_SHAPES},
-         # the lane axis (three kernels): launches in the LANES-lane fit
-         # and device ms a launch by lane count at the step's shape
+         # the lane axis (five kernels): launches in the LANES-lane fit
+         # (fused) or the ragged batch (basis), and device ms a launch by
+         # lane count at the step's shape
          "lane_launches": lane_launches.get(nm),
          "lanes_ms": ({str(m): t for m, t in lane_ms[nm].items()}
                       if nm in lane_ms else None)}
@@ -573,12 +756,16 @@ class Phases:
         launches = {}
         bench = self.bench_fit(launches)
         lane = self.ragged_fit(launches)
-        self.lane_comparison(lane)
+        unpadded = self.lane_comparison(lane)
         self.spatial_gradients(bench, lane, launches)
         self.lanes_phase(bench)
+        jobs = self.ragged_lanes_phase({(tuple(RAGGED_GRID[0]), 1): unpadded,
+                                        (tuple(RAGGED_GRID[1]), 1): bench[1]})
+        self.pipeline_phase()
+        self.init_phase(jobs)
         return launches
 
-    def fit(self, name, out_dir, **overrides):
+    def fit(self, name, out_dir, exp_id=1, **overrides):
         """One fit of the bench workload through run_single_experiment:
         (results, launch counts, the fit's serving params before finalize)."""
         from st_dadk_tpu_torch.bench_workload import bench_workload
@@ -601,7 +788,7 @@ class Phases:
         texp.finalize_experiment = capture
         try:
             res, launches = self.counted(lambda: texp.run_single_experiment(
-                cfg, 1, out_dir, device="cuda", verbose=True))
+                cfg, exp_id, out_dir, device="cuda", verbose=exp_id == 1))
         finally:
             texp.finalize_experiment = finalize
         self.report_fit(cfg, res)
@@ -770,6 +957,7 @@ class Phases:
                   f"{res[key]:.6f}  |d| {d:.3e}", flush=True)
             check(d <= LANE_RMSE_BAR, f"{key} of the ragged lane is {d:.3e} "
                   f"from the unpadded lane's (bar {LANE_RMSE_BAR})")
+        return res
 
     def lanes_phase(self, bench):
         """Phase 6: LANES seeds of the bench workload as lanes of one
@@ -889,9 +1077,11 @@ class Phases:
                        dict(quiet, basis_unfreeze_epoch=0,
                             epochs=LANE_EARLY_EPOCHS), drift=False)
 
-    def lane_pair(self, name, quiet, drift):
-        """LANES lanes of config `quiet` (no dropout, no shuffling) and the
-        single fit of lane 0's seed: loss histories within LANE_EARLY_RTOL
+    def lane_pair(self, name, quiet, drift, lane_jobs=None):
+        """LANES lanes of config `quiet` (no dropout, no shuffling; or the
+        batch `lane_jobs`, whose lane 0 is `quiet`, through `run_job_batch`)
+        and the single fit of lane 0's seed: loss histories within
+        LANE_EARLY_RTOL
         in the first LANE_EARLY_EPOCHS epochs. With `drift` the later epochs
         and the scores are held to LANE_DRIFT_FACTOR times what a one-ulp
         change of W_s does to the single fit; without it the run ends after
@@ -905,12 +1095,18 @@ class Phases:
         from st_dadk_tpu_torch.train import loop
         from st_dadk_tpu_torch.train.experiment import (ExperimentSetup,
                                                         run_single_experiment)
+        from st_dadk_tpu_torch.train.batch_engine import run_job_batch
         from st_dadk_tpu_torch.train.runner import run_multiple_experiments
 
         pair_dir = REPO / "build" / "chip_smoke_lanes_pair"
         shutil.rmtree(pair_dir, ignore_errors=True)
-        run_multiple_experiments(quiet, pair_dir / "lanes", engine="vmap",
-                                 device="cuda")
+        if lane_jobs is None:
+            run_multiple_experiments(quiet, pair_dir / "lanes", engine="vmap",
+                                     device="cuda")
+        else:
+            run_job_batch([(c, i, pair_dir / "lanes" / "experiments" / str(n))
+                           for n, (c, i) in enumerate(lane_jobs, start=1)],
+                          device="cuda")
         lane0 = json.loads((pair_dir / "lanes" / "experiments" / "1" /
                             "results.json").read_text())
         single = run_single_experiment(quiet, 1, pair_dir / "single",
@@ -976,6 +1172,405 @@ class Phases:
                   f"(bar {score_bar:.1e})", flush=True)
             check(gap <= score_bar, f"{name}: lane 0's {key} is {gap:.3e} "
                   f"from its single fit's (bar {score_bar:.1e})")
+
+    def ragged_jobs(self, out_dir, ids, **overrides):
+        """(config, experiment id, output dir) of RAGGED_GRID x `ids`, both
+        resolutions padded to LANE_PAD: lanes of one program."""
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.config import ExperimentConfig
+
+        jobs = []
+        for kl in RAGGED_GRID:
+            cfg = ExperimentConfig.from_dict(bench_workload(
+                data_file=str(self.data_file), epochs=EPOCHS,
+                k_spatial_centers=list(kl), k_spatial_pad=LANE_PAD,
+                save_artifacts=True, **overrides))
+            jobs += [(cfg, i, out_dir / f"k{sum(kl)}_{i}") for i in ids]
+        return jobs
+
+    def ragged_lanes_phase(self, single_fits):
+        """Phase 7: RAGGED_GRID x RAGGED_IDS as ragged-k lanes of one
+        program through `run_job_batch`. `single_fits` holds the unpadded
+        single fits earlier phases ran, by (resolutions, experiment id)."""
+        import shutil
+
+        import numpy as np
+
+        from st_dadk_tpu_torch.train import batch_engine as tbe
+        from st_dadk_tpu_torch.train.loop import n_predict_chunks
+
+        out_dir = REPO / "build" / "chip_smoke_ragged_lanes"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        jobs = self.ragged_jobs(out_dir, RAGGED_IDS)
+        M = len(jobs)
+        print(f"ragged-lanes phase: centers {list(RAGGED_GRID)} padded to "
+              f"{LANE_PAD} x experiments {list(RAGGED_IDS)} = {M} lanes of "
+              f"one program (run_job_batch), {EPOCHS} epochs", flush=True)
+        seen = {}
+        finalize = tbe._finalize_job_batch
+
+        def capture(state):
+            seen["state"] = state
+            return finalize(state)
+
+        tbe._finalize_job_batch = capture
+        t0 = time.time()
+        try:
+            results, counts = self.counted(
+                lambda: tbe.run_job_batch(jobs, device="cuda", verbose=True))
+        finally:
+            tbe._finalize_job_batch = finalize
+        wall = time.time() - t0
+        print("launches: " + json.dumps(counts), flush=True)
+        check(len(results) == M, f"{len(results)} results for {M} lanes")
+
+        # launches: one fit's, whatever M; nothing on the fused route
+        steps = results[0]["n_steps"]
+        dense = results[0]["n_points"]["dense"]
+        expect_fwd = (steps + EPOCHS * results[0]["n_val_chunks"]
+                      + n_predict_chunks(dense))
+        check(all(r["n_steps"] == steps for r in results),
+              f"lane steps {[r['n_steps'] for r in results]}")
+        check(counts["spatial_basis_fwd"] == expect_fwd,
+              f"phi launches {counts['spatial_basis_fwd']} != steps + "
+              f"validations + dense predict chunks = {expect_fwd} for {M} "
+              f"lanes")
+        check(counts["spatial_basis_bwd_centers"] == steps,
+              f"basis d centers launches "
+              f"{counts['spatial_basis_bwd_centers']} != one fit's steps "
+              f"{steps} for {M} lanes")
+        for nm, c in counts.items():
+            if nm not in BASIS_LANE_KERNELS:
+                check(c == 0, f"{nm} launched {c} times in a ragged batch")
+        self.lane_launches.update({nm: counts[nm]
+                                   for nm in BASIS_LANE_KERNELS})
+
+        # junk rows exactly 0 after training: the trained lanes and the
+        # serving (EMA) params, a lane each at its own real width
+        state = seen["state"]
+        trained = {n: p.detach().cpu().numpy()
+                   for n, p in state["lanes_model"].named_parameters()}
+        k_t = sum(jobs[0][0].k_temporal_centers)
+        for li, (cfg, exp_id, lane_dir) in enumerate(jobs):
+            k_real = sum(cfg.k_spatial_centers)
+            serving = state["results"][li].params
+            for where, c, lb, w0 in (
+                    ("serving", serving["basis"]["centers"],
+                     serving["basis"]["log_bandwidths"],
+                     serving["mlp"]["linear_0"]["w"]),
+                    ("trained", trained["basis.centers"][li],
+                     trained["basis.log_bandwidths"][li],
+                     trained["mlp.linear_0.w"][li])):
+                check(c.shape == (LANE_PAD, 2)
+                      and w0.shape[0] == LANE_PAD + k_t,
+                      f"lane {li}: {where} params are not padded to "
+                      f"{LANE_PAD}")
+                junk = max([float(np.abs(x).max()) for x in
+                            (c[k_real:], lb[k_real:], w0[k_real:LANE_PAD])
+                            if x.size] or [0.0])
+                check(junk == 0.0, f"lane {li}: {where} padded rows moved: "
+                      f"max |x| {junk}")
+                check(float(np.abs(w0[:k_real]).max()) > 0.0,
+                      f"lane {li}: {where} real rows are zero")
+
+            # the results contract, at the lane's real shapes
+            res = results[li]
+            for f in ("results.json", "training_history.csv",
+                      "model_final.npz", "model_best.npz", "predictions.npz",
+                      "basis_info.npz"):
+                check((lane_dir / f).exists(), f"lane {li}: {f} is missing")
+            on_disk = json.loads((lane_dir / "results.json").read_text())
+            check(on_disk["experiment_id"] == exp_id
+                  and on_disk["test_rmse"] == res["test_rmse"]
+                  and on_disk["config"]["k_spatial_centers"]
+                  == list(cfg.k_spatial_centers),
+                  f"lane {li}: results.json is not this lane's")
+            check(res["n_epochs_run"] == EPOCHS
+                  and len(res["training_history"]["train_loss"]) == EPOCHS,
+                  f"lane {li} ran {res['n_epochs_run']} of {EPOCHS} epochs")
+            hist = res["training_history"]
+            check(bool(np.all(np.isfinite(hist["train_loss"]))
+                       and np.all(np.isfinite(hist["val_loss"])))
+                  and hist["train_loss"][-1] < hist["train_loss"][0],
+                  f"lane {li}: losses not finite or not falling")
+            shift = np.asarray(res["basis_center_shift"])
+            unfreeze = cfg.basis_unfreeze_epoch
+            check(bool(np.all(shift[:unfreeze] == 0.0)) and shift[-1] > 0.0,
+                  f"lane {li}: centers moved while frozen or never moved")
+            info = np.load(lane_dir / "basis_info.npz")
+            final = np.load(lane_dir / "model_final.npz")
+            check(info["spatial_centers_final"].shape == (k_real, 2)
+                  and info["spatial_centers_init"].shape == (k_real, 2)
+                  and final["mlp.linear_0.w"].shape[0] == k_real + k_t,
+                  f"lane {li}: artifacts do not carry the real {k_real} "
+                  f"centers")
+
+            # against the lane's own unpadded single fit (the fused route)
+            key = (tuple(cfg.k_spatial_centers), exp_id)
+            if key not in single_fits:
+                _, single_fits[key], _, _ = self.fit(
+                    f"lane {li} unpadded, experiment {exp_id}",
+                    REPO / "build" / "chip_smoke_lane_single", exp_id=exp_id,
+                    k_spatial_centers=list(cfg.k_spatial_centers))
+            single = single_fits[key]
+            check(res["model_parameters"] == single["model_parameters"],
+                  f"lane {li}: model_parameters {res['model_parameters']} != "
+                  f"the unpadded fit's {single['model_parameters']}")
+            gaps = {k: abs(res[k] - single[k]) for k in ("test_rmse",
+                                                         "valid_rmse")}
+            print(f"lane {li} (centers {list(cfg.k_spatial_centers)}, seed "
+                  f"{res['experiment_seed']}, {res['model_parameters']} "
+                  f"parameters): test RMSE {res['test_rmse']!r} valid RMSE "
+                  f"{res['valid_rmse']!r} CRPS {res['test_crps']!r}; |d| to "
+                  f"its unpadded single fit: test {gaps['test_rmse']:.3e} "
+                  f"valid {gaps['valid_rmse']:.3e}", flush=True)
+            for k, d in gaps.items():
+                check(d <= LANE_STREAM_BAR, f"lane {li}: {k} is {d:.3e} from "
+                      f"its unpadded single fit's (bar {LANE_STREAM_BAR})")
+        check(len({r["test_rmse"] for r in results}) == M,
+              "ragged lanes gave equal scores")
+
+        st = results[0]["stage_timings"]
+        B = int(st["steps_per_epoch_batch"])
+        later = ((st["epochs_seconds"] - st["first_epoch_seconds"])
+                 / ((EPOCHS - 1) * B))
+        print(f"ragged batch of {M} lanes: host set-up "
+              f"{st['batch_prepare_seconds']:.3f} s, init and models "
+              f"{st['batch_init_seconds']:.3f} s (init a lane "
+              f"{st['init_seconds']:.3f} s), epochs "
+              f"{st['epochs_seconds']:.3f} s, finalize "
+              f"{st['batch_finalize_seconds']:.3f} s (evaluation "
+              f"{st['batch_eval_seconds']:.3f} s), wall {wall:.3f} s; a step "
+              f"(validation included) in epochs 2-{EPOCHS}: "
+              f"{1e3 * later:.3f} ms = {1e3 * later / M:.3f} ms a lane",
+              flush=True)
+
+        # lane 0 against the single padded-lane fit of its config (phase 4's
+        # path): dropout 0, no shuffle
+        quiet_jobs = [(c.replace(dropout=0.0, save_artifacts=False,
+                                 extra=dict(c.extra, shuffle="none")), i)
+                      for c, i, _ in jobs]
+        self.lane_pair("ragged lanes, bench schedule",
+                       quiet_jobs[0][0].to_dict(), drift=True,
+                       lane_jobs=quiet_jobs)
+        self.ragged_quiet_lanes(quiet_jobs)
+        return jobs
+
+    def ragged_quiet_lanes(self, quiet_jobs):
+        """Every ragged lane against its own unpadded single fit where the
+        two share their streams: dropout 0, no shuffle, RAGGED_QUIET_EPOCHS
+        epochs with the basis training from the first step. The three RMSEs
+        within RAGGED_QUIET_BAR."""
+        import shutil
+
+        from st_dadk_tpu_torch.train.batch_engine import run_job_batch
+        from st_dadk_tpu_torch.train.experiment import run_single_experiment
+
+        out_dir = REPO / "build" / "chip_smoke_ragged_quiet"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        jobs = [(c.replace(epochs=RAGGED_QUIET_EPOCHS, basis_unfreeze_epoch=0),
+                 i, out_dir / f"lane{n}") for n, (c, i) in
+                enumerate(quiet_jobs)]
+        lanes = run_job_batch(jobs, device="cuda")
+        for li, ((cfg, exp_id, _), res) in enumerate(zip(jobs, lanes)):
+            single = run_single_experiment(
+                cfg.replace(k_spatial_pad=None), exp_id,
+                out_dir / f"single{li}", device="cuda", verbose=False)
+            check(res["basis_center_shift"][0] > 0.0,
+                  f"lane {li}: the centers did not move in epoch 1")
+            gaps = {k: abs(res[k] - single[k]) for k in
+                    ("test_rmse", "valid_rmse", "train_rmse")}
+            print(f"ragged lane {li} (centers {list(cfg.k_spatial_centers)}, "
+                  f"experiment {exp_id}) vs its unpadded single fit, dropout "
+                  f"0, shuffle none, {RAGGED_QUIET_EPOCHS} epochs, basis "
+                  f"unfrozen: |d| test RMSE {gaps['test_rmse']:.3e} valid "
+                  f"{gaps['valid_rmse']:.3e} train {gaps['train_rmse']:.3e}",
+                  flush=True)
+            for k, d in gaps.items():
+                check(d <= RAGGED_QUIET_BAR, f"ragged lane {li}: {k} is "
+                      f"{d:.3e} from its unpadded single fit's (bar "
+                      f"{RAGGED_QUIET_BAR})")
+
+    def pipeline_phase(self):
+        """Phase 8: PIPELINE_JOBS jobs of the ragged grid at PIPELINE_WIDTH
+        lanes a batch: through `run_lane_jobs` (the threaded pipeline) and as
+        batches one after another, in turns serial, pipelined, pipelined,
+        serial. Results must be bitwise equal."""
+        import shutil
+
+        import numpy as np
+
+        from st_dadk_tpu_torch.train import batch_engine as tbe
+
+        root = REPO / "build" / "chip_smoke_pipeline"
+        shutil.rmtree(root, ignore_errors=True)
+        ids = range(1, PIPELINE_JOBS // len(RAGGED_GRID) + 1)
+        compared = ("experiment_id", "experiment_seed", "metrics",
+                    "training_history", "n_steps", "basis_center_shift",
+                    "model_parameters")
+
+        def run(name, pipelined):
+            jobs = self.ragged_jobs(root / name, ids,
+                                    lanes_per_device=PIPELINE_WIDTH)
+            # one lane of each resolution a batch
+            jobs = [jobs[j * len(ids) + i] for i in range(len(ids))
+                    for j in range(len(RAGGED_GRID))]
+            self.torch.cuda.synchronize()
+            t0 = time.time()
+            if pipelined:
+                res = tbe.run_lane_jobs(jobs, jobs[0][0], device="cuda")
+            else:
+                res = []
+                for a in range(0, len(jobs), PIPELINE_WIDTH):
+                    res += tbe.run_job_batch(jobs[a:a + PIPELINE_WIDTH],
+                                             device="cuda")
+            self.torch.cuda.synchronize()
+            wall = time.time() - t0
+            st = [r["stage_timings"] for r in res[::PIPELINE_WIDTH]]
+            print(f"  {name}: wall {wall:.3f} s; a batch (host set-up, init "
+                  f"and models, train, finalize) seconds: " + "; ".join(
+                      f"{t['batch_prepare_seconds']:.3f} "
+                      f"{t['batch_init_seconds']:.3f} "
+                      f"{t['batch_train_seconds']:.3f} "
+                      f"{t['batch_finalize_seconds']:.3f}" for t in st),
+                  flush=True)
+            return jobs, res, wall
+
+        print(f"pipeline phase: {PIPELINE_JOBS} jobs of the ragged grid, "
+              f"{PIPELINE_WIDTH} lanes a batch, {EPOCHS} epochs: "
+              f"run_lane_jobs (prepare and finalize threads) against "
+              f"run_job_batch one batch after another", flush=True)
+        runs = [run(name, piped) for name, piped in (
+            ("serial_1", False), ("pipelined_1", True),
+            ("pipelined_2", True), ("serial_2", False))]
+        ref_jobs, ref, _ = runs[0]
+        check([r["experiment_id"] for r in ref]
+              == [i for i in ids for _ in RAGGED_GRID],
+              "the serial run's results are out of order")
+        for jobs, res, _ in runs[1:]:
+            check(len(res) == len(ref), f"{len(res)} results, not {len(ref)}")
+            for (_, _, d0), r0, (_, _, d1), r1 in zip(ref_jobs, ref, jobs,
+                                                      res):
+                for key in compared:
+                    check(r0[key] == r1[key], f"pipeline phase: {key} of "
+                          f"{d1.name} differs from {d0.parent.name}'s")
+                a, b = (np.load(d / "model_final.npz") for d in (d0, d1))
+                check(set(a.files) == set(b.files) and all(
+                    np.array_equal(a[f], b[f]) for f in a.files),
+                    f"pipeline phase: saved params of {d1} differ")
+        serial = (runs[0][2] + runs[3][2]) / 2
+        piped = (runs[1][2] + runs[2][2]) / 2
+        print(f"pipelined and serial results bitwise equal; wall pipelined "
+              f"{piped:.3f} s, serial {serial:.3f} s (means of two): "
+              f"{piped / serial:.3f} of serial", flush=True)
+
+    def init_phase(self, jobs):
+        """Phase 9: the batched GMM init of the ragged lanes against the
+        lane-by-lane init, each lane from the streams its setup left."""
+        import copy
+
+        import numpy as np
+
+        from st_dadk_tpu_torch.ops import init_centers as ic
+        from st_dadk_tpu_torch.train import batch_engine as tbe
+
+        torch = self.torch
+        setups = tbe._prepare_job_batch(jobs, device="cuda")["setups"]
+        groups = {}
+        for i, s in enumerate(setups):
+            groups.setdefault(tuple(s.cfg.k_spatial_centers), []).append(i)
+
+        def streams(i):
+            s = setups[i]
+            return (torch.Generator(device="cuda").manual_seed(
+                s.experiment_seed), copy.deepcopy(s.np_rng))
+
+        def lane_by_lane():
+            out, stats = [None] * len(setups), []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, s in enumerate(setups):
+                gen, rng = streams(i)
+                st = {}
+                out[i] = ic.init_spatial_centers(
+                    "gmm", s.cfg.k_spatial_centers, s.train_ps.coords,
+                    generator=gen, device="cuda", rng=rng, stats=st)
+                stats.append(st)
+            torch.cuda.synchronize()
+            return out, stats, (time.perf_counter() - t0) / len(setups)
+
+        def batched():
+            out, stats = [None] * len(setups), {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for klist, idx in groups.items():
+                gens, rngs = zip(*[streams(i) for i in idx])
+                st = stats.setdefault(klist, {})
+                for i, pair in zip(idx, ic.init_spatial_centers_batch(
+                        "gmm", list(klist),
+                        [setups[i].train_ps.coords for i in idx], gens, rngs,
+                        "cuda", stats=st)):
+                    out[i] = pair
+            torch.cuda.synchronize()
+            return out, stats, (time.perf_counter() - t0) / len(setups)
+
+        lane_by_lane(), batched()                           # warm-up
+        runs = [lane_by_lane(), batched(), batched(), lane_by_lane()]
+        (one, one_stats, _), (bat, bat_stats, _) = runs[0], runs[1]
+        seed_s = sum(st["seed_seconds"] for st in one_stats) / len(setups)
+        em_s = sum(st["em_seconds"] for st in one_stats) / len(setups)
+        n_pts = min(len(setups[0].train_ps.coords), 10000)
+        print(f"GMM init of the {len(setups)} ragged lanes ({n_pts:,} points "
+              f"a lane, 3 restarts a resolution): lane by lane "
+              f"{runs[0][2]:.3f} / {runs[3][2]:.3f} s a lane (k-means++ "
+              f"seeding {seed_s:.3f} s, EM {em_s:.3f} s); batched {runs[1][2]:.3f} / {runs[2][2]:.3f} s a "
+              f"lane (seeding " + ", ".join(
+                  f"{st['seed_seconds'] / len(groups[kl]):.3f}" for kl, st in
+                  bat_stats.items()) + " s, EM " + ", ".join(
+                  f"{st['em_seconds'] / len(groups[kl]):.3f}" for kl, st in
+                  bat_stats.items()) + " s a lane by group)", flush=True)
+        worst_c = worst_b = 0.0
+        for klist, idx in groups.items():
+            iters_b = np.concatenate(bat_stats[klist]["em_iterations"], axis=1)
+            for row, i in enumerate(idx):
+                dc = float(np.abs(one[i][0] - bat[i][0]).max())
+                db = float(np.abs(one[i][1] - bat[i][1]).max())
+                worst_c, worst_b = max(worst_c, dc), max(worst_b, db)
+                iters_1 = np.concatenate(one_stats[i]["em_iterations"],
+                                         axis=1)[0].tolist()
+                print(f"  lane {i} (centers {list(klist)}): max |d centers| "
+                      f"{dc:.3e}  max |d bandwidths| {db:.3e}  EM iterations "
+                      f"lane by lane {iters_1} batched "
+                      f"{iters_b[row].tolist()}", flush=True)
+                check(list(iters_1) == iters_b[row].tolist(),
+                      f"lane {i}: the batched EM took other iteration counts")
+                check(bool(np.all(np.isfinite(bat[i][0]))
+                           and np.all(bat[i][1] > 0)),
+                      f"lane {i}: bad batched init")
+        check(max(worst_c, worst_b) <= INIT_BATCH_ATOL,
+              f"the batched init is {worst_c:.3e} (centers) / {worst_b:.3e} "
+              f"(bandwidths) from the lane-by-lane init (bar "
+              f"{INIT_BATCH_ATOL})")
+
+        # lanes of two subsample sizes in one call: each bitwise its own init
+        klist = list(RAGGED_GRID[0])
+        cut = [s.train_ps.coords[:None if i % 2 == 0 else UNEQUAL_INIT_POINTS]
+               for i, s in enumerate(setups)]
+        gens, rngs = zip(*[streams(i) for i in range(len(setups))])
+        mixed = ic.init_spatial_centers_batch("gmm", klist, cut, gens, rngs,
+                                              "cuda")
+        for i, (c, b) in enumerate(mixed):
+            gen, rng = streams(i)
+            c1, b1 = ic.init_spatial_centers("gmm", klist, cut[i],
+                                             generator=gen, device="cuda",
+                                             rng=rng)
+            check(bool(np.array_equal(c, c1) and np.array_equal(b, b1)),
+                  f"lane {i} of a batch with subsamples of "
+                  f"{sorted({min(len(x), 10000) for x in cut})} points is "
+                  f"{np.abs(c - c1).max():.3e} from its own init")
+        print(f"  lanes with subsamples of "
+              f"{[min(len(x), 10000) for x in cut]} points in one call: each "
+              f"bitwise its own init", flush=True)
 
     def saved_model(self, cfg, out_dir, device, pad=None):
         """The fit's saved params as a model on `device`; with `pad`, padded

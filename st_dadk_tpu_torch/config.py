@@ -95,12 +95,16 @@ class ExperimentConfig:
     eval_chunk: int = 32768                    # points per predict chunk
 
     # unknown keys. The port reads 'shuffle' ('none' = identity order),
-    # 'init_subsample' and 'init_gmm_n_init'; `unported_fit_knobs` names the
-    # JAX fit knobs it refuses, and the setup raises on them. Accepted and
-    # ignored on purpose: the JAX package's TPU and lane-engine knobs, which
-    # change how a fit runs there but not its numbers ('pregather', 'remat',
-    # 'profile_dir', 'lanes_per_device', 'packed_upload', 'final_stop_sync',
-    # 'packed_finalize_pull'; the JAX-only fields 'packed_optimizer',
+    # 'init_subsample', 'init_gmm_n_init' and 'lanes_per_device' (lanes a
+    # batch of the lane engine);
+    # `unported_fit_knobs` names the JAX fit knobs it refuses, and the setup
+    # raises on them. Accepted and ignored on purpose: the JAX package's TPU
+    # and lane-engine knobs, which change how a fit runs there but not its
+    # numbers ('pregather', 'remat', 'profile_dir', 'packed_upload',
+    # 'final_stop_sync', 'packed_finalize_pull',
+    # 'pipeline_blocking_finalize': a loop of `run_job_batch` is the port's
+    # serial baseline; the JAX-only fields
+    # 'packed_optimizer',
     # 'scan_unroll', 'tail_compaction', 'compaction_epoch', 'mesh_axis',
     # 'dropout_rng' (its RNG streams do not cross frameworks anyway) and the
     # CLI and plotting keys), and 'init_gmm_fused': JAX runs the resolutions'

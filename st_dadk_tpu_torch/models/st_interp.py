@@ -24,8 +24,9 @@ back).
 
 `STInterpLanes` is M such models of one spec as one module: every parameter
 and per-lane buffer carries a leading lane dimension, the first layer goes
-through the lane axis of the fused kernels (one launch for all lanes) and
-the other layers through `torch.baddbmm`. `stack_lane_models` builds it from
+through the lane axis of the fused kernels or, on the materialised-phi
+route, of the spatial-basis kernels with each lane's column mask (one launch
+for all lanes either way), and the other layers through `torch.baddbmm`. `stack_lane_models` builds it from
 M `STInterp`s and `lane_params` gives lane i's weights back in the JAX
 layout, so weights cross lane by lane through `from_jax_params` /
 `to_jax_params`.
@@ -363,20 +364,20 @@ class STInterpLanes(nn.Module):
     (M, h), `mlp.out.{w,b}` or `mlp.delta` (M, Q, d + 1); so have the buffers
     `spatial_centers_init` (M, k, 2) and `spatial_bandwidths_init` (M, k).
     Lanes share no parameter, so a sum of lane losses gives each lane its
-    own gradient. Only the fused route is carried: a spec on the
-    materialised-phi route (ragged-k lanes, covariates, `use_pallas_training`)
-    raises NotImplementedError, because those kernels have no lane axis yet."""
+    own gradient. A spec on the materialised-phi route (ragged-k lanes,
+    covariates, `use_pallas_training`) builds phi (M, B, k) with the lane
+    spatial-basis kernel, then [X | phi | psi] @ W by `torch.baddbmm`. A
+    `padded_lane` spec holds the buffer `spatial_k_mask` (M, k), 1 on each
+    lane's real centers and 0 on the junk rows after them: the kernels zero
+    phi's junk columns and their gradients, so lanes of different real
+    widths share one program and their junk rows stay exactly 0."""
 
     def __init__(self, spec: ModelSpec, spatial_centers: np.ndarray,
-                 spatial_bandwidths: np.ndarray):
+                 spatial_bandwidths: np.ndarray,
+                 spatial_k_mask: Optional[np.ndarray] = None):
         super().__init__()
         if not spec.hidden_dims:
             raise NotImplementedError("the port's first layer needs a hidden layer")
-        if spec.phi_route or spec.padded_lane or spec.p > 0:
-            raise NotImplementedError(
-                "lanes run the fused first layer only: ragged-k lanes, "
-                "covariates and use_pallas_training need a lane axis on the "
-                "spatial-basis kernels (ROADMAP Queue 1: config stacking)")
         self.spec = spec
         centers = torch.tensor(np.asarray(spatial_centers, np.float32))
         bws = torch.tensor(np.asarray(spatial_bandwidths, np.float32))
@@ -387,11 +388,21 @@ class STInterpLanes(nn.Module):
                              f"{tuple(bws.shape)}: expected (M, "
                              f"{spec.k_spatial}, 2) / (M, {spec.k_spatial})")
         M = self.lanes = centers.shape[0]
+        mask = None
+        if spec.padded_lane != (spatial_k_mask is not None):
+            raise ValueError("a padded-lane spec takes spatial_k_mask "
+                             "(M, k), any other spec none")
+        if spatial_k_mask is not None:
+            mask = torch.tensor(np.asarray(spatial_k_mask, np.float32))
+            if tuple(mask.shape) != (M, spec.k_spatial):
+                raise ValueError(f"spatial_k_mask shape {tuple(mask.shape)} "
+                                 f"!= ({M}, {spec.k_spatial})")
         t_centers, t_bw = temporal_grid_centers(spec.k_temporal_centers)
         self.register_buffer("spatial_centers_init", centers.clone())
         self.register_buffer("spatial_bandwidths_init", bws.clone())
         self.register_buffer("temporal_centers", torch.as_tensor(t_centers))
         self.register_buffer("temporal_bandwidths", torch.as_tensor(t_bw))
+        self.register_buffer("spatial_k_mask", mask)
         if spec.spatial_learnable:
             self.basis = _Basis(centers, bws)
         self.mlp = nn.Module()
@@ -414,9 +425,11 @@ class STInterpLanes(nn.Module):
 
     def forward(self, coords: torch.Tensor, t: torch.Tensor,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                X: Optional[torch.Tensor] = None) -> torch.Tensor:
         """yhat: coords (M, B, 2), t (M, B, 1) -> (M, B, output_dim), lane
-        i from lane i's weights. Dropout (train=True, dropout > 0) draws one
+        i from lane i's weights. `X` (M, B, p) are the covariates of a model
+        with p > 0. Dropout (train=True, dropout > 0) draws one
         (M, B, sum(hidden)) uniform block from `generator` for all lanes."""
         spec = self.spec
         M, B = coords.shape[0], coords.shape[1]
@@ -429,10 +442,26 @@ class STInterpLanes(nn.Module):
         k_s = spec.k_spatial
         psi = temporal_basis_embed(t, self.temporal_centers,
                                    self.temporal_bandwidths).reshape(M, B, -1)
-        h = fused_spatial_first_layer(coords, centers, bandwidths,
-                                      lin0.w[:, :k_s],
-                                      spec.spatial_basis_function)
-        h = h + torch.baddbmm(lin0.b[:, None, :], psi, lin0.w[:, k_s:])
+        if spec.phi_route:
+            # junk columns are zero inside the kernels, so neither their
+            # weight rows nor the junk centers get a gradient (JAX
+            # st_interp.py:233-238 multiplies after its kernel)
+            phi = spatial_basis_embed_kernel(
+                coords, centers, bandwidths, spec.spatial_basis_function,
+                mask=self.spatial_k_mask)
+            if spec.p > 0:
+                if X is None:
+                    raise ValueError(f"the model takes p={spec.p} covariates: "
+                                     f"pass X (M, B, {spec.p})")
+                feats = torch.cat([X, phi, psi], dim=-1)
+            else:
+                feats = torch.cat([phi, psi], dim=-1)
+            h = torch.baddbmm(lin0.b[:, None, :], feats, lin0.w)
+        else:
+            h = fused_spatial_first_layer(coords, centers, bandwidths,
+                                          lin0.w[:, :k_s],
+                                          spec.spatial_basis_function)
+            h = h + torch.baddbmm(lin0.b[:, None, :], psi, lin0.w[:, k_s:])
 
         use_dropout = train and spec.dropout > 0.0
         if use_dropout:
@@ -483,30 +512,37 @@ class STInterpLanes(nn.Module):
                     "total_penalty": zero}
         if penalty_type not in ("element", "group", "sparse_group"):
             raise ValueError(f"Unknown penalty_type: {penalty_type}")
-        k_s, k_t = self.spec.k_spatial, self.spec.k_temporal
-        sp = sparsity_block(w0[:, :k_s], penalty_type, lambda_l1,
+        p, k_s, k_t = self.spec.p, self.spec.k_spatial, self.spec.k_temporal
+        sp = sparsity_block(w0[:, p:p + k_s], penalty_type, lambda_l1,
                             lambda_group, lanes=True)
-        tp = sparsity_block(w0[:, k_s:k_s + k_t], penalty_type, lambda_l1,
-                            lambda_group, lanes=True)
+        tp = sparsity_block(w0[:, p + k_s:p + k_s + k_t], penalty_type,
+                            lambda_l1, lambda_group, lanes=True)
         return {"spatial_penalty": sp, "temporal_penalty": tp,
                 "total_penalty": sp + tp}
 
 
 def stack_lane_models(models: Sequence[STInterp]) -> STInterpLanes:
     """One `STInterpLanes` holding the given models' weights and init
-    buffers, lane i from models[i], on their device. They must share a spec
-    on the fused route."""
+    buffers, lane i from models[i], on their device. They must share a
+    spec; padded ragged-k lanes share their padded spec and bring each its
+    own `spatial_k_mask`."""
     if not models:
         raise ValueError("stack_lane_models: no models")
     spec = models[0].spec
     if any(m.spec != spec for m in models):
         raise ValueError("stack_lane_models: the models' specs differ")
+    masks = [m.spatial_k_mask for m in models]
+    if any((mk is None) == spec.padded_lane for mk in masks):
+        raise ValueError("stack_lane_models: a padded lane needs its "
+                         "spatial_k_mask, any other model none")
     lanes = STInterpLanes(
         spec,
         np.stack([m.spatial_centers_init.detach().cpu().numpy()
                   for m in models]),
         np.stack([m.spatial_bandwidths_init.detach().cpu().numpy()
-                  for m in models]))
+                  for m in models]),
+        (np.stack([mk.detach().cpu().numpy() for mk in masks])
+         if spec.padded_lane else None))
     lanes = lanes.to(next(models[0].parameters()).device)
     per_lane = [dict(m.named_parameters()) for m in models]
     with torch.no_grad():

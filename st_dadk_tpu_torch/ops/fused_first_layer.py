@@ -42,7 +42,9 @@ case of the same kernels. The plain versions broadcast over the lane axis.
 
 Each wrapper counts its calls that reach the card in `<wrapper>.launches`:
 one a call, however many device launches the call makes and however many
-lanes it serves.
+lanes it serves. The counts are plain module-level integers; where two
+threads launch (the batch pipeline's finalize thread predicts while the main
+thread trains) they count both threads' launches together.
 """
 from __future__ import annotations
 

@@ -8,11 +8,24 @@ at 0.25x the uniform-grid bandwidth. Training coords are subsampled to 10k
 points from the caller's numpy stream, like the reference. The seeding draws
 from a `torch.Generator`, so the seeds differ from the JAX package's; a test
 feeds the JAX seeds in through `seeds=`.
+
+`init_spatial_centers_batch` is the init of a whole batch of lanes (the JAX
+`init_spatial_centers_batch` / `_batched_gmm_multi`), and
+`init_spatial_centers` is that batch of one lane: every lane draws its own
+subsample and its own k-means++ seeds from its own streams, and then one EM
+a resolution runs all lanes x restarts together (`_em`): the (runs, n, k)
+elementwise work is one op for all runs, each sum is taken a run at a time,
+a run that has converged stops changing, and a mask of the runs still going
+stays on the device, read by the host every `EM_CHECK_EVERY` iterations
+instead of one log-likelihood an iteration a run. Lanes share an EM batch
+only where their subsamples have one size, so no run's sums see padding and
+a lane's centers and bandwidths are bit for bit those of the lane alone.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,46 +61,90 @@ def kmeans_plus_plus(X: torch.Tensor, k: int,
     return torch.stack(centers)
 
 
-def _em(X: torch.Tensor, means: torch.Tensor, max_iter: int,
-        reg_covar: float, tol: float
-        ) -> Tuple[torch.Tensor, torch.Tensor, float]:
-    """One tol-stopped spherical EM run from given means:
-    (means, sigmas, final mean log-likelihood)."""
-    n, d = X.shape
-    k = means.shape[0]
-    var = torch.var(X, unbiased=False) * torch.ones(k, dtype=X.dtype,
-                                                    device=X.device) + reg_covar
-    weights = torch.full((k,), 1.0 / k, dtype=X.dtype, device=X.device)
+EM_CHECK_EVERY = 4             # iterations between host reads of the run mask
+EM_BATCH_ELEMENTS = 2 ** 27    # floats of one (lanes, restarts, n, k) tensor
 
-    def pairwise_d2(m):
-        diff = X[:, None, :] - m[None, :, :]
+
+def _em(X: torch.Tensor, means: torch.Tensor, max_iter: int = 100,
+        reg_covar: float = 1e-6, tol: float = 1e-3
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Tol-stopped spherical EM for L lanes x I restarts at once: X
+    (L, n, 2) each lane's points, means (L, I, k, 2) seeds -> (means
+    (L, I, k, 2), sigmas (L, I, k), final mean log-likelihood (L, I),
+    iterations (L, I)). A single init is L = 1.
+
+    The (runs, n, k) elementwise work of an iteration (distances, log
+    probabilities, exp, responsibilities) is one op for all runs. Each sum
+    over points or components is taken a run at a time on that run's (n, k)
+    slice: a batched reduction sums in another order, and the EM, 40 to 90
+    tol-stopped iterations with the best of three restarts kept, turns that
+    last-bit difference into other iteration counts and other optima (seen
+    on an H100: centers 0.8 apart). So a run's arithmetic does not depend
+    on which runs share its batch. Every iteration updates all runs and
+    keeps the update only where the run is still going (`torch.where` on a
+    device mask); a run stops after the update whose |ll - ll_prev| < tol,
+    as the JAX while_loop tests the change after the M-step it just took.
+    The mask is read on the host every EM_CHECK_EVERY iterations."""
+    L, n, d = X.shape
+    I, k = means.shape[1], means.shape[2]
+    R = L * I                                              # runs, lane-major
+    lane_of = [r // I for r in range(R)]
+    Xr = X[:, None].expand(L, I, n, d).reshape(R, n, d)
+    means = means.reshape(R, k, d)
+    var0 = torch.stack([torch.var(x, unbiased=False) for x in X])
+    var = (var0[:, None, None] * torch.ones((L, I, k), dtype=X.dtype,
+                                            device=X.device)
+           + reg_covar).reshape(R, k)
+    weights = torch.full((R, k), 1.0 / k, dtype=X.dtype, device=X.device)
+
+    def per_run(fn, *ts):
+        """`fn` on each run's slice of `ts`, stacked: the reductions."""
+        return torch.stack([fn(*[t[r] for t in ts]) for r in range(R)])
+
+    def pairwise_d2(m):                                    # -> (R, n, k)
+        diff = Xr[:, :, None, :] - m[:, None, :, :]
         return torch.sum(diff * diff, dim=-1)
 
     def estep(d2, var, weights):
         log_w = torch.log(torch.clamp(weights, min=1e-30))
-        log_prob = (-0.5 * (d2 / var[None] + d * torch.log(2 * math.pi * var)[None])
-                    + log_w[None])
-        m = torch.max(log_prob, dim=1, keepdim=True).values
+        log_prob = (-0.5 * (d2 / var[:, None]
+                            + d * torch.log(2 * math.pi * var)[:, None])
+                    + log_w[:, None])
+        m = torch.max(log_prob, dim=-1, keepdim=True).values
         p = torch.exp(log_prob - m)
-        s = torch.sum(p, dim=1, keepdim=True)
-        return p / s, torch.mean(m[:, 0] + torch.log(s[:, 0]))
+        s = per_run(lambda pr: torch.sum(pr, dim=1, keepdim=True), p)
+        log_norm = m[..., 0] + torch.log(s[..., 0])        # (R, n)
+        return p / s, per_run(torch.mean, log_norm)
 
     d2 = pairwise_d2(means)
-    ll_prev = -math.inf
-    for _ in range(max_iter):
-        resp, ll_t = estep(d2, var, weights)
-        nk = resp.sum(dim=0) + 1e-10
-        means = (resp.T @ X) / nk[:, None]
-        d2 = pairwise_d2(means)
-        var = torch.clamp((resp * d2).sum(dim=0) / (nk * d), min=0.0) + reg_covar
-        weights = nk / n
-        # the JAX while_loop tests the change after the M-step it just took
-        ll = float(ll_t)
-        if abs(ll - ll_prev) < tol:
+    going = torch.ones((R,), dtype=torch.bool, device=X.device)
+    iters = torch.zeros((R,), dtype=torch.int32, device=X.device)
+    ll_prev = torch.full((R,), -math.inf, dtype=torch.float64,
+                         device=X.device)
+    for it in range(max_iter):
+        resp, ll = estep(d2, var, weights)
+        nk = per_run(lambda rr: rr.sum(dim=0), resp) + 1e-10      # (R, k)
+        means_new = torch.stack([resp[r].T @ X[lane_of[r]]
+                                 for r in range(R)]) / nk[..., None]
+        d2_new = pairwise_d2(means_new)
+        var_new = torch.clamp(
+            per_run(lambda t: t.sum(dim=0), resp * d2_new) / (nk * d),
+            min=0.0) + reg_covar
+        g2, g3 = going[:, None], going[:, None, None]
+        means = torch.where(g3, means_new, means)
+        d2 = torch.where(g3, d2_new, d2)
+        var = torch.where(g2, var_new, var)
+        weights = torch.where(g2, nk / n, weights)
+        iters += going.to(torch.int32)
+        ll64 = ll.to(torch.float64)
+        stop_now = torch.abs(ll64 - ll_prev) < tol
+        ll_prev = torch.where(going, ll64, ll_prev)
+        going = going & ~stop_now
+        if (it + 1) % EM_CHECK_EVERY == 0 and not bool(going.any()):
             break
-        ll_prev = ll
     _, ll_final = estep(d2, var, weights)
-    return means, torch.sqrt(var), float(ll_final)
+    return (means.reshape(L, I, k, d), torch.sqrt(var).reshape(L, I, k),
+            ll_final.reshape(L, I), iters.reshape(L, I))
 
 
 def gmm_spherical(X: torch.Tensor, k: int,
@@ -99,18 +156,16 @@ def gmm_spherical(X: torch.Tensor, k: int,
     """Fit a spherical GMM to X (n, 2): (means (k, 2), sigmas (k,)).
 
     `n_init` k-means++-seeded restarts (or one EM per given seed in
-    `seeds`), the best final log-likelihood kept. The stop follows the JAX
-    loop: after each E/M pair, stop once |ll - ll_prev| < tol."""
+    `seeds`), the best final log-likelihood kept (the first of equals)."""
     if seeds is None:
         if generator is None:
             raise ValueError("gmm_spherical needs a generator or seeds")
         seeds = [kmeans_plus_plus(X, k, generator) for _ in range(n_init)]
-    best = None
-    for s in seeds:
-        means, sigmas, ll = _em(X, s.to(X), max_iter, reg_covar, tol)
-        if best is None or ll > best[2]:
-            best = (means, sigmas, ll)
-    return best[0], best[1]
+    means, sigmas, ll, _ = _em(
+        X[None], torch.stack([s.to(X) for s in seeds])[None], max_iter,
+        reg_covar, tol)
+    best = int(torch.argmax(ll[0]))
+    return means[0, best], sigmas[0, best]
 
 
 def _subsample(train_coords: np.ndarray, cap: Optional[int] = None,
@@ -130,29 +185,107 @@ def init_spatial_centers(method: str, n_centers: Sequence[int],
                          device: torch.device | str = "cuda",
                          rng: Optional[np.random.RandomState] = None,
                          subsample: Optional[int] = None,
-                         gmm_n_init: Optional[int] = None
+                         gmm_n_init: Optional[int] = None,
+                         stats: Optional[Dict[str, Any]] = None
                          ) -> Tuple[np.ndarray, np.ndarray]:
     """(centers (sum_k, 2), bandwidths (sum_k,)) float32 numpy.
 
     'uniform' is the regular grid; 'gmm' fits each resolution on `device`
     (the card unless the caller names the CPU) from the training coords
     (with their temporal duplicates, i.e. density weighting). Other JAX
-    init methods are not ported yet."""
+    init methods are not ported yet. This is the batch init of one lane;
+    `stats`: see `init_spatial_centers_batch`."""
+    if method == "gmm" and generator is None:
+        raise ValueError("gmm initialization needs a generator")
+    return init_spatial_centers_batch(
+        method, n_centers, [train_coords], [generator],
+        None if rng is None else [rng], device, subsample, gmm_n_init,
+        stats)[0]
+
+
+def init_spatial_centers_batch(method: str, n_centers: Sequence[int],
+                               train_coords_list: Sequence[Optional[np.ndarray]],
+                               generators: Optional[Sequence[torch.Generator]]
+                               = None,
+                               rngs: Optional[Sequence[
+                                   np.random.RandomState]] = None,
+                               device: torch.device | str = "cuda",
+                               subsample: Optional[int] = None,
+                               gmm_n_init: Optional[int] = None,
+                               stats: Optional[Dict[str, Any]] = None
+                               ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The spatial init of M lanes of one resolution list at once: one
+    (centers (sum_k, 2), bandwidths (sum_k,)) pair a lane.
+
+    'uniform' returns the grid M times. 'gmm': lane i subsamples from
+    `rngs[i]` and seeds every (resolution, restart) from `generators[i]`,
+    resolution by resolution, so its streams do not depend on the other
+    lanes; the EMs of all lanes x restarts of a resolution then run as one
+    batch (`_em`), and each lane keeps its best restart. Only lanes whose
+    subsamples have one size share a batch (in chunks that keep a (lanes,
+    restarts, n, k) tensor within EM_BATCH_ELEMENTS floats), and `_em`
+    takes every sum a run at a time, so a lane's result is bit for bit that
+    of the lane alone. Other init methods are not ported yet. `stats`,
+    where given, collects 'seed_seconds', 'em_seconds' (the device waited
+    for after each) and the 'em_iterations' (M, restarts) of each
+    resolution."""
+    M = len(train_coords_list)
     if method == "uniform":
-        return uniform_grid_centers(n_centers)
+        pair = uniform_grid_centers(n_centers)
+        return [pair] * M
     if method != "gmm":
         raise NotImplementedError(f"init method {method!r} is not ported yet")
-    if train_coords is None:
+    if generators is None or len(generators) != M or (
+            rngs is not None and len(rngs) != M):
+        raise ValueError(f"gmm initialization of {M} lanes needs {M} "
+                         f"generators (and {M} rngs or none)")
+    if any(tc is None for tc in train_coords_list):
         raise ValueError("train_coords required for gmm initialization")
-    X = torch.as_tensor(np.asarray(_subsample(train_coords, subsample, rng),
-                                   np.float32), device=device)
+    dev = torch.device(device)
+    timed = stats is not None and dev.type == "cuda"
     ni = 3 if gmm_n_init is None else int(gmm_n_init)
-    centers_list: List[np.ndarray] = []
-    bw_list: List[np.ndarray] = []
-    for k in n_centers:
-        means, sigmas = gmm_spherical(X, int(k), generator, n_init=ni)
-        bw = np.clip(4.23 * 2.5 * sigmas.cpu().numpy(),
-                     0.25 * uniform_bandwidth_for(int(k)), np.inf)
-        centers_list.append(means.cpu().numpy().astype(np.float32))
-        bw_list.append(bw.astype(np.float32))
-    return np.concatenate(centers_list, axis=0), np.concatenate(bw_list, axis=0)
+    ks = [int(k) for k in n_centers]
+    t0 = time.perf_counter()
+    Xs = [torch.as_tensor(np.asarray(
+        _subsample(tc, subsample, None if rngs is None else rngs[i]),
+        np.float32), device=dev) for i, tc in enumerate(train_coords_list)]
+    # seeds[i][r]: (restarts, k_r, 2), each lane from its own generator,
+    # resolution-major
+    seeds = [[torch.stack([kmeans_plus_plus(X, k, gen) for _ in range(ni)])
+              for k in ks] for X, gen in zip(Xs, generators)]
+    if timed:
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+
+    by_size: Dict[int, List[int]] = {}
+    for i, x in enumerate(Xs):
+        by_size.setdefault(x.shape[0], []).append(i)
+    centers = [[None] * len(ks) for _ in range(M)]
+    bandwidths = [[None] * len(ks) for _ in range(M)]
+    for r, k in enumerate(ks):
+        iters_r = np.zeros((M, ni), np.int32)
+        bw_min = 0.25 * uniform_bandwidth_for(k)
+        for n, lanes in by_size.items():
+            step = max(1, EM_BATCH_ELEMENTS // (ni * n * k))
+            for a in range(0, len(lanes), step):
+                idx = lanes[a:a + step]
+                means, sigmas, ll, iters = _em(
+                    torch.stack([Xs[i] for i in idx]),
+                    torch.stack([seeds[i][r] for i in idx]))
+                best = torch.argmax(ll, dim=1)             # (lanes,)
+                pick = torch.arange(len(idx), device=ll.device)
+                means_np = means[pick, best].cpu().numpy()
+                sig_np = sigmas[pick, best].cpu().numpy()
+                iters_r[idx] = iters.cpu().numpy()
+                for j, i in enumerate(idx):
+                    centers[i][r] = means_np[j].astype(np.float32)
+                    bandwidths[i][r] = np.clip(
+                        4.23 * 2.5 * sig_np[j], bw_min,
+                        np.inf).astype(np.float32)
+        if stats is not None:
+            stats.setdefault("em_iterations", []).append(iters_r)
+    if stats is not None:
+        stats["seed_seconds"] = t1 - t0
+        stats["em_seconds"] = time.perf_counter() - t1
+    return [(np.concatenate(centers[i], axis=0),
+             np.concatenate(bandwidths[i], axis=0)) for i in range(M)]

@@ -19,10 +19,12 @@ against the unprofiled median. Writes `--out` (JSON) and the profiler's
 table beside it (`.txt`).
 
     python3 -m st_dadk_tpu_torch.profile_fit --lanes 1,2,4,8,16,32 \
-        [--profile-lanes 16] [--out build/profile_lanes.json]
+        [--ragged] [--profile-lanes 16] [--out build/profile_lanes.json]
 
 The width sweep of the lane engine instead: the widest batch is set up once
-(`batch_engine._prepare_job_batch`, seeds base_seed ..), and for each width
+(`batch_engine._prepare_job_batch` on the host, then
+`_init_lane_carries`: the batched spatial init and every lane's model;
+seeds base_seed ..; both times are printed), and for each width
 M its first M lanes run `train.loop.fit_lanes` for `EPOCHS` epochs, a
 warm-up and `REPEATS` timed fits from the same initial weights. It prints
 the wall ms a step (an epoch's wall over its steps, validation and
@@ -33,7 +35,9 @@ lane). At the widest width it also runs the batch's finalize evaluation
 (`batch_engine._batched_eval`: one dense predict of the T x S grid for all
 lanes) and records its seconds and its peak device memory, since a chunk's
 activations grow with the lane count. `batch_engine.LANES_PER_DEVICE` takes
-the width this sweep finds best.
+the width this sweep finds best. With `--ragged` the lanes alternate between
+the resolutions [25, 81] and [25, 81, 121], padded to 227 centers: ragged-k
+lanes on the materialised-phi route, whose single fit is the padded lane.
 """
 from __future__ import annotations
 
@@ -124,13 +128,19 @@ def _card() -> str:
                           text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def lanes_sweep(widths, profile_width, out: Path) -> int:
-    """The lane engine's width sweep (module docstring)."""
+RAGGED_GRID, RAGGED_PAD = ([25, 81], [25, 81, 121]), 227
+
+
+def lanes_sweep(widths, profile_width, out: Path, ragged: bool = False) -> int:
+    """The lane engine's width sweep (module docstring). With `ragged`
+    the lanes alternate between the resolutions of RAGGED_GRID, padded to
+    RAGGED_PAD centers: the materialised-phi route's lane kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from st_dadk_tpu_torch.bench_workload import bench_workload
     from st_dadk_tpu_torch.config import ExperimentConfig
     from st_dadk_tpu_torch.dataio.synthetic import bench_data_file
+    from st_dadk_tpu_torch.models.st_interp import stack_lane_models
     from st_dadk_tpu_torch.train import batch_engine as be
     from st_dadk_tpu_torch.train import loop
 
@@ -139,14 +149,22 @@ def lanes_sweep(widths, profile_width, out: Path) -> int:
     cfg = ExperimentConfig.from_dict(bench_workload(
         data_file=str(bench_data_file()), epochs=EPOCHS,
         n_experiments=max(widths)))
+    lane_cfgs = [cfg.replace(k_spatial_centers=RAGGED_GRID[i % 2],
+                             k_spatial_pad=RAGGED_PAD) if ragged else cfg
+                 for i in range(max(widths))]
+    cfg = lane_cfgs[0]
     t0 = time.perf_counter()
     prep = be._prepare_job_batch(
-        [(cfg, i, REPO / "build" / "profile_lanes" / str(i))
-         for i in range(1, max(widths) + 1)], device="cuda")
+        [(c, i + 1, REPO / "build" / "profile_lanes" / str(i + 1))
+         for i, c in enumerate(lane_cfgs)], device="cuda")
     setups = prep["setups"]
+    t1 = time.perf_counter()
+    be._init_lane_carries(cfg, setups)      # every lane's model, init batched
+    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    print(f"set up {len(setups)} lanes in {setup_s:.1f} s "
-          f"(spatial init a lane: "
+    print(f"set up {len(setups)} lanes in {setup_s:.1f} s (host "
+          f"{t1 - t0:.1f} s; batched spatial init and models "
+          f"{setup_s - (t1 - t0):.1f} s, init a lane "
           f"{statistics.median(s.timings['init_seconds'] for s in setups):.3f}"
           f" s median)", flush=True)
 
@@ -159,7 +177,7 @@ def lanes_sweep(widths, profile_width, out: Path) -> int:
         """One fit of the first m lanes: (wall s, ms a step in epochs 2
         onwards, steps an epoch, the lanes' FitResults)."""
         stacked = be._stack_lane_host(cfg, setups[:m], prep["device"])
-        model = be._init_lane_carries(setups[:m])
+        model = stack_lane_models([s.model for s in setups[:m]])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = loop.fit_lanes(cfg, setups[0].spec, model, stacked["data"],
@@ -264,6 +282,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-lanes", type=int, default=None,
                     help="the width profiled in the sweep (default: the "
                          "one with the least ms a step a lane)")
+    ap.add_argument("--ragged", action="store_true",
+                    help="with --lanes: ragged-k lanes (the materialised-phi "
+                         "route), resolutions alternating, padded to one "
+                         "width")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fit: no CUDA device", file=sys.stderr)
@@ -273,7 +295,8 @@ def main(argv=None) -> int:
     if args.lanes:
         return lanes_sweep([int(x) for x in args.lanes.split(",")],
                            args.profile_lanes,
-                           args.out or REPO / "build" / "profile_lanes.json")
+                           args.out or REPO / "build" / "profile_lanes.json",
+                           ragged=args.ragged)
     args.out = args.out or REPO / "build" / "profile_fit.json"
 
     from torch.profiler import ProfilerActivity, profile

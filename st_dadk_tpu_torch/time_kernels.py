@@ -8,8 +8,8 @@ their sources, on one GPU.
                   files and headers), e.g. written with `git show
                   <commit>:st_dadk_tpu_torch/csrc/<file>` into a directory
                   that .gitignore lists. Its entry points have that
-                  commit's C signatures (PREVIOUS_SIGNATURES: the fused
-                  forward without a lane count).
+                  commit's C signatures (PREVIOUS_SIGNATURES: the basis
+                  forward and d centers without a mask and a lane count).
   --variants      also build the current sources with one part replaced by
                   text (VARIANTS): what a kernel costs without its phi, with
                   one TF32 product instead of three, and so on.
@@ -58,9 +58,9 @@ LIBS = {FWD: "fused_first_layer", BP: "fused_first_layer",
         BFWD: "spatial_basis", BPT: "spatial_basis", BC: "spatial_basis"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # (pointer, int) argument counts before the stream
-CURRENT_SIGNATURES = {FWD: (5, 7), BP: (7, 7), BFWD: (4, 6), BPT: (5, 5),
-                      BC: (7, 4)}
-PREVIOUS_SIGNATURES = {FWD: (5, 6), BP: (7, 7), BFWD: (4, 6), BPT: (5, 5),
+CURRENT_SIGNATURES = {FWD: (5, 7), BP: (7, 7), BFWD: (5, 7), BPT: (5, 5),
+                      BC: (8, 5)}
+PREVIOUS_SIGNATURES = {FWD: (5, 7), BP: (7, 7), BFWD: (4, 6), BPT: (5, 5),
                        BC: (7, 4)}
 # name -> (entry point, source file, text, replacement): one part of the
 # current source replaced, to see what it costs
@@ -213,9 +213,7 @@ def _call(entry, fn, current, args, n, k, h, tile=None):
 
     if entry == FWD:
         bufs = (coords, centers, inv_bw, w, empty(n, h))
-        ints = (n, k, h, bid) + (tile or ffl.fwd_tile(n, k, h))
-        if current:
-            ints += (1,)    # one lane
+        ints = (n, k, h, bid) + (tile or ffl.fwd_tile(n, k, h)) + (1,)
     elif entry == BP:
         bp, ct = tile or ffl.bwd_points_tile(n, k, h)
         slabs = -(-k // ct)
@@ -223,17 +221,21 @@ def _call(entry, fn, current, args, n, k, h, tile=None):
                 empty(slabs if slabs > 1 else 0, n, 2))
         ints = (n, k, h, bid, bp, ct, slabs)
     elif entry == BFWD:
-        bufs = (coords, centers, inv_bw, empty(n, k))
+        # the current entry point: no mask, one lane
+        bufs = (coords, centers, inv_bw) + ((None,) if current else ()) + (
+            empty(n, k),)
         plan = sbk.basis_fwd_plan(n, k)
-        ints = (n, k, bid) + (((tile,) + plan[1:]) if tile else plan)
+        ints = (n, k, bid) + (((tile,) + plan[1:]) if tile else plan) + (
+            (1,) if current else ())
     elif entry == BPT:
         bufs = (coords, centers, inv_bw, grad_phi, empty(n, 2))
         ints = (n, k, bid) + (tile or sbk.basis_bwd_points_plan(n, k))
     else:
         ws = sbk.basis_bwd_centers_workspace(n, k, "cuda")
-        bufs = (coords, centers, inv_bw, grad_phi, empty(k, 2), empty(k), ws)
-        ints = (n, k, bid, ws.shape[0])
-    ptrs = [t.data_ptr() for t in bufs]
+        bufs = (coords, centers, inv_bw) + ((None,) if current else ()) + (
+            grad_phi, empty(k, 2), empty(k), ws)
+        ints = (n, k, bid, ws.shape[0]) + ((1,) if current else ())
+    ptrs = [None if t is None else t.data_ptr() for t in bufs]
 
     def call():
         return fn(*ptrs, *ints, torch.cuda.current_stream().cuda_stream)

@@ -1,33 +1,54 @@
-"""The lane engine: M fits of one config as one batched program (port of
-the uniform-lane path of `st_dadk_tpu/train/batch_engine.py`).
+"""The lane engine: M fits as one batched program (port of
+`st_dadk_tpu/train/batch_engine.py`: uniform lanes, config stacking with
+ragged-k lanes, and the threaded batch pipeline).
 
-    run_experiment_batch -> run_lane_jobs -> run_job_batch
-        _prepare_job_batch   per-lane setups (seed-exact masks, the spatial
-                             init through `init_spatial_centers`, the model),
-                             lane stacking, per-lane LR tables
-        _execute_job_batch   `stack_lane_models` + `loop.fit_lanes`
+    run_experiment_batch -> run_lane_jobs -> run_job_batch | run_job_batches
+        _prepare_job_batch   host only: per-lane setups (seed-exact masks,
+                             point sets, no model yet), lane stacking on the
+                             CPU, per-lane LR tables
+        _execute_job_batch   the upload, `_init_lane_carries` (the spatial
+                             init of all lanes at once through
+                             `init_spatial_centers_batch`, each lane's model
+                             at its real shapes, padded and stacked) and
+                             `loop.fit_lanes`
         _finalize_job_batch  one batched dense predict per dataset
                              (`_batched_eval`), then each lane's results
                              contract through `finalize_experiment`
 
 Lanes may differ in seed, data file, observation design and real batch
 count; dataset shapes must match and the configs must share a
-`stacking_key`. A job list wider than the lane width runs as consecutive
-batches. Every op of a step serves all lanes, so the host's launch cost is
-spent once for M fits.
+`stacking_key`. With `k_spatial_pad` set, `k_spatial_centers` leaves the key:
+configs that differ only in their real resolutions run as ragged-k lanes of
+one program, padded to the shared width, each lane's junk rows held at
+exactly 0 by its column mask inside the spatial-basis kernels; a lane is
+written (params, basis info, `model_parameters`) at its real shapes. Every
+op of a step serves all lanes, so the host's launch cost is spent once for
+M fits.
+
+A job list wider than the lane width runs through `run_job_batches`: while
+batch k trains on the main thread, a prepare thread does batch k+1's host
+work and a finalize thread evaluates and writes batch k-1. All device work
+of the init and the fit stays on the main thread; the finalize thread's
+dense predict enqueues on the same default stream, which is safe and serial.
+Masks and subsamples draw from each setup's private `RandomState`
+(`train/experiment.py`), so the threads need no lock where the JAX package
+holds `GLOBAL_NP_RNG_LOCK`. The JAX engine pads a tail batch to the common
+lane width to reuse its compiled program; eager PyTorch compiles nothing, so
+a tail batch runs at its own width.
 
 Not carried, each raising NotImplementedError where a caller asks for it:
-per-tau jobs (`regression_type: quantile` with several levels), ragged-k
-batches (`k_spatial_pad`) and `mesh` arguments. Left out without a knob of
-its own: the prepare/finalize threads of `run_job_batches`, tail compaction,
-packed transfers, the bf16 flip past a lane count, the streaming pod path
-and the on-device metrics program; the knobs that select them stay accepted
-and ignored (`config.py`). The spatial init runs lane by lane.
+per-tau jobs (`regression_type: quantile` with several levels) and `mesh`
+arguments. Left out without a knob of its own: tail compaction, packed
+transfers, the bf16 flip past a lane count, the streaming pod path and the
+on-device metrics program; the knobs that select them stay accepted and
+ignored (`config.py`).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -36,13 +57,17 @@ import torch
 
 from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.dataio.arrays import dense_grid_points
-from st_dadk_tpu_torch.models.st_interp import (from_jax_params, model_consts,
+from st_dadk_tpu_torch.models.st_interp import (STInterpLanes,
+                                                from_jax_params, model_consts,
                                                 stack_lane_models)
+from st_dadk_tpu_torch.ops.init_centers import (DATA_ADAPTIVE_INIT_METHODS,
+                                                init_spatial_centers_batch)
 from st_dadk_tpu_torch.train.experiment import (ExperimentSetup,
                                                 finalize_experiment,
                                                 metrics_from_preds)
 from st_dadk_tpu_torch.train.loop import (FitResult, LaneData, fit_lanes,
-                                          predict_lanes, stack_lane_data)
+                                          lane_data_to, predict_lanes,
+                                          stack_lane_data)
 from st_dadk_tpu_torch.train.optimizer import build_lr_tables
 
 Job = Tuple[ExperimentConfig, int, Path]   # (config, experiment id, output dir)
@@ -99,14 +124,19 @@ def _freeze(v):
 
 def stacking_key(cfg: ExperimentConfig):
     """Configs whose non-observation fields match run the same lane program
-    and may share one batch. `cfg.extra` is part of the key: its knobs
-    (`shuffle`, `init_subsample`, `init_gmm_n_init`, ...) change the init or
-    the epoch program, and the engine reads them from the batch's first
-    config."""
+    and may share one batch. With `k_spatial_pad` set, `k_spatial_centers`
+    is a lane's own property (the program is that of the shared pad width),
+    so configs that differ only in their real k layout stack. `cfg.extra`
+    is part of the key: its knobs (`shuffle`, `init_subsample`,
+    `init_gmm_n_init`, ...) change the init or the epoch program, and the
+    engine reads them from the batch's first config."""
     d = dataclasses.asdict(cfg)
+    skip = set(_STACKABLE_KEYS)
+    if cfg.k_spatial_pad is not None:
+        skip.add("k_spatial_centers")
     return tuple(sorted(
         (k, tuple(v) if isinstance(v, list) else v)
-        for k, v in d.items() if k not in _STACKABLE_KEYS)) + (
+        for k, v in d.items() if k not in skip)) + (
             ("extra", _freeze(cfg.extra)),)
 
 
@@ -123,15 +153,16 @@ def run_lane_jobs(jobs: Sequence[Job], cfg: ExperimentConfig,
                   skip_existing: bool = False, verbose: bool = False,
                   device: Optional[torch.device | str] = None,
                   mesh: Any = None) -> List[Dict[str, Any]]:
-    """Run a job list at the lane width: wider lists run as consecutive
-    batches of at most `lane_width(cfg)` lanes."""
+    """Run a job list at the lane width: a list wider than
+    `lane_width(cfg)` lanes runs as a pipelined stream of batches of at most
+    that width (`run_job_batches`)."""
     width = lane_width(cfg)
-    results: List[Dict[str, Any]] = []
-    for i in range(0, len(jobs), width):
-        results += run_job_batch(jobs[i:i + width],
-                                 skip_existing=skip_existing, verbose=verbose,
-                                 device=device, mesh=mesh)
-    return results
+    if len(jobs) <= width:
+        return run_job_batch(jobs, skip_existing=skip_existing,
+                             verbose=verbose, device=device, mesh=mesh)
+    batches = [jobs[i:i + width] for i in range(0, len(jobs), width)]
+    return run_job_batches(batches, skip_existing=skip_existing,
+                           verbose=verbose, device=device, mesh=mesh)
 
 
 def run_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
@@ -141,10 +172,7 @@ def run_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
     """Run (config, experiment id, output dir) jobs as lanes of ONE program.
     All configs must share a `stacking_key`; data files and observation
     designs may differ a lane as long as dataset shapes match."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh of devices needs the parallel package on "
-            "torch.distributed (ROADMAP Queue 1 item 7)")
+    _refuse_mesh(mesh)
     prep = _prepare_job_batch(jobs, skip_existing=skip_existing,
                               device=device)
     if prep is None:
@@ -153,11 +181,72 @@ def run_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
     return _finalize_job_batch(state)
 
 
+def _refuse_mesh(mesh: Any) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "a mesh of devices needs the parallel package on "
+            "torch.distributed (ROADMAP Queue 1 item 7)")
+
+
+def run_job_batches(batches: Sequence[Sequence[Job]],
+                    skip_existing: bool = False, verbose: bool = False,
+                    device: Optional[torch.device | str] = None,
+                    mesh: Any = None) -> List[Dict[str, Any]]:
+    """A pipelined stream of job batches, results in job order. While batch
+    k trains on the main thread (the spatial init and the fit: all of its
+    device work but the finalize's predict), batch k+1's host preparation
+    runs on a prepare thread and earlier batches' finalizes (the batched
+    dense predict, metrics and artifacts) on a finalize thread. Finished
+    finalizes are collected without waiting; at most two stay in flight, so
+    trained batches cannot pile up on the device when finalize is the
+    slower side. The serial baseline to measure the overlap against is a
+    loop of `run_job_batch` over the batches. An exception on either thread
+    is raised here. The results equal, bit for bit, those of the same
+    batches through `run_job_batch` one after another: the threads share no
+    random stream and no op of one batch reads another's tensors."""
+    _refuse_mesh(mesh)
+    results: List[Dict[str, Any]] = []
+    it = iter(batches)
+    with ThreadPoolExecutor(max_workers=1) as prep_ex, \
+            ThreadPoolExecutor(max_workers=1) as fin_ex:
+
+        def submit_next_prepare():
+            jobs = next(it, None)
+            if jobs is None:
+                return None
+            return prep_ex.submit(_prepare_job_batch, jobs,
+                                  skip_existing=skip_existing, device=device)
+
+        prep_fut = submit_next_prepare()
+        fin_futs: deque = deque()
+        try:
+            while prep_fut is not None:
+                prep = prep_fut.result()
+                prep_fut = submit_next_prepare()   # overlaps this training
+                state = (_execute_job_batch(prep, verbose=verbose)
+                         if prep is not None else None)
+                while fin_futs and (fin_futs[0].done()
+                                    or len(fin_futs) >= 2):
+                    results.extend(fin_futs.popleft().result())
+                if state is not None:
+                    fin_futs.append(fin_ex.submit(_finalize_job_batch, state))
+            while fin_futs:
+                results.extend(fin_futs.popleft().result())
+        except BaseException:
+            # leave no queued work behind the failure
+            for f in list(fin_futs) + ([prep_fut] if prep_fut else []):
+                f.cancel()
+            raise
+    return results
+
+
 def _prepare_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
                        device: Optional[torch.device | str] = None
                        ) -> Optional[Dict[str, Any]]:
-    """Per-lane setups (masks, spatial init, model), the stacked lane data
-    and the LR tables; None when every job is already on disk."""
+    """Host work only, so that it may run on a thread while another batch
+    trains: per-lane setups (masks, point sets; the model is deferred to
+    `_init_lane_carries`), the lane data stacked on the CPU and the LR
+    tables. None when every job is already on disk."""
     t_start = time.time()
     todo = [(c, i, Path(d)) for c, i, d in jobs
             if not (skip_existing and (Path(d) / "results.json").exists())]
@@ -167,11 +256,6 @@ def _prepare_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
     if len({stacking_key(c) for c, _, _ in todo}) != 1:
         raise ValueError("run_job_batch: configs are not stackable "
                          "(differing model/loop hyperparameters)")
-    if cfg.k_spatial_pad is not None:
-        raise NotImplementedError(
-            "ragged-k lanes (k_spatial_pad) take the materialised-phi "
-            "kernels, which have no lane axis yet (ROADMAP Queue 1: config "
-            "stacking and ragged-k lanes)")
     if cfg.regression_type not in ("multi-quantile", "mean"):
         raise NotImplementedError(
             f"regression_type {cfg.regression_type!r} is not ported yet")
@@ -181,15 +265,16 @@ def _prepare_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
     dev = torch.device(device or cfg.device)
     setups = []
     for cfg_i, exp_id, out_dir in todo:
-        s = ExperimentSetup(cfg_i, exp_id, dev, verbose=False)
+        s = ExperimentSetup(cfg_i, exp_id, dev, verbose=False,
+                            defer_model=True)
         s.out_dir = out_dir
         setups.append(s)
     shapes = {(s.T, s.S) for s in setups}
     if len(shapes) != 1:
         raise ValueError(f"run_job_batch: dataset shapes differ: {shapes}")
-    stacked = _stack_lane_host(cfg, setups, dev)
+    stacked = _stack_lane_host(cfg, setups, torch.device("cpu"))
     return dict(cfg=cfg, setups=setups, stacked=stacked, device=dev,
-                t_start=t_start, t_prep=time.time() - t_start)
+                t_prep=time.time() - t_start)
 
 
 def _lane_lr_tables(cfg: ExperimentConfig, n_batches: Sequence[int],
@@ -217,7 +302,9 @@ def _lane_lr_tables(cfg: ExperimentConfig, n_batches: Sequence[int],
 
 def _stack_lane_host(cfg: ExperimentConfig, setups: Sequence[ExperimentSetup],
                      device: torch.device) -> Dict[str, Any]:
-    """The lanes' padded buffers stacked on `device` and their LR tables."""
+    """The lanes' padded buffers stacked on `device` (the CPU in
+    `_prepare_job_batch`; `_execute_job_batch` uploads them) and their LR
+    tables."""
     data = stack_lane_data(cfg, [s.train_ps for s in setups],
                            [s.valid_ps for s in setups], device)
     lr_steps, lr_recorded = _lane_lr_tables(cfg, data.n_batches,
@@ -225,31 +312,68 @@ def _stack_lane_host(cfg: ExperimentConfig, setups: Sequence[ExperimentSetup],
     return dict(data=data, lr_steps=lr_steps, lr_recorded=lr_recorded)
 
 
-def _init_lane_carries(setups: Sequence[ExperimentSetup]):
-    """The lanes' initialised models as one `STInterpLanes` (uniform k: the
-    lanes share a spec)."""
-    return stack_lane_models([s.model for s in setups])
+def _init_lane_carries(cfg: ExperimentConfig,
+                       setups: Sequence[ExperimentSetup]
+                       ) -> Tuple[STInterpLanes, List[int]]:
+    """The batched spatial init and the lanes' models: (one `STInterpLanes`
+    in lane order, each lane's real parameter count).
+
+    Lanes are grouped by their real `k_spatial_centers` (one group unless
+    the batch is ragged, `cfg.k_spatial_pad`); each group's init runs for
+    all its lanes at once (`init_spatial_centers_batch`), every lane from
+    its own generator and the numpy stream its setup left off at, so a
+    lane's centers are those of its single fit. `finish_model` then draws a
+    lane's params at its real shapes (the values of an unpadded run) and
+    pads them to the shared width with the lane's column mask. A lane's
+    `init_seconds` is its group's init over the group's lanes."""
+    groups: Dict[Tuple[int, ...], List[int]] = {}
+    for i, s in enumerate(setups):
+        groups.setdefault(tuple(s.cfg.k_spatial_centers), []).append(i)
+    adaptive = cfg.spatial_init_method in DATA_ADAPTIVE_INIT_METHODS
+    for klist, idx in groups.items():
+        t0 = time.perf_counter()
+        lanes = [setups[i] for i in idx]
+        inits = init_spatial_centers_batch(
+            cfg.spatial_init_method, list(klist),
+            [s.train_ps.coords if adaptive else None for s in lanes],
+            generators=[torch.Generator(device=s.device).manual_seed(
+                s.experiment_seed) for s in lanes],
+            rngs=[s.np_rng for s in lanes], device=lanes[0].device,
+            subsample=cfg.extra.get("init_subsample"),
+            gmm_n_init=cfg.extra.get("init_gmm_n_init"))
+        per_lane = (time.perf_counter() - t0) / len(lanes)
+        for s, (centers, bandwidths) in zip(lanes, inits):
+            s.timings["init_seconds"] = per_lane
+            s.finish_model(centers, bandwidths)
+    return (stack_lane_models([s.model for s in setups]),
+            [s.n_params for s in setups])
 
 
 def _execute_job_batch(prep: Dict[str, Any], verbose: bool = False
                        ) -> Dict[str, Any]:
-    """The device side of a batch: lane stacking of the models and the
-    epoch loop."""
+    """The device side of a batch, on the caller's thread: the upload of
+    the stacked lane data, the spatial init and the models of all lanes, and
+    the epoch loop."""
     cfg, setups = prep["cfg"], prep["setups"]
     stacked = prep["stacked"]
-    data: LaneData = stacked["data"]
     t0 = time.time()
-    lanes_model = _init_lane_carries(setups)
+    data: LaneData = lane_data_to(stacked["data"], prep["device"])
+    lanes_model, n_params = _init_lane_carries(cfg, setups)
+    t_init = time.time() - t0
     results = fit_lanes(cfg, setups[0].spec, lanes_model, data,
                         stacked["lr_steps"], stacked["lr_recorded"],
                         [s.experiment_seed for s in setups], verbose=verbose)
-    t_train = time.time() - t0
+    t_train = time.time() - t0 - t_init
     if verbose:
         print(f"[batch] {len(setups)} experiments x "
-              f"{max(r.n_epochs_run for r in results)} epochs in "
-              f"{time.time() - prep['t_start']:.1f}s (setup "
-              f"{prep['t_prep']:.1f}s, train {t_train:.1f}s)", flush=True)
-    return dict(prep, results=results, t_train=t_train, verbose=verbose)
+              f"{max(r.n_epochs_run for r in results)} epochs: host set-up "
+              f"{prep['t_prep']:.1f}s, init and models {t_init:.1f}s, train "
+              f"{t_train:.1f}s", flush=True)
+    # the state keeps the CPU copy of the lane data: the device buffers are
+    # free once the fit returns, while finalize may still wait its turn
+    return dict(prep, results=results, lanes_model=lanes_model,
+                n_params=n_params, t_init=t_init, t_train=t_train,
+                verbose=verbose)
 
 
 def _eval_group_key(cfg_lane: ExperimentConfig):
@@ -262,7 +386,12 @@ def _batched_eval(cfg: ExperimentConfig, setups: Sequence[ExperimentSetup],
                   results: Sequence[FitResult]) -> List[Dict[str, Any]]:
     """Per-lane split metrics and the dense (T, S) median field from one
     lane-batched predict of the T x S grid per distinct dataset. A chunk of
-    `eval_chunk` points holds (lanes, chunk, hidden) activations."""
+    `eval_chunk` points holds (lanes, chunk, hidden) activations. Ragged-k
+    lanes predict at the shared padded width through the lane phi kernel
+    with their masks, all in one launch a chunk, as the JAX engine's batched
+    evaluation does: a junk column is 0 against a junk weight row of 0, so
+    the field is the real-shape model's up to the order of float32 sums;
+    `finalize_experiment` strips the padding from everything it writes."""
     groups: Dict[Any, List[int]] = {}
     for li, s in enumerate(setups):
         groups.setdefault(_eval_group_key(s.cfg), []).append(li)
@@ -294,29 +423,42 @@ def _batched_eval(cfg: ExperimentConfig, setups: Sequence[ExperimentSetup],
 
 def _finalize_job_batch(state: Dict[str, Any]) -> List[Dict[str, Any]]:
     """Batched evaluation, then every lane's results contract through
-    `finalize_experiment`. A lane's `total_time_seconds` is the batch's wall
-    divided by its lanes."""
+    `finalize_experiment`. A lane's `total_time_seconds` is the batch's own
+    work (host set-up, init, training, evaluation: not the time it waited in
+    a pipeline) divided by its lanes."""
     cfg, setups, results = state["cfg"], state["setups"], state["results"]
     M = len(setups)
     t_phase = time.time()
     precomputed = _batched_eval(cfg, setups, results)
     t_eval = time.time() - t_phase
-    wall = time.time() - state["t_start"]
+    t_setup = state["t_prep"] + state["t_init"]
+    wall = t_setup + state["t_train"] + t_eval
     out = []
     for li, (s, fit_res) in enumerate(zip(setups, results)):
         s.out_dir.mkdir(parents=True, exist_ok=True)
         r = finalize_experiment(
             s.cfg, s, fit_res, s.out_dir, wall / M, verbose=False,
-            stage_timings={"setup_seconds": state["t_prep"] / M, **s.timings,
+            stage_timings={"setup_seconds": t_setup / M, **s.timings,
                            "train_seconds": state["t_train"] / M,
                            "batch_lanes": M,
-                           "batch_setup_seconds": state["t_prep"],
+                           "batch_setup_seconds": t_setup,
+                           "batch_prepare_seconds": state["t_prep"],
+                           "batch_init_seconds": state["t_init"],
                            "batch_train_seconds": state["t_train"],
                            "batch_eval_seconds": t_eval,
                            **fit_res.timings},
             precomputed=precomputed[li],
             steps_per_epoch=state["stacked"]["data"].B_shared)
+        if r["model_parameters"] != state["n_params"][li]:
+            raise RuntimeError(
+                f"lane {li}: the stripped model holds "
+                f"{r['model_parameters']} parameters, its real shapes "
+                f"{state['n_params'][li]}")
         out.append(r)
+    # known only once the last lane is written: in the returned dicts, not
+    # in results.json
+    for r in out:
+        r["stage_timings"]["batch_finalize_seconds"] = time.time() - t_phase
     if state["verbose"]:
         print(f"[batch] finalize (eval + artifacts) "
               f"{time.time() - t_phase:.1f}s", flush=True)

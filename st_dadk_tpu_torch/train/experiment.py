@@ -124,9 +124,8 @@ class ExperimentSetup:
         self.experiment_id = experiment_id
         self.experiment_seed = cfg.base_seed + experiment_id - 1
 
-        self.z_full, self.coords, self.metadata = load_kaust_csv_single(
-            cfg.resolve_data_file(), normalize=cfg.normalize_target,
-            verbose=verbose)
+        self.z_full, self.coords, self.metadata = _load_cached(
+            cfg.resolve_data_file(), cfg.normalize_target, verbose)
         self.T, self.S = self.z_full.shape
         obs_weights = spatial_obs_probs(self.coords, cfg.obs_spatial_pattern,
                                         cfg.obs_spatial_intensity)
@@ -148,6 +147,7 @@ class ExperimentSetup:
                                           self.test_mask)
         self.spec: ModelSpec = spec_from_config(cfg)
         self.model: Optional[STInterp] = None
+        self.n_params = 0
         self.timings = {"data_seconds": time.perf_counter() - t0}
         if not defer_model:
             t1 = time.perf_counter()
@@ -168,19 +168,40 @@ class ExperimentSetup:
         """Initialise the model from the spatial init. A ragged-k lane
         (`k_spatial_pad`) draws its params at the lane's real shapes (the
         values of an unpadded run) and pads them to the shared width
-        (`pad_lane_model`, JAX experiment.py:311-333)."""
+        (`pad_lane_model`, JAX experiment.py:311-333). `n_params` is the
+        parameter count at the real shapes."""
         gen = torch.Generator().manual_seed(self.experiment_seed)
         if self.cfg.k_spatial_pad is None:
             self.model = init_model(gen, self.spec, centers, bandwidths,
                                     device=self.device)
+            self.n_params = count_parameters(self.model)
             return
         spec_real = real_lane_spec(self.cfg, self.spec)
         # the real-shape model only carries its values into pad_lane_model
         real = init_model(gen, spec_real, centers, bandwidths, device="cpu")
+        self.n_params = count_parameters(real)
         params, consts = pad_lane_model(spec_real, int(self.cfg.k_spatial_pad),
                                         to_jax_params(real), model_consts(real))
         self.model = from_jax_params(self.spec, params, consts,
                                      device=self.device)
+
+
+_CSV_CACHE: Dict[Tuple[str, bool, int, int],
+                 Tuple[np.ndarray, np.ndarray, Dict[str, Any]]] = {}
+
+
+def _load_cached(path: Path, normalize: bool, verbose: bool
+                 ) -> Tuple[np.ndarray, np.ndarray, Dict[str, Any]]:
+    """Load-once cache (JAX experiment.py:339): the repeats of a config and
+    the lanes of a batch share one parse of their CSV. The key holds the
+    file's size and modification time, so a rewritten file is read again.
+    The arrays are shared: every consumer reads them only."""
+    st = Path(path).stat()
+    key = (str(path), bool(normalize), st.st_size, st.st_mtime_ns)
+    if key not in _CSV_CACHE:
+        _CSV_CACHE[key] = load_kaust_csv_single(path, normalize=normalize,
+                                                verbose=verbose)
+    return _CSV_CACHE[key]
 
 
 def real_lane_spec(cfg: ExperimentConfig, spec: ModelSpec) -> ModelSpec:

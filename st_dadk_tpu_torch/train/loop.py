@@ -512,6 +512,13 @@ def stack_lane_data(cfg: ExperimentConfig, train_sets: Sequence[PointSet],
                     batch_size=batch_size, val_chunk=val_chunk)
 
 
+def lane_data_to(data: LaneData, device: torch.device) -> LaneData:
+    """`data` with its buffers on `device`."""
+    return data._replace(**{f: getattr(data, f).to(device) for f in
+                            ("packed_tr", "va_coords", "va_t", "va_y",
+                             "va_w")})
+
+
 def shuffle_lane_indices_(idx: torch.Tensor, n_batches: Sequence[int],
                           batch_size: int,
                           generators: Sequence[torch.Generator]) -> None:

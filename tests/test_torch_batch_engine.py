@@ -1,6 +1,6 @@
 """The port's lane engine (st_dadk_tpu_torch.train.batch_engine) on a toy
 field on the CPU: the counterparts of tests/test_batch_engine.py, lane
-stacking and what the engine refuses."""
+stacking, the threaded batch pipeline and what the engine refuses."""
 import csv
 import json
 
@@ -183,15 +183,24 @@ def test_delta_head_lanes(toy_csv, tmp_path):
 
 def test_wider_job_list_runs_as_consecutive_batches(toy_csv, tmp_path,
                                                     monkeypatch):
-    widths = []
-    real = tbe.run_job_batch
-    monkeypatch.setattr(tbe, "run_job_batch",
-                        lambda jobs, **kw: widths.append(len(jobs))
-                        or real(jobs, **kw))
+    """A list wider than the lane width goes through the pipeline
+    (`run_job_batches`) in batches of the lane width, the tail at its own
+    width; a list that fits runs as one `run_job_batch`."""
+    widths, streams = [], []
+    real_exec, real_stream = tbe._execute_job_batch, tbe.run_job_batches
+    monkeypatch.setattr(tbe, "_execute_job_batch",
+                        lambda prep, **kw: widths.append(len(prep["setups"]))
+                        or real_exec(prep, **kw))
+    monkeypatch.setattr(tbe, "run_job_batches",
+                        lambda batches, **kw: streams.append(
+                            [len(b) for b in batches])
+                        or real_stream(batches, **kw))
     cfg = _cfg(toy_csv, epochs=2, save_artifacts=False, lanes_per_device=2)
     res = tbe.run_experiment_batch(cfg, [1, 2, 3, 4, 5], tmp_path / "e")
-    assert widths == [2, 2, 1]
+    assert widths == [2, 2, 1] and streams == [[2, 2, 1]]
     assert [r["experiment_id"] for r in res] == [1, 2, 3, 4, 5]
+    tbe.run_experiment_batch(cfg, [1, 2], tmp_path / "f")
+    assert widths == [2, 2, 1, 2] and len(streams) == 1
     assert tbe.lane_width(_cfg(toy_csv)) == tbe.LANES_PER_DEVICE
     with pytest.raises(ValueError, match="lanes_per_device"):
         tbe.lane_width(_cfg(toy_csv, lanes_per_device=0))
@@ -261,9 +270,20 @@ def test_what_the_engine_refuses(toy_csv, tmp_path, case):
         with pytest.raises(NotImplementedError, match="per-tau"):
             tbe.run_experiment_batch(cfg, [1, 2], tmp_path)
     elif case == "ragged_k":
-        cfg = _cfg(toy_csv, k_spatial_pad=16, spatial_learnable=True)
-        with pytest.raises(NotImplementedError, match="ragged-k"):
-            tbe.run_experiment_batch(cfg, [1, 2], tmp_path)
+        # the positive case of this list: a padded config runs as lanes and
+        # is written at its real shapes
+        cfg = _cfg(toy_csv, k_spatial_pad=16, spatial_learnable=True,
+                   epochs=2)
+        res = tbe.run_experiment_batch(cfg, [1, 2], tmp_path)
+        assert [r["experiment_id"] for r in res] == [1, 2]
+        for i in (1, 2):
+            info = np.load(tmp_path / str(i) / "basis_info.npz")
+            assert info["spatial_centers_final"].shape == (9, 2)
+        # what a ragged batch still refuses: a pad narrower than a lane
+        with pytest.raises(ValueError, match="k_pad"):
+            tbe.run_experiment_batch(cfg.replace(k_spatial_pad=4), [3],
+                                     tmp_path)
+        return
     else:
         with pytest.raises(NotImplementedError, match="mesh"):
             tbe.run_experiment_batch(_cfg(toy_csv), [1, 2], tmp_path,
@@ -279,3 +299,78 @@ def test_entry_points_default_to_the_configs_device(toy_csv, tmp_path):
     assert len(res) == 2
     assert ExperimentConfig().device == "cuda"
     assert not torch.cuda.is_available() or res[0]["config"]["device"] == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# The threaded batch pipeline
+# ---------------------------------------------------------------------------
+
+_COMPARED = ("experiment_id", "experiment_seed", "metrics",
+             "training_history", "n_steps", "n_epochs_run",
+             "basis_center_shift", "model_parameters")
+
+
+def _pipeline_jobs(toy_csv, out, width=2, **kw):
+    """6 jobs of a learnable, GMM-initialised config: 3 batches of 2."""
+    cfg = _cfg(toy_csv, epochs=3, spatial_learnable=True,
+               spatial_init_method="gmm", gradient_damping=True,
+               lanes_per_device=width, **kw)
+    return cfg, [(cfg, i, out / str(i)) for i in range(1, 7)]
+
+
+@pytest.mark.parametrize("width", [2, 4])
+def test_run_job_batches_equals_serial_batches(toy_csv, tmp_path, width):
+    """The pipelined stream gives, bit for bit, what the same batches give
+    one after another: results and saved params. At width 4 the tail batch
+    holds 2 lanes and runs at that width (nothing pads it)."""
+    cfg, jobs = _pipeline_jobs(toy_csv, tmp_path / "pipe", width)
+    piped = tbe.run_lane_jobs(jobs, cfg)
+    _, jobs_s = _pipeline_jobs(toy_csv, tmp_path / "serial", width)
+    serial = []
+    for a in range(0, 6, width):
+        serial += tbe.run_job_batch(jobs_s[a:a + width])
+    assert [r["experiment_id"] for r in piped] == [1, 2, 3, 4, 5, 6]
+    for i, (rp, rs) in enumerate(zip(piped, serial)):
+        for key in _COMPARED:
+            assert rp[key] == rs[key], key
+        assert rp["stage_timings"]["batch_lanes"] == min(width,
+                                                         6 - i // width * width)
+    for i in range(1, 7):
+        a = np.load(tmp_path / "pipe" / str(i) / "model_final.npz")
+        b = np.load(tmp_path / "serial" / str(i) / "model_final.npz")
+        assert set(a.files) == set(b.files)
+        for name in a.files:
+            np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+def test_skip_existing_through_the_pipeline(toy_csv, tmp_path):
+    cfg, jobs = _pipeline_jobs(toy_csv, tmp_path, save_artifacts=False)
+    first = tbe.run_job_batches([jobs[2:4]])
+    stamp = (tmp_path / "3" / "results.json").stat().st_mtime_ns
+    res = tbe.run_lane_jobs(jobs, cfg, skip_existing=True)
+    # the middle batch is on disk: it neither runs nor returns
+    assert [r["experiment_id"] for r in res] == [1, 2, 5, 6]
+    assert (tmp_path / "3" / "results.json").stat().st_mtime_ns == stamp
+    assert tbe.run_lane_jobs(jobs, cfg, skip_existing=True) == []
+    assert [r["experiment_id"] for r in first] == [3, 4]
+
+
+@pytest.mark.parametrize("where", ["prepare", "finalize"])
+def test_pipeline_thread_exceptions_reach_the_caller(toy_csv, tmp_path,
+                                                     monkeypatch, where):
+    cfg, jobs = _pipeline_jobs(toy_csv, tmp_path, save_artifacts=False)
+    name = f"_{where}_job_batch"
+    real, calls = getattr(tbe, name), []
+
+    def failing(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError(f"boom in {where}")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tbe, name, failing)
+    with pytest.raises(RuntimeError, match=f"boom in {where}"):
+        tbe.run_lane_jobs(jobs, cfg)
+    # the first batch was written before the failure
+    assert (tmp_path / "1" / "results.json").exists()
+    assert not (tmp_path / "5" / "results.json").exists() or where == "finalize"

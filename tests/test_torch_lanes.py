@@ -242,15 +242,105 @@ def test_lanes_model_penalties_and_dropout():
         model(coords, t, train=True)
 
 
-def test_lanes_model_refuses_the_phi_route():
-    for route in (dict(padded_lane=True, phi_route=True),
-                  dict(phi_route=True), dict(p=2)):
-        spec = tm.ModelSpec(k_spatial_centers=(16,), k_temporal_centers=(5,),
-                            hidden_dims=(8, 4), spatial_learnable=True,
-                            **route)
-        with pytest.raises(NotImplementedError, match="ragged-k"):
-            tm.STInterpLanes(spec, np.zeros((2, 16, 2), np.float32),
-                             np.ones((2, 16), np.float32))
+def _phi_route_lanes(route):
+    """LANES JAX models of one phi-route spec (params drawn by the JAX
+    init) and the port's spec: with `padded_lane`, real widths 4, 13 and 16
+    padded to 16, each lane's junk rows 0 and its own column mask."""
+    rng = np.random.default_rng(5)
+    p = route.get("p", 0)
+    k_real = ((4,), (4, 9), (16,)) if route.get("padded_lane") else ((16,),) * 3
+    spec_t = tm.ModelSpec(k_spatial_centers=(16,), k_temporal_centers=(5,),
+                          hidden_dims=(8, 4), spatial_learnable=True, **route)
+    spec_pad_j = jm.ModelSpec(p=p, k_spatial_centers=(16,),
+                              k_temporal_centers=(5,), hidden_dims=(8, 4),
+                              spatial_learnable=True, use_pallas=False)
+    lanes = []
+    for m, kr in enumerate(k_real):
+        spec_real = dataclasses.replace(spec_pad_j, k_spatial_centers=kr)
+        k = sum(kr)
+        params, consts = jm.init_model(
+            jax.random.PRNGKey(m), spec_real,
+            jnp.asarray(rng.uniform(size=(k, 2)).astype(np.float32)),
+            jnp.asarray(rng.uniform(0.2, 0.6, size=(k,)).astype(np.float32)))
+        np_tree = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
+        params, consts = np_tree(params), np_tree(consts)
+        if route.get("padded_lane"):
+            params, consts = jm.pad_lane_model(spec_real, 16, params, consts)
+        lanes.append((params, consts, k))
+    return spec_pad_j, spec_t, lanes
+
+
+@pytest.mark.parametrize("route", [dict(padded_lane=True, phi_route=True),
+                                   dict(phi_route=True),
+                                   dict(p=2, phi_route=True)],
+                         ids=["ragged", "phi", "covariates"])
+def test_lanes_model_refuses_the_phi_route(route):
+    """Lanes build on the materialised-phi route, and what they refuse
+    there is a mask that does not fit the spec. On that route
+    `STInterpLanes` equals the single (padded) `STInterp`s and the JAX
+    (padded) forward
+    (tests/test_ragged_k.py:99), lane by lane, at MODEL_ATOL; junk rows get
+    exactly zero gradients and the penalties never see them. What it still
+    refuses: a padded-lane spec without masks, and masks on any other."""
+    spec_j, spec_t, lanes = _phi_route_lanes(route)
+    singles = [tm.from_jax_params(spec_t, p, c, device="cpu")
+               for p, c, _ in lanes]
+    model = tm.stack_lane_models(singles)
+    rng = np.random.default_rng(2)
+    coords = rng.uniform(size=(LANES, 31, 2)).astype(np.float32)
+    t = rng.uniform(size=(LANES, 31, 1)).astype(np.float32)
+    X = rng.normal(size=(LANES, 31, spec_t.p)).astype(np.float32)
+    Xt = torch.as_tensor(X) if spec_t.p else None
+    out = model(torch.as_tensor(coords), torch.as_tensor(t), X=Xt)
+    for m, (single, (params, consts, k)) in enumerate(zip(singles, lanes)):
+        with torch.no_grad():
+            one = single(torch.as_tensor(coords[m]), torch.as_tensor(t[m]),
+                         X=None if Xt is None else Xt[m]).numpy()
+        np.testing.assert_allclose(out[m].detach().numpy(), one, rtol=0,
+                                   atol=MODEL_ATOL)
+        want = np.asarray(jm.forward(
+            spec_j, params, consts, jnp.asarray(X[m]) if spec_t.p else None,
+            jnp.asarray(coords[m]), jnp.asarray(t[m]), train=False))
+        np.testing.assert_allclose(out[m].detach().numpy(), want, rtol=0,
+                                   atol=MODEL_ATOL)
+    pen = (model.domain_penalty() + model.movement_penalty()
+           + model.sparsity_penalty("sparse_group", 1e-3, 1e-2)["total_penalty"])
+    (out.sum() + pen.sum()).backward()
+    w0 = model.mlp.linear_0.w
+    for m, (_, _, k) in enumerate(lanes):
+        rows = slice(spec_t.p + k, spec_t.p + 16)
+        assert torch.all(w0.grad[m, rows] == 0)
+        assert torch.all(model.basis.centers.grad[m, k:] == 0)
+        assert torch.all(model.basis.log_bandwidths.grad[m, k:] == 0)
+        assert torch.any(w0.grad[m, spec_t.p:spec_t.p + k] != 0)
+        single = singles[m]
+        for name in ("domain_penalty", "movement_penalty"):
+            assert float(getattr(model, name)()[m].detach()) == pytest.approx(
+                float(getattr(single, name)().detach()), rel=1e-6)
+        assert float(model.sparsity_penalty("sparse_group", 1e-3, 1e-2)[
+            "total_penalty"][m]) == pytest.approx(float(
+                single.sparsity_penalty("sparse_group", 1e-3, 1e-2)[
+                    "total_penalty"]), rel=1e-6)
+    if spec_t.p:
+        with pytest.raises(ValueError, match="covariates"):
+            model(torch.as_tensor(coords), torch.as_tensor(t))
+    centers = np.zeros((2, 16, 2), np.float32)
+    bws, mask = np.ones((2, 16), np.float32), np.ones((2, 16), np.float32)
+    with pytest.raises(ValueError, match="spatial_k_mask"):
+        tm.STInterpLanes(spec_t, centers, bws,
+                         None if spec_t.padded_lane else mask)
+    if spec_t.padded_lane:
+        with pytest.raises(ValueError, match="spatial_k_mask shape"):
+            tm.STInterpLanes(spec_t, centers, bws, mask[:, :5])
+        # stripping a padded lane gives the real-shape model's forward
+        params, consts, k = lanes[0]
+        real_spec = dataclasses.replace(spec_j, k_spatial_centers=(k,))
+        sp, sc = jm.strip_lane_padding(real_spec, 16, params, consts)
+        want = np.asarray(jm.forward(real_spec, sp, sc, None,
+                                     jnp.asarray(coords[0]),
+                                     jnp.asarray(t[0]), train=False))
+        np.testing.assert_allclose(out[0].detach().numpy(), want, rtol=1e-5,
+                                   atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

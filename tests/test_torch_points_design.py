@@ -173,8 +173,8 @@ def test_entry_points_take_the_plans():
         m = re.search(r"int %s\(([^)]*)\)" % fn, text)
         return [p.split()[-1] for p in m.group(1).split(",")]
 
-    assert names(BASIS, "st_spatial_basis_fwd")[-4:] == [
-        "tile_p", "cpt", "threads", "stream"]
+    assert names(BASIS, "st_spatial_basis_fwd")[-5:] == [
+        "tile_p", "cpt", "threads", "lanes", "stream"]
     bp = names(FUSED, "st_fused_first_layer_bwd_points")
     assert bp[5:7] == ["dcoords", "ws"]
     assert bp[-4:] == ["tile_n", "tile_k", "slabs", "stream"]

@@ -265,3 +265,130 @@ def test_ragged_lane_tracks_its_own_shape_run(toy_csv, tmp_path):
     assert final["mlp"]["linear_0"]["w"].shape == (25 + 4, 16)
     pred = np.load(tmp_path / "lane" / "predictions.npz")["predictions"]
     assert pred.shape == (12, 40) and np.all(np.isfinite(pred))
+
+
+# -- ragged-k lanes through the lane engine -------------------------------------
+
+from st_dadk_tpu.train import batch_engine as jbe  # noqa: E402
+from st_dadk_tpu_torch.train import batch_engine as tbe  # noqa: E402
+
+
+@pytest.mark.parametrize("case", ["pad_merges", "unpadded_splits",
+                                  "extra_knob_splits", "obs_fields_stack"])
+def test_stacking_key_with_pad_equals_jax(toy_csv, case):
+    """With `k_spatial_pad`, `k_spatial_centers` leaves the key, as in JAX
+    (batch_engine.py:354-356): the cases of tests/test_ragged_k.py:119-140,
+    each pair of configs through both packages' keys."""
+    a = _cfg_dict(toy_csv, k_spatial_centers=[9], k_spatial_pad=25)
+    b = {"pad_merges": dict(a, k_spatial_centers=[16, 9]),
+         "unpadded_splits": _cfg_dict(toy_csv, k_spatial_centers=[16, 9]),
+         "extra_knob_splits": dict(a, init_gmm_n_init=2),
+         "obs_fields_stack": dict(a, obs_ratio=0.3, base_seed=7)}[case]
+    same_t = (tbe.stacking_key(ExperimentConfig.from_dict(a))
+              == tbe.stacking_key(ExperimentConfig.from_dict(b)))
+    same_j = (jbe.stacking_key(JaxConfig.from_dict(a))
+              == jbe.stacking_key(JaxConfig.from_dict(b)))
+    assert same_t is same_j
+    assert same_t is (case in ("pad_merges", "obs_fields_stack"))
+
+
+def test_ragged_batch_matches_own_shape_runs(toy_csv, tmp_path):
+    """tests/test_ragged_k.py:142 for the port: configs of different k as
+    padded lanes of one batch against the same configs unpadded through the
+    single fit; the JAX bar 5e-3 on the RMSEs, real shapes in the artifacts,
+    the real parameter count."""
+    k_lists = ([9], [16, 9])
+    k_pad = 25
+    jobs, seq = [], []
+    for j, kl in enumerate(k_lists):
+        d = _cfg_dict(toy_csv, k_spatial_centers=list(kl), epochs=4,
+                      spatial_init_method="gmm")
+        seq.append(texp.run_single_experiment(d, 1, tmp_path / f"seq{j}",
+                                              device="cpu", verbose=False))
+        jobs.append((ExperimentConfig.from_dict(
+            dict(d, k_spatial_pad=k_pad, device="cpu")), 1,
+            tmp_path / f"stack{j}"))
+    stacked = tbe.run_job_batch(jobs)
+    assert len(stacked) == 2
+    for j, kl in enumerate(k_lists):
+        rs, rq = stacked[j], seq[j]
+        for key in ("test_rmse", "valid_rmse", "train_rmse"):
+            assert abs(rs[key] - rq[key]) < 5e-3, (key, j)
+        assert rs["model_parameters"] == rq["model_parameters"]
+        assert rs["stage_timings"]["batch_lanes"] == 2
+        info = np.load(tmp_path / f"stack{j}" / "basis_info.npz")
+        assert info["spatial_centers_final"].shape == (sum(kl), 2)
+        assert info["spatial_centers_init"].shape == (sum(kl), 2)
+        # the batched init gave the lane its single fit's centers
+        ref = np.load(tmp_path / f"seq{j}" / "basis_info.npz")
+        np.testing.assert_allclose(info["spatial_centers_init"],
+                                   ref["spatial_centers_init"], atol=1e-5)
+        final = texp.load_params_npz(tmp_path / f"stack{j}" /
+                                     "model_final.npz")
+        assert final["mlp"]["linear_0"]["w"].shape == (sum(kl) + 4, 16)
+
+
+def test_junk_rows_stay_zero_through_the_lane_engine(toy_csv, tmp_path):
+    """tests/test_ragged_k.py:179 for the lane engine, with dropout and
+    shuffling on: after clipping, center damping, weight decay and the EMA of
+    `fit_lanes`, every lane's padded rows are exactly 0 in the trained model
+    and in the serving params, and its real rows are not."""
+    k_lists, k_pad = ([9], [16, 9], [25]), 25
+    jobs = [(ExperimentConfig.from_dict(dict(
+        _cfg_dict(toy_csv, k_spatial_centers=list(kl), k_spatial_pad=k_pad,
+                  shuffle="auto", dropout=0.1, epochs=4,
+                  spatial_init_method="gmm", weight_decay=1e-2),
+        device="cpu")), 1, tmp_path / str(j)) for j, kl in enumerate(k_lists)]
+    state = tbe._execute_job_batch(tbe._prepare_job_batch(jobs))
+    model = state["setups"][0].model          # lanes were stacked from these
+    assert model.spec.padded_lane
+    for kl, fit_res, n in zip(k_lists, state["results"], state["n_params"]):
+        k = sum(kl)
+        p = fit_res.params
+        assert np.all(p["basis"]["centers"][k:] == 0)
+        assert np.all(p["basis"]["log_bandwidths"][k:] == 0)
+        w0 = p["mlp"]["linear_0"]["w"]
+        assert w0.shape == (k_pad + 4, 16)
+        assert np.all(w0[k:k_pad] == 0) and not np.all(w0[:k] == 0)
+        assert fit_res.center_shift[-1] > 0.0
+        assert n == 3 * k + (k + 4) * 16 + 16 + 2 * 16 + 16 * 8 + 8 + 16 + 8 + 1
+    results = tbe._finalize_job_batch(state)
+    assert [r["model_parameters"] for r in results] == state["n_params"]
+
+
+def test_ragged_batch_matches_jax_run_job_batch(toy_csv, tmp_path,
+                                                monkeypatch):
+    """A ragged batch of two lanes ([9] and [16, 9] padded to 25) through
+    `run_job_batch` of both packages, from the JAX-initialised params,
+    dropout 0 and the identity batch order: loss histories within HIST_RTOL
+    (the bar of test_fit_lanes_matches_the_jax_vmapped_fit), scores within
+    1e-4 relative."""
+    k_lists, k_pad = ([9], [16, 9]), 25
+    dicts = [_cfg_dict(toy_csv, k_spatial_centers=list(kl),
+                       k_spatial_pad=k_pad, use_pallas=False,
+                       save_plots=False) for kl in k_lists]
+    res_j = jbe.run_job_batch(
+        [(JaxConfig.from_dict(d), 1, tmp_path / f"jax{j}")
+         for j, d in enumerate(dicts)], verbose=False, epochs_chunk=3)
+
+    finish = texp.ExperimentSetup.finish_model
+
+    def finish_from_jax(self, centers, bandwidths):
+        finish(self, centers, bandwidths)        # the real parameter count
+        sj = jexp.ExperimentSetup(JaxConfig.from_dict(self.cfg.to_dict()),
+                                  self.experiment_id)
+        self.model = tm.from_jax_params(self.spec, sj.params, sj.consts,
+                                        device="cpu")
+
+    monkeypatch.setattr(texp.ExperimentSetup, "finish_model", finish_from_jax)
+    res_t = tbe.run_job_batch(
+        [(ExperimentConfig.from_dict(dict(d, device="cpu")), 1,
+          tmp_path / f"port{j}") for j, d in enumerate(dicts)])
+    for rj, rt in zip(res_j, res_t):
+        for key in ("train_loss", "val_loss", "val_rmse"):
+            np.testing.assert_allclose(rt["training_history"][key],
+                                       rj["training_history"][key],
+                                       rtol=HIST_RTOL, err_msg=key)
+        for key in ("test_rmse", "valid_rmse", "train_rmse"):
+            assert rt[key] == pytest.approx(rj[key], rel=1e-4), key
+        assert rt["model_parameters"] == rj["model_parameters"]

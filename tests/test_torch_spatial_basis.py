@@ -168,3 +168,134 @@ def test_mixed_devices_raise():
                               _inputs(6, n=5, k=3))
     with pytest.raises(ValueError, match="mixed devices"):
         sbk.spatial_basis_fwd(coords, centers.to("meta"), 1.0 / bw, 0)
+
+
+# ---------------------------------------------------------------------------
+# The lane axis and the per-lane column mask (phi forward and d centers)
+# ---------------------------------------------------------------------------
+
+LANES = 3
+# real widths of the lanes of a padded batch: one lane fully real
+K_REAL = (41, 67, 77)
+
+
+def _lane_inputs(seed, n=90, k=77, zero_distance=False):
+    """`_inputs` of LANES seeds stacked on a lane axis, k not a tile
+    multiple, and each lane's column mask (1 on its K_REAL leading columns)."""
+    per = [_inputs(seed + 10 * m, n=n, k=k, zero_distance=zero_distance)
+           for m in range(LANES)]
+    coords, centers, bw, g = (np.stack(x) for x in zip(*per))
+    mask = (np.arange(k)[None] < np.asarray(K_REAL)[:, None]).astype(
+        np.float32)
+    return coords, centers, bw, g, mask
+
+
+@pytest.mark.parametrize("zero_distance", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("basis", BASES)
+def test_lane_form_matches_vmapped_jax(basis, masked, zero_distance):
+    """Lane phi (x mask) and its d centers / d bandwidths against jax.vmap
+    of the jnp oracle times the mask and its jax.grad: phi atol 2e-6, grads
+    rtol 5e-3 / atol 5e-4 (the bars of the two-dimensional form)."""
+    coords, centers, bw, g, mask = _lane_inputs(
+        7, zero_distance=zero_distance)
+    mk = jnp.asarray(mask if masked else np.ones_like(mask))
+
+    def embed(s, c, b):
+        phi = jax.vmap(lambda s1, c1, b1: jnp_embed(s1, c1, b1, basis))(
+            s, c, b)
+        return phi * mk[:, None, :]
+
+    args = tuple(jnp.asarray(a) for a in (coords, centers, bw))
+    want = np.asarray(embed(*args))
+    want_dc, want_db = jax.grad(
+        lambda s, c, b: jnp.sum(embed(s, c, b) * jnp.asarray(g)),
+        argnums=(1, 2))(*args)
+
+    c = torch.as_tensor(centers).requires_grad_(True)
+    b = torch.as_tensor(bw).requires_grad_(True)
+    phi = sbk.spatial_basis_embed_kernel(
+        torch.as_tensor(coords), c, b, basis,
+        mask=torch.as_tensor(mask) if masked else None)
+    dc, db = torch.autograd.grad(torch.sum(phi * torch.as_tensor(g)), (c, b))
+    assert phi.shape == (LANES, 90, 77)
+    np.testing.assert_allclose(phi.detach().numpy(), want, rtol=0,
+                               atol=PHI_ATOL)
+    np.testing.assert_allclose(dc.numpy(), np.asarray(want_dc),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(db.numpy(), np.asarray(want_db),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    if masked:
+        for m, kr in enumerate(K_REAL):
+            assert torch.all(phi[m, :, kr:] == 0)
+            assert torch.all(dc[m, kr:] == 0) and torch.all(db[m, kr:] == 0)
+
+
+@pytest.mark.parametrize("basis", BASES)
+def test_lane_form_equals_the_two_dimensional_form_a_lane(basis):
+    """Lanes share no operand: lane m of the lane call equals the
+    two-dimensional call on lane m's operands exactly on the real columns,
+    and is exactly 0 on the masked ones; M = 1 without a mask is the
+    two-dimensional call."""
+    coords, centers, bw, g, mask = (torch.as_tensor(a) for a in
+                                    _lane_inputs(8))
+    bid = sbk.BASIS_IDS[basis]
+    inv_bw = 1.0 / bw
+    phi = sbk.spatial_basis_fwd(coords, centers, inv_bw, bid, mask)
+    dc, dib = sbk.spatial_basis_bwd_centers(coords, centers, inv_bw, g, bid,
+                                            mask)
+    for m, kr in enumerate(K_REAL):
+        phi2 = sbk.spatial_basis_fwd(coords[m], centers[m], inv_bw[m], bid)
+        dc2, dib2 = sbk.spatial_basis_bwd_centers(coords[m], centers[m],
+                                                  inv_bw[m], g[m], bid)
+        assert torch.equal(phi[m, :, :kr], phi2[:, :kr])
+        assert torch.equal(dc[m, :kr], dc2[:kr])
+        assert torch.equal(dib[m, :kr], dib2[:kr])
+        assert torch.all(phi[m, :, kr:] == 0)
+        assert torch.all(dc[m, kr:] == 0) and torch.all(dib[m, kr:] == 0)
+        one = sbk.spatial_basis_fwd(coords[m:m + 1], centers[m:m + 1],
+                                    inv_bw[m:m + 1], bid)
+        assert torch.equal(one[0], phi2)
+        # a (k,) mask on the two-dimensional call is the lane's row
+        assert torch.equal(
+            sbk.spatial_basis_fwd(coords[m], centers[m], inv_bw[m], bid,
+                                  mask[m]), phi[m])
+
+
+def test_masked_phi_is_a_select_not_a_product():
+    """A masked column is 0 even where its phi is not finite."""
+    coords, centers, bw, _, mask = (torch.as_tensor(a) for a in
+                                    _lane_inputs(9, n=12, k=77))
+    inv_bw = 1.0 / bw
+    inv_bw[0, 50] = float("nan")                  # a junk column of lane 0
+    phi = sbk.spatial_basis_fwd(coords, centers, inv_bw, 0, mask)
+    assert torch.all(phi[0, :, 41:] == 0) and torch.isfinite(phi).all()
+
+
+def test_lane_launch_refusals():
+    """More lanes than a grid dimension holds raise before any launch; d
+    coords of the lane form, or under a mask, raises; a padded mask of the
+    wrong shape raises on a CUDA-shaped check."""
+    from st_dadk_tpu_torch.ops import _launch
+    from st_dadk_tpu_torch.ops import fused_first_layer as ffl
+    with pytest.raises(ValueError, match="exceed"):
+        ffl._lanes("spatial_basis_fwd", (ffl.MAX_GRID_YZ + 1,))
+    assert ffl._lanes("spatial_basis_bwd_centers", (ffl.MAX_GRID_YZ,)) == \
+        ffl.MAX_GRID_YZ
+    # one lane's N chooses the plans and the slab count, whatever M
+    assert sbk.basis_bwd_centers_workspace(512, 227, "cpu", (4,)).shape == (
+        4, sbk.basis_bwd_centers_slabs(512, 227), 227, 3)
+    coords, centers, bw, g, mask = (torch.as_tensor(a) for a in
+                                    _lane_inputs(10, n=20, k=77))
+    with pytest.raises(ValueError, match="shape"):
+        sbk._mask_ptr(mask[:, :5].contiguous(), (LANES,), 77)
+    assert sbk._mask_ptr(None, (LANES,), 77) is None
+    lead, n, k = _launch.check_basis_lanes("x", coords, centers, 1.0 / bw, 0)
+    assert (lead, n, k) == ((LANES,), 20, 77)
+    for kw, s in ((dict(), coords), (dict(mask=mask[0]), coords[0])):
+        s = s.clone().requires_grad_(True)
+        c = centers if s.dim() == 3 else centers[0]
+        b = bw if s.dim() == 3 else bw[0]
+        phi = sbk.spatial_basis_embed_kernel(s, c, b, "wendland", **kw)
+        with pytest.raises(NotImplementedError, match="d-coords"):
+            phi.sum().backward()
