@@ -55,9 +55,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
      after another, in turns: results bitwise equal, both walls printed;
   9. the batched GMM init of phase 7's lanes against the lane-by-lane init:
      centers, bandwidths, EM iteration counts, seconds a lane both ways and
-     the lane-by-lane init's split into seeding and EM.
-Each of phases 3-7 sets the launch counts to 0 just before it and reads
-them just after; it checks the fit's losses, centers and test metrics. The
+     the lane-by-lane init's split into seeding and EM;
+ 10. the 'random_site' and 'kmeans_balanced' inits of the same lanes,
+     batched against lane by lane: random sites bitwise, balanced k-means
+     with the same restart kept and centers within rtol 1e-4 / atol 1e-5,
+     seconds a lane both ways beside phase 9's GMM;
+ 11. Table 4.4 through `st_dadk_tpu_torch/cli/run_table_4_4.py`'s `main` on
+     configs/config_st_interp.yaml (device 'tpu', read by the port's YAML
+     reader), 2 seeds x 12 epochs a cell, engine vmap: 8 finite CRPS values,
+     STDK's centers the uniform grid after training, DA-STDK's moved and
+     lane 1's initial centers its balanced k-means alone, fused kernels
+     only;
+ 12. per-tau quantile fits of the bench workload (taus 0.1 / 0.5 / 0.9 x
+     2 seeds = 6 lanes) through `run_multiple_experiments(engine="vmap")`:
+     the quantile_<q>/ trees and the aggregated results.json, then lane
+     (2025, 0.5) at dropout 0, no shuffling, 3 epochs with the basis
+     unfrozen against its single fit (losses at phase 6's early bar, the
+     center shift by its one-ulp drift rule);
+ 13. `run_grid_search` over {uniform+fixed, kmeans_balanced+learnable} x
+     {[25, 81], [25, 81, 121]}, 2 seeds, vmap: the four CSV/JSON files, one
+     summary a config, two ragged buckets padded to 227 on the phi route
+     with their junk rows exactly 0.
+Each of phases 3-7 and 11-13 sets the launch counts to 0 just before it
+and reads them just after; it checks the fit's losses, centers and test metrics. The
 last line of standard output is one JSON object with "ok" and the device;
 the line before it lists the kernels.
 """
@@ -186,6 +206,24 @@ LANE_STREAM_BAR = 2e-2
 # that, far inside LANE_RMSE_BAR and the 2e-2 between seeds)
 RAGGED_QUIET_EPOCHS, RAGGED_QUIET_BAR = 3, 1e-4
 GRAD_POINTS = 2000
+# phase 10: the batched balanced k-means against the lane-by-lane one: the
+# same restart kept, and centers within the JAX package's bar for its own
+# batched init (tests/test_init_centers.py:198-202); `_bkm` arranges its
+# sums to be bitwise, which the phase prints. Its first version summed over
+# all runs at once and kept another restart for one lane of four (an H100)
+KMB_BATCH_RTOL, KMB_BATCH_ATOL = 1e-4, 1e-5
+# phase 11: Table 4.4 through its CLI, cut to 12 epochs of 2 seeds a cell
+TABLE_SEEDS, TABLE_UNFREEZE = 2, 2
+# phase 12: per-tau quantile fits as lanes (experiments x levels)
+PER_TAU_LEVELS, PER_TAU_SEEDS = (0.1, 0.5, 0.9), 2
+# the aggregated results.json of a per-tau experiment (JAX
+# st_dadk_tpu/train/experiment.py:201-222)
+PER_TAU_KEYS = {"experiment_id", "regression_type", "quantile_levels",
+                "quantile_results", "total_time_seconds"} | {
+    f"{s}_{m}" for s in ("train", "valid", "test")
+    for m in ("crps", "check_loss", "mse", "rmse", "mae")}
+# phase 13: the grid {uniform+fixed, kmeans_balanced+learnable} x RAGGED_GRID
+GRID_SEEDS = 2
 # bars: (rtol, atol) of each kernel against its plain version
 BARS = {
     "fused_first_layer_fwd": (0.0, 1e-4),       # tests/test_pallas_fused.py:40
@@ -763,6 +801,14 @@ class Phases:
                                         (tuple(RAGGED_GRID[1]), 1): bench[1]})
         self.pipeline_phase()
         self.init_phase(jobs)
+        for name, phase in (("10 (init methods)",
+                             lambda: self.init_methods_phase(jobs)),
+                            ("11 (Table 4.4)", self.table_phase),
+                            ("12 (per-tau lanes)", self.per_tau_phase),
+                            ("13 (grid)", self.grid_phase)):
+            t0 = time.time()
+            phase()
+            print(f"phase {name}: {time.time() - t0:.1f} s", flush=True)
         return launches
 
     def fit(self, name, out_dir, exp_id=1, **overrides):
@@ -1464,59 +1510,76 @@ class Phases:
               f"{piped:.3f} s, serial {serial:.3f} s (means of two): "
               f"{piped / serial:.3f} of serial", flush=True)
 
-    def init_phase(self, jobs):
-        """Phase 9: the batched GMM init of the ragged lanes against the
-        lane-by-lane init, each lane from the streams its setup left."""
+    def init_streams(self, setups, i):
+        """Lane i's init streams as its setup left them: a fresh generator
+        and a copy of its numpy stream."""
         import copy
 
-        import numpy as np
+        s = setups[i]
+        return (self.torch.Generator(device="cuda").manual_seed(
+            s.experiment_seed), copy.deepcopy(s.np_rng))
 
+    def init_lanes(self, method, setups, groups, batched):
+        """Every lane's spatial init, each from `init_streams`: (the
+        (centers, bandwidths) of each lane, the init's stats of each lane
+        (lane by lane) or of each group of `groups` (batched, one call a
+        group), seconds a lane)."""
         from st_dadk_tpu_torch.ops import init_centers as ic
+
+        out = [None] * len(setups)
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if batched:
+            stats = {}
+            for klist, idx in groups.items():
+                gens, rngs = zip(*[self.init_streams(setups, i) for i in idx])
+                for i, pair in zip(idx, ic.init_spatial_centers_batch(
+                        method, list(klist),
+                        [setups[i].train_ps.coords for i in idx], gens, rngs,
+                        "cuda", stats=stats.setdefault(klist, {}))):
+                    out[i] = pair
+        else:
+            stats = []
+            for i, s in enumerate(setups):
+                gen, rng = self.init_streams(setups, i)
+                stats.append({})
+                out[i] = ic.init_spatial_centers(
+                    method, s.cfg.k_spatial_centers, s.train_ps.coords,
+                    generator=gen, device="cuda", rng=rng, stats=stats[-1])
+        self.torch.cuda.synchronize()
+        return out, stats, (time.perf_counter() - t0) / len(setups)
+
+    @staticmethod
+    def init_setups(jobs):
+        """The host set-up of `jobs` and its lanes by resolution list."""
         from st_dadk_tpu_torch.train import batch_engine as tbe
 
-        torch = self.torch
         setups = tbe._prepare_job_batch(jobs, device="cuda")["setups"]
         groups = {}
         for i, s in enumerate(setups):
             groups.setdefault(tuple(s.cfg.k_spatial_centers), []).append(i)
+        return setups, groups
 
-        def streams(i):
-            s = setups[i]
-            return (torch.Generator(device="cuda").manual_seed(
-                s.experiment_seed), copy.deepcopy(s.np_rng))
+    def init_phase(self, jobs):
+        """Phase 9: the batched GMM init of the ragged lanes against the
+        lane-by-lane init, each lane from the streams its setup left."""
+        import numpy as np
+
+        from st_dadk_tpu_torch.ops import init_centers as ic
+
+        setups, groups = self.init_setups(jobs)
 
         def lane_by_lane():
-            out, stats = [None] * len(setups), []
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i, s in enumerate(setups):
-                gen, rng = streams(i)
-                st = {}
-                out[i] = ic.init_spatial_centers(
-                    "gmm", s.cfg.k_spatial_centers, s.train_ps.coords,
-                    generator=gen, device="cuda", rng=rng, stats=st)
-                stats.append(st)
-            torch.cuda.synchronize()
-            return out, stats, (time.perf_counter() - t0) / len(setups)
+            return self.init_lanes("gmm", setups, groups, batched=False)
 
         def batched():
-            out, stats = [None] * len(setups), {}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for klist, idx in groups.items():
-                gens, rngs = zip(*[streams(i) for i in idx])
-                st = stats.setdefault(klist, {})
-                for i, pair in zip(idx, ic.init_spatial_centers_batch(
-                        "gmm", list(klist),
-                        [setups[i].train_ps.coords for i in idx], gens, rngs,
-                        "cuda", stats=st)):
-                    out[i] = pair
-            torch.cuda.synchronize()
-            return out, stats, (time.perf_counter() - t0) / len(setups)
+            return self.init_lanes("gmm", setups, groups, batched=True)
 
         lane_by_lane(), batched()                           # warm-up
         runs = [lane_by_lane(), batched(), batched(), lane_by_lane()]
         (one, one_stats, _), (bat, bat_stats, _) = runs[0], runs[1]
+        self.gmm_seconds = ((runs[0][2] + runs[3][2]) / 2,
+                            (runs[1][2] + runs[2][2]) / 2)
         seed_s = sum(st["seed_seconds"] for st in one_stats) / len(setups)
         em_s = sum(st["em_seconds"] for st in one_stats) / len(setups)
         n_pts = min(len(setups[0].train_ps.coords), 10000)
@@ -1556,11 +1619,12 @@ class Phases:
         klist = list(RAGGED_GRID[0])
         cut = [s.train_ps.coords[:None if i % 2 == 0 else UNEQUAL_INIT_POINTS]
                for i, s in enumerate(setups)]
-        gens, rngs = zip(*[streams(i) for i in range(len(setups))])
+        gens, rngs = zip(*[self.init_streams(setups, i)
+                           for i in range(len(setups))])
         mixed = ic.init_spatial_centers_batch("gmm", klist, cut, gens, rngs,
                                               "cuda")
         for i, (c, b) in enumerate(mixed):
-            gen, rng = streams(i)
+            gen, rng = self.init_streams(setups, i)
             c1, b1 = ic.init_spatial_centers("gmm", klist, cut[i],
                                              generator=gen, device="cuda",
                                              rng=rng)
@@ -1571,6 +1635,352 @@ class Phases:
         print(f"  lanes with subsamples of "
               f"{[min(len(x), 10000) for x in cut]} points in one call: each "
               f"bitwise its own init", flush=True)
+
+    def init_methods_phase(self, jobs):
+        """Phase 10: 'random_site' and 'kmeans_balanced' for the ragged
+        lanes, batched against lane by lane, each lane from the streams its
+        setup left: random sites bitwise, balanced k-means with the same
+        restart kept and centers within KMB_BATCH_RTOL / KMB_BATCH_ATOL."""
+        import numpy as np
+
+        setups, groups = self.init_setups(jobs)
+
+        def best(stats, i):
+            """Lane i's kept restarts, a resolution each."""
+            if isinstance(stats, list):
+                return [int(b[0]) for b in stats[i].get("best_restart", [])]
+            klist = tuple(setups[i].cfg.k_spatial_centers)
+            row = groups[klist].index(i)
+            return [int(b[row]) for b in stats[klist].get("best_restart", [])]
+
+        def lane_by_lane(method):
+            out, stats, secs = self.init_lanes(method, setups, groups, False)
+            return out, [best(stats, i) for i in range(len(setups))], secs
+
+        def batched(method):
+            out, stats, secs = self.init_lanes(method, setups, groups, True)
+            return out, [best(stats, i) for i in range(len(setups))], secs
+
+        secs = {}
+        for method in ("random_site", "kmeans_balanced"):
+            batched(method)          # warm-up: the ops a lane alone runs too
+            runs = [lane_by_lane(method), batched(method), batched(method),
+                    lane_by_lane(method)]
+            (one, best1, _), (bat, bestb, _) = runs[0], runs[1]
+            secs[method] = ((runs[0][2] + runs[3][2]) / 2,
+                            (runs[1][2] + runs[2][2]) / 2)
+            worst_c = worst_b = 0.0
+            for i in range(len(setups)):
+                dc = float(np.abs(one[i][0] - bat[i][0]).max())
+                db = float(np.abs(one[i][1] - bat[i][1]).max())
+                worst_c, worst_b = max(worst_c, dc), max(worst_b, db)
+                check(bool(np.all(np.isfinite(bat[i][0]))
+                           and np.all(bat[i][1] > 0)),
+                      f"{method} lane {i}: bad batched init")
+                if method == "random_site":
+                    check(bool(np.array_equal(one[i][0], bat[i][0])
+                               and np.array_equal(one[i][1], bat[i][1])),
+                          f"random_site lane {i}: the batched sites are "
+                          f"{dc:.3e} from the lane's own")
+                    continue
+                print(f"  kmeans_balanced lane {i} (centers "
+                      f"{list(setups[i].cfg.k_spatial_centers)}): restarts "
+                      f"kept lane by lane {best1[i]} batched {bestb[i]}; max "
+                      f"|d centers| {dc:.3e}  max |d bandwidths| {db:.3e}",
+                      flush=True)
+                check(best1[i] == bestb[i], f"kmeans_balanced lane {i}: the "
+                      f"batch kept restarts {bestb[i]}, the lane alone "
+                      f"{best1[i]}")
+                check(bool(np.allclose(bat[i][0], one[i][0],
+                                       rtol=KMB_BATCH_RTOL,
+                                       atol=KMB_BATCH_ATOL)),
+                      f"kmeans_balanced lane {i}: batched centers {dc:.3e} "
+                      f"from the lane's own (rtol {KMB_BATCH_RTOL}, atol "
+                      f"{KMB_BATCH_ATOL})")
+            print(f"{method} init of the {len(setups)} ragged lanes: max |d| "
+                  f"batched vs lane by lane: centers {worst_c:.3e}, "
+                  f"bandwidths {worst_b:.3e} (bitwise: "
+                  f"{worst_c == worst_b == 0.0})", flush=True)
+        print("init seconds a lane, lane by lane / batched (means of two): "
+              + "; ".join(f"{m} {a:.4f} / {b:.4f}" for m, (a, b) in
+                          list(secs.items())
+                          + [("gmm (phase 9)", self.gmm_seconds)]),
+              flush=True)
+
+    def table_phase(self):
+        """Phase 11: Table 4.4 through `cli/run_table_4_4.py`'s `main` on the
+        repo's config file (the 'tpu' device name and the YAML reader run
+        here), TABLE_SEEDS seeds x EPOCHS epochs a cell, engine vmap: 8 finite
+        CRPS values, STDK's centers the uniform grid after training, DA-STDK's
+        centers moved in training and lane 1's initial centers its balanced
+        k-means alone, on the fused route only."""
+        import shutil
+
+        import numpy as np
+
+        from st_dadk_tpu_torch.cli import run_table_4_4 as t44
+        from st_dadk_tpu_torch.config import ExperimentConfig
+        from st_dadk_tpu_torch.ops.basis import uniform_grid_centers
+        from st_dadk_tpu_torch.ops.init_centers import init_spatial_centers
+        from st_dadk_tpu_torch.train.experiment import ExperimentSetup
+
+        out_dir = REPO / "build" / "chip_smoke_table_4_4"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        argv = ["--config", str(REPO / "configs" / "config_st_interp.yaml"),
+                "--data_file", str(self.data_file),
+                "--n_experiments", str(TABLE_SEEDS), "--engine", "vmap",
+                "--overrides", json.dumps({"epochs": EPOCHS,
+                                           "basis_unfreeze_epoch":
+                                           TABLE_UNFREEZE}),
+                "--output_dir", str(out_dir)]
+        print("Table 4.4 phase: python3 -m st_dadk_tpu_torch.cli.run_table_4_4 "
+              + " ".join(argv), flush=True)
+        _, counts = self.counted(lambda: t44.main(argv))
+        print("launches: " + json.dumps(counts), flush=True)
+        summary = json.loads((out_dir / "table_4_4_summary.json").read_text())
+        cells = {k: v for k, v in summary.items() if not k.startswith("_")}
+        check(len(cells) == 8 and all(
+            e["n"] == TABLE_SEEDS and np.isfinite(e["test_crps_mean"])
+            for e in cells.values()),
+            f"table_4_4_summary.json: {json.dumps(cells)}")
+        fused = ("fused_first_layer_fwd", "fused_first_layer_bwd_w",
+                 "fused_first_layer_bwd_centers")
+        for nm, c in counts.items():
+            check(c > 0 if nm in fused else c == 0,
+                  f"{nm} launched {c} times in the Table 4.4 phase")
+        for scenario, model in (k.split("/") for k in cells):
+            cdir = out_dir / f"table4.4_{scenario}_{model}"
+            cfg = ExperimentConfig.from_yaml(cdir / "config.yaml")
+            check(cfg.device == "tpu", f"{cdir.name}: device {cfg.device!r}")
+            grid = uniform_grid_centers(cfg.k_spatial_centers)[0]
+            for i in range(1, TABLE_SEEDS + 1):
+                info = np.load(cdir / "experiments" / str(i) / "basis_info.npz")
+                init = info["spatial_centers_init"]
+                final = info["spatial_centers_final"]
+                moved = float(np.abs(final - init).max())
+                if model == "STDK":
+                    check(bool(np.array_equal(init, grid)
+                               and np.array_equal(final, grid)),
+                          f"{cdir.name} lane {i}: centers are not the uniform "
+                          f"grid (moved {moved:.3e})")
+                    continue
+                check(moved > 0.0, f"{cdir.name} lane {i}: the centers did "
+                      f"not move in training")
+                if i > 1:
+                    continue     # lane 1's init alone, for time; phase 10
+                                 # holds every lane of a batch
+                setup = ExperimentSetup(cfg, i, "cuda", defer_model=True)
+                want, _ = init_spatial_centers(
+                    "kmeans_balanced", cfg.k_spatial_centers,
+                    setup.train_ps.coords,
+                    generator=self.torch.Generator(device="cuda").manual_seed(
+                        setup.experiment_seed),
+                    device="cuda", rng=setup.np_rng)
+                d = float(np.abs(init - want).max())
+                print(f"  {cdir.name} lane {i}: initial centers vs its "
+                      f"balanced k-means alone max |d| {d:.3e}; moved "
+                      f"{moved:.3e} in training", flush=True)
+                check(bool(np.allclose(init, want, rtol=KMB_BATCH_RTOL,
+                                       atol=KMB_BATCH_ATOL)),
+                      f"{cdir.name} lane {i}: initial centers {d:.3e} from "
+                      f"its balanced k-means")
+
+    def per_tau_phase(self):
+        """Phase 12: the bench workload as per-tau quantile fits,
+        PER_TAU_SEEDS experiments x PER_TAU_LEVELS as lanes through the
+        runner's engine 'vmap': the quantile_<q>/ trees and the aggregated
+        results.json; then lane (first seed, tau 0.5) of a quiet 3-epoch run
+        (dropout 0, no shuffling, basis unfrozen; three taus, so tau is lane
+        data) against its single fit: losses at LANE_EARLY_RTOL, the center
+        shift at it in epoch 1 and by phase 6's drift rule after."""
+        import shutil
+
+        import numpy as np
+
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.config import ExperimentConfig
+        from st_dadk_tpu_torch.train import loop
+        from st_dadk_tpu_torch.train.experiment import (ExperimentSetup,
+                                                        run_single_experiment)
+        from st_dadk_tpu_torch.train.runner import run_multiple_experiments
+
+        out_dir = REPO / "build" / "chip_smoke_per_tau"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        levels = list(PER_TAU_LEVELS)
+        cfg = bench_workload(data_file=str(self.data_file), epochs=EPOCHS,
+                             n_experiments=PER_TAU_SEEDS,
+                             regression_type="quantile",
+                             quantile_levels=levels)
+        print(f"per-tau phase: {PER_TAU_SEEDS} experiments x taus {levels} "
+              f"= {PER_TAU_SEEDS * len(levels)} lanes, {EPOCHS} epochs",
+              flush=True)
+        summary, counts = self.counted(lambda: run_multiple_experiments(
+            cfg, out_dir / "lanes", engine="vmap", device="cuda"))
+        print("launches: " + json.dumps(counts), flush=True)
+        for nm, c in counts.items():
+            check(c > 0 if nm in LANE_KERNELS else c == 0,
+                  f"{nm} launched {c} times in the per-tau phase")
+        check(summary is not None
+              and summary["n_experiments"] == PER_TAU_SEEDS
+              and "test_crps" in summary["statistics"],
+              "per-tau summary: no test_crps statistics")
+        for i in range(1, PER_TAU_SEEDS + 1):
+            exp = out_dir / "lanes" / "experiments" / str(i)
+            for q in levels:
+                qd = exp / f"quantile_{q}"
+                for f in ("results.json", "training_history.csv",
+                          "predictions.npz", "basis_info.npz",
+                          "model_final.npz"):
+                    check((qd / f).exists(), f"per-tau {i}: {qd.name}/{f} is "
+                          f"missing")
+                r = json.loads((qd / "results.json").read_text())
+                check(r["quantile_level"] == q and r["n_epochs_run"] == EPOCHS
+                      and np.isfinite(r["test_check_loss"]),
+                      f"per-tau {i}: {qd.name}/results.json")
+            agg = json.loads((exp / "results.json").read_text())
+            check(set(agg) == PER_TAU_KEYS and agg["quantile_levels"] == levels
+                  and np.isfinite(agg["test_crps"])
+                  and agg["test_rmse"] == float(np.sqrt(agg["test_mse"])),
+                  f"per-tau {i}: aggregated results.json keys "
+                  f"{sorted(set(agg) ^ PER_TAU_KEYS)} differ")
+            print(f"experiment {i}: test CRPS over the tau models "
+                  f"{agg['test_crps']!r}, mean check loss "
+                  f"{agg['test_check_loss']!r}", flush=True)
+
+        quiet = dict(cfg, dropout=0.0, shuffle="none", save_artifacts=False,
+                     epochs=LANE_EARLY_EPOCHS, basis_unfreeze_epoch=0)
+        run_multiple_experiments(quiet, out_dir / "quiet", engine="vmap",
+                                 device="cuda")
+        lane = json.loads((out_dir / "quiet" / "experiments" / "1" /
+                           "quantile_0.5" / "results.json").read_text())
+        single = run_single_experiment(
+            dict(quiet, quantile_levels=[0.5]), 1, out_dir / "single",
+            device="cuda", verbose=False)
+        check(single["quantile_level"] == 0.5, "the single fit is not tau 0.5")
+        for key in ("train_loss", "val_loss"):
+            a = np.asarray(lane["training_history"][key])
+            b = np.asarray(single["training_history"][key])
+            gap = float((np.abs(a - b) / np.abs(b)).max())
+            print(f"per-tau lane (seed {lane['experiment_seed']}, tau 0.5) vs "
+                  f"its single fit, {key}: relative gap {gap:.1e}", flush=True)
+            check(a.shape == b.shape and gap <= LANE_EARLY_RTOL,
+                  f"per-tau lane: {key} {gap:.3e} from its single fit's (bar "
+                  f"{LANE_EARLY_RTOL})")
+        # the centers: under one tau's check loss a residual's sign flips
+        # with its last bit, so the lane's center path may drift from its
+        # single fit's as far as rounding alone moves it: LANE_DRIFT_FACTOR
+        # x what W_s one ulp up does to the single fit (phase 6's rule)
+        cfg1 = ExperimentConfig.from_dict(dict(quiet, quantile_levels=[0.5]))
+        setup = ExperimentSetup(cfg1, 1, "cuda")
+        with self.torch.no_grad():
+            w = setup.model.mlp.linear_0.w
+            w.copy_(self.torch.nextafter(w, self.torch.full_like(w, 10.0)))
+        nudged = loop.fit(cfg1.replace(current_quantile=0.5), setup.spec,
+                          setup.model, setup.train_ps, setup.valid_ps,
+                          seed=setup.experiment_seed)
+        a, b = (np.asarray(lane["basis_center_shift"]),
+                np.asarray(single["basis_center_shift"]))
+        gap = np.abs(a - b) / b
+        bar = np.maximum(LANE_EARLY_RTOL, LANE_DRIFT_FACTOR * np.maximum.
+                         accumulate(np.abs(nudged.center_shift - b) / b))
+        print("per-tau lane vs its single fit, center shift by epoch: "
+              "relative gap " + " ".join(f"{g:.1e}" for g in gap)
+              + "; bar (10 x the one-ulp drift) "
+              + " ".join(f"{g:.1e}" for g in bar), flush=True)
+        check(b[0] > 0.0 and gap[0] <= LANE_EARLY_RTOL
+              and not (np.maximum.accumulate(gap) > bar).any(),
+              f"per-tau lane: center shift {a} vs its single fit's {b}")
+
+    def grid_phase(self):
+        """Phase 13: `run_grid_search` over {uniform+fixed,
+        kmeans_balanced+learnable} x RAGGED_GRID, GRID_SEEDS seeds, engine
+        vmap: the four CSV/JSON files, one summary a config, each bucket a
+        ragged batch padded to LANE_PAD on the phi route with its junk rows
+        exactly 0."""
+        import csv
+        import shutil
+
+        import numpy as np
+
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.cli.run_grid_search import config_filter
+        from st_dadk_tpu_torch.sweep.grid import run_grid_search
+        from st_dadk_tpu_torch.train import batch_engine as tbe
+
+        out_dir = REPO / "build" / "chip_smoke_grid"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        base = bench_workload(data_file=str(self.data_file), epochs=EPOCHS,
+                              n_experiments=GRID_SEEDS, save_artifacts=True)
+        param_grid = {"spatial_init_method": ["uniform", "kmeans_balanced"],
+                      "spatial_learnable": [True, False],
+                      "k_spatial_centers": [list(k) for k in RAGGED_GRID]}
+        states = []
+        finalize = tbe._finalize_job_batch
+        tbe._finalize_job_batch = lambda st: states.append(st) or finalize(st)
+        try:
+            results, counts = self.counted(lambda: run_grid_search(
+                base, param_grid, out_dir, filter_fn=config_filter,
+                engine="vmap", device="cuda"))
+        finally:
+            tbe._finalize_job_batch = finalize
+        print("grid phase: " + ", ".join(r["config"]["tag"] for r in results)
+              + "; launches: " + json.dumps(counts), flush=True)
+        check(len(results) == 4 and all(r["status"] == "success"
+                                        for r in results),
+              f"grid: {[(r['config']['tag'], r['status']) for r in results]}")
+        for f in ("grid_search_summary.csv", "grid_search_detail.csv",
+                  "grid_search_configs.json", "grid_search_configs.csv"):
+            check((out_dir / f).exists(), f"grid: {f} is missing")
+        with open(out_dir / "grid_search_summary.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == 4 and all(np.isfinite(float(r["test_crps_mean"]))
+                                     for r in rows),
+              f"grid_search_summary.csv holds {len(rows)} rows")
+        with open(out_dir / "grid_search_detail.csv", newline="") as f:
+            check(len(list(csv.DictReader(f))) == 4 * GRID_SEEDS,
+                  "grid_search_detail.csv: not one row a fit")
+        for r in results:
+            st = json.loads((out_dir / r["config"]["tag"] / "summary" /
+                             "summary_statistics.json").read_text())
+            check(st["n_experiments"] == GRID_SEEDS,
+                  f"{r['config']['tag']}: summary of {st['n_experiments']}")
+        for nm in BASIS_LANE_KERNELS:
+            check(counts[nm] > 0, f"{nm} was never launched by the grid")
+        for nm, c in counts.items():
+            if nm.startswith("fused_first_layer"):
+                check(c == 0, f"{nm} launched {c} times in ragged buckets")
+        check(len(states) == 2 and all(len(st["setups"]) == 2 * GRID_SEEDS
+                                       for st in states),
+              f"grid: {len(states)} batches, not one a bucket of "
+              f"{2 * GRID_SEEDS} lanes")
+        k_t = sum(base["k_temporal_centers"])
+        for st in states:
+            trained = {n: p.detach().cpu().numpy()
+                       for n, p in st["lanes_model"].named_parameters()}
+            for li, s in enumerate(st["setups"]):
+                check(s.cfg.k_spatial_pad == LANE_PAD,
+                      f"grid lane {li}: padded to {s.cfg.k_spatial_pad}")
+                k_real = sum(s.cfg.k_spatial_centers)
+                serving = st["results"][li].params
+                # a fixed basis has no centers among its params
+                for where, c, w0 in (
+                        ("serving", serving.get("basis", {}).get("centers"),
+                         serving["mlp"]["linear_0"]["w"]),
+                        ("trained", trained.get("basis.centers"),
+                         trained["mlp.linear_0.w"][li])):
+                    if c is not None and c.ndim == 3:
+                        c = c[li]
+                    check(w0.shape[0] == LANE_PAD + k_t and (
+                        c is None or c.shape == (LANE_PAD, 2)),
+                          f"grid lane {li}: {where} params not padded")
+                    junk = max([float(np.abs(x).max()) for x in
+                                (w0[k_real:LANE_PAD],
+                                 None if c is None else c[k_real:])
+                                if x is not None and x.size] or [0.0])
+                    check(junk == 0.0, f"grid lane {li} ({s.cfg.tag}): "
+                          f"{where} padded rows moved: max |x| {junk}")
+        print(f"grid: {len(states)} ragged buckets of {2 * GRID_SEEDS} lanes "
+              f"padded to {LANE_PAD}; junk rows exactly 0", flush=True)
 
     def saved_model(self, cfg, out_dir, device, pad=None):
         """The fit's saved params as a model on `device`; with `pad`, padded

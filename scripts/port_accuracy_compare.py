@@ -14,6 +14,24 @@ first run's sigma of the mean (std / sqrt(n)), the rule of
 indistinguishable from seed noise at 10 repeats. A second row gives the
 same delta over sqrt(sigma_mean_ref^2 + sigma_mean_run^2), the spread of
 a difference of two means, for reading only. Needs numpy only.
+
+    python scripts/port_accuracy_compare.py --table44 NAME=TREE NAME=TREE \
+        [--out results/port_accuracy/table_4_4/table.md]
+
+Table 4.4 instead: each TREE is the output of `scripts/run_table_4_4.py` or
+`python3 -m st_dadk_tpu_torch.cli.run_table_4_4`, one directory a
+(scenario, model) cell with its `summary/all_experiments.csv`. For each
+cell: test CRPS mean and std of every run, and every later run's delta
+against the first run's mean in the first run's sigma_mean; |delta| beyond
+`FAR_SIGMA` is named. For each scenario: whether DA-STDK's mean CRPS is
+below STDK's, on every side.
+
+    python scripts/port_accuracy_compare.py --collect TREE DEST
+
+copies a Table 4.4 tree's summaries (`table_4_4_summary.json`,
+`run_info.json`, and each cell's `config.yaml`, `scenario_summary.json`
+and `summary/*.{json,csv}`) to DEST, without the per-experiment
+directories.
 """
 from __future__ import annotations
 
@@ -28,6 +46,10 @@ import numpy as np
 
 METRICS = ("test_crps", "test_rmse")
 NOISE_SIGMA = 0.6
+FAR_SIGMA = 2.0
+SCENARIOS = ("Fixed_Uniform", "Fixed_Clustered", "Random_Uniform",
+             "Random_Clustered")
+MODELS = ("STDK", "DA-STDK")
 
 
 def read_run(run_dir: Path):
@@ -97,17 +119,118 @@ def table(runs) -> str:
     return "\n".join(lines)
 
 
+def _cell_dir(tree: Path, scenario: str, model: str) -> Path:
+    return tree / f"table4.4_{scenario}_{model}"
+
+
+def read_table44(tree: Path):
+    """({(scenario, model): {seed: test CRPS}}, run_info or {})."""
+    cells = {}
+    for scenario in SCENARIOS:
+        for model in MODELS:
+            path = _cell_dir(tree, scenario, model) / "summary" / \
+                "all_experiments.csv"
+            with open(path, newline="", encoding="utf-8") as f:
+                cells[(scenario, model)] = {
+                    int(r["experiment_seed"]): float(r["test_crps"])
+                    for r in csv.DictReader(f)}
+    info = {}
+    if (tree / "run_info.json").exists():
+        info = json.loads((tree / "run_info.json").read_text())
+    return cells, info
+
+
+def table44(runs) -> str:
+    """Markdown of Table 4.4 on every side and the per-cell deltas against
+    the first; `runs` is [(name, cells, info)]."""
+    names = [n for n, _, _ in runs]
+    lines = []
+    for name, cells, info in runs:
+        wall = info.get("wall_seconds")
+        lines.append(f"- `{name}`: {info.get('framework', '?')} engine "
+                     f"{info.get('engine', '?')} on "
+                     f"{info.get('hardware', 'not recorded')}"
+                     + (f", wall {wall:.1f} s" if wall is not None else "")
+                     + ", seeds " + ", ".join(str(n) for n in sorted(
+                         {len(v) for v in cells.values()})) + " a cell")
+    lines.append("")
+    lines.append("| scenario | model | " + " | ".join(
+        f"{n} test CRPS mean +- std" for n in names) + " | " + " | ".join(
+        f"{n} - {names[0]}" for n in names[1:]) + " |")
+    lines.append("|---|---|" + "---|" * (2 * len(names) - 1))
+    far = []
+    for scenario in SCENARIOS:
+        for model in MODELS:
+            stats = []
+            for _, cells, _ in runs:
+                v = np.asarray(list(cells[(scenario, model)].values()),
+                               np.float64)
+                stats.append((float(v.mean()), float(v.std()), v.size))
+            ref_mean, ref_std, ref_n = stats[0]
+            sig = ref_std / math.sqrt(max(ref_n, 1))
+            deltas = []
+            for name, (m, _, _) in zip(names[1:], stats[1:]):
+                z = (m - ref_mean) / sig if sig > 0 else float("nan")
+                deltas.append(f"{m - ref_mean:+.6f} = {z:+.2f} sigma_mean")
+                if not abs(z) <= FAR_SIGMA:
+                    far.append(f"{scenario} / {model}: `{name}` {z:+.2f} "
+                               f"sigma_mean")
+            lines.append(f"| {scenario} | {model} | " + " | ".join(
+                f"{m:.6f} +- {sd:.6f} (n={n})" for m, sd, n in stats)
+                + " | " + " | ".join(deltas) + " |")
+    lines.append("")
+    lines.append("DA-STDK's mean test CRPS below STDK's:")
+    lines.append("")
+    lines.append("| scenario | " + " | ".join(names) + " |")
+    lines.append("|---|" + "---|" * len(names))
+    for scenario in SCENARIOS:
+        cells_ = []
+        for _, cells, _ in runs:
+            st, da = (float(np.mean(list(cells[(scenario, m)].values())))
+                      for m in MODELS)
+            cells_.append(f"{'yes' if da < st else 'no'} ({da - st:+.6f})")
+        lines.append(f"| {scenario} | " + " | ".join(cells_) + " |")
+    lines.append("")
+    lines.append(f"sigma_mean = std / sqrt(n) of `{names[0]}`'s cell; "
+                 f"|delta| beyond {FAR_SIGMA} sigma_mean: "
+                 + ("; ".join(far) if far else "none") + ".")
+    return "\n".join(lines)
+
+
+def collect(tree: Path, dest: Path) -> None:
+    """Copy a Table 4.4 tree's summaries (module docstring) to `dest`."""
+    import shutil
+    files = [tree / "table_4_4_summary.json", tree / "run_info.json"]
+    for scenario in SCENARIOS:
+        for model in MODELS:
+            cell = _cell_dir(tree, scenario, model)
+            files += [cell / "config.yaml", cell / "scenario_summary.json"]
+            files += sorted((cell / "summary").glob("*.json"))
+            files += sorted((cell / "summary").glob("*.csv"))
+    for f in files:
+        if f.exists():
+            out = dest / f.relative_to(tree)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            shutil.copyfile(f, out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("runs", nargs="+", help="NAME=RUN_DIR, reference first")
+    ap.add_argument("runs", nargs="*", help="NAME=RUN_DIR, reference first")
+    ap.add_argument("--table44", action="store_true",
+                    help="the runs are Table 4.4 trees")
+    ap.add_argument("--collect", nargs=2, type=Path, metavar=("TREE", "DEST"))
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
+    if args.collect:
+        collect(*args.collect)
+        return 0
     runs = []
     for item in args.runs:
         name, _, path = item.partition("=")
-        rows, info = read_run(Path(path))
-        runs.append((name, rows, info))
-    text = table(runs)
+        runs.append((name, *(read_table44 if args.table44 else read_run)(
+            Path(path))))
+    text = (table44 if args.table44 else table)(runs)
     print(text)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

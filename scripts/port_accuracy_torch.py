@@ -16,6 +16,13 @@ packages agree in distribution, not seed by seed. `--skip_existing` resumes
 a run that was cut. `run_info.json` records the card's name and power limit
 beside the wall time. The model and prediction files are not written
 (`save_artifacts: false`): the scores and histories are in `results.json`.
+
+    python3 scripts/port_accuracy_torch.py --table44 --engine vmap \
+        --output_dir build/port_accuracy/table_4_4_torch [--n 10]
+
+Table 4.4 instead: the port's `st_dadk_tpu_torch.cli.run_table_4_4` on
+configs/config_st_interp.yaml, n seeds a cell, with the same overrides
+(`save_artifacts: false`), and its `run_info.json`.
 """
 from __future__ import annotations
 
@@ -41,6 +48,8 @@ def main(argv=None) -> int:
                     help="cut the 500-epoch cap (for a rehearsal)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--skip_existing", action="store_true")
+    ap.add_argument("--table44", action="store_true",
+                    help="run Table 4.4 through the port's CLI")
     args = ap.parse_args(argv)
 
     import torch
@@ -59,6 +68,29 @@ def main(argv=None) -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0]
     data_file = args.data_file or bench_data_file()
+    if args.table44:
+        from st_dadk_tpu_torch.cli import run_table_4_4
+        extra = {"save_artifacts": False}
+        if args.epochs is not None:
+            extra["epochs"] = args.epochs
+        if args.device != "cuda":
+            extra["device"] = args.device
+        t0 = time.time()
+        run_table_4_4.main(
+            ["--config", str(REPO / "configs" / "config_st_interp.yaml"),
+             "--data_file", str(data_file), "--n_experiments", str(args.n),
+             "--engine", args.engine, "--overrides", json.dumps(extra),
+             "--output_dir", str(args.output_dir)]
+            + (["--skip-existing"] if args.skip_existing else []))
+        info = {"framework": "torch", "torch": torch.__version__,
+                "engine": args.engine, "n": args.n, "table": "4.4",
+                "data_file": Path(data_file).name,
+                "wall_seconds": time.time() - t0,
+                "resumed": bool(args.skip_existing), "hardware": card}
+        (args.output_dir / "run_info.json").write_text(
+            json.dumps(info, indent=1))
+        print(f"wall {info['wall_seconds']:.1f} s on {card}", flush=True)
+        return 0
     overrides = dict(data_file=str(data_file), n_experiments=args.n,
                      tag="port_accuracy_torch", save_artifacts=False)
     if args.epochs is not None:

@@ -1,5 +1,7 @@
-"""Data-adaptive basis-center initialisation, GMM path (port of the 'gmm'
-branch of `st_dadk_tpu/ops/init_centers.py`).
+"""Data-adaptive basis-center initialisation (port of
+`st_dadk_tpu/ops/init_centers.py`: 'gmm', 'kmeans_balanced', 'random_site').
+
+GMM path:
 
 Spherical-covariance EM with exact sequential k-means++ seeding, n_init=3
 restarts and sklearn's tol stop (|delta mean log-likelihood| < 1e-3), the
@@ -20,6 +22,21 @@ stays on the device, read by the host every `EM_CHECK_EVERY` iterations
 instead of one log-likelihood an iteration a run. Lanes share an EM batch
 only where their subsamples have one size, so no run's sums see padding and
 a lane's centers and bandwidths are bit for bit those of the lane alone.
+
+'kmeans_balanced' (`balanced_kmeans`, `_bkm`): Lloyd steps whose
+assignment is a log-domain Sinkhorn transport plan between the points
+(mass 1/n each) and the clusters (capacity 1/k each), 50 steps of 40
+Sinkhorn iterations, centers the plan-weighted means, the best of three
+k-means++-seeded restarts by final transport cost (the first of equals),
+bandwidths 2.5x the mean distance to the 4 nearest centers
+(`_nn_bandwidths`). Its Sinkhorn iterations are plain PyTorch operations on
+(runs, n, k) tensors: the JAX package leaves them to XLA too. All lanes x
+restarts of one subsample size run as one batch, every reduction arranged
+so that a run sums alike whatever shares its batch: a lane's centers are
+bit for bit those of the lane alone.
+'random_site' draws k training sites a resolution from the lane's numpy
+stream with the JAX package's call pattern. 'kmeans_exact' (a host-side
+min-cost-flow solver in the JAX package) is not ported.
 """
 from __future__ import annotations
 
@@ -34,7 +51,14 @@ from st_dadk_tpu_torch.ops.basis import (uniform_bandwidth_for,
                                          uniform_grid_centers)
 
 MAX_INIT_SAMPLES = 10_000
-DATA_ADAPTIVE_INIT_METHODS = ("gmm",)
+# the init methods that consume training coordinates
+DATA_ADAPTIVE_INIT_METHODS = ("gmm", "random_site", "kmeans_balanced",
+                              "kmeans_exact")
+# refused by the experiment set-up before any data is read
+UNPORTED_INIT_METHODS = {
+    "kmeans_exact": "the exact min-cost-flow k-means (st_dadk_tpu/ops/"
+                    "kmeans_exact.py with native/transport.cpp) is not ported "
+                    "yet (ROADMAP Queue 1 item 4)"}
 
 
 def _choice(p: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -168,6 +192,153 @@ def gmm_spherical(X: torch.Tensor, k: int,
     return means[0, best], sigmas[0, best]
 
 
+BKM_BATCH_ELEMENTS = 2 ** 27   # floats of one (runs, n, k) tensor
+# points a run's rows are padded to: a (runs, k, n) row then starts 16-byte
+# aligned wherever its run sits in the batch, and a row of n / 32 too
+BKM_ROW_ALIGN = 128
+
+
+def _halving_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim by halving adds, zero-padded to a power of
+    two: elementwise ops only, so the order is the same whatever the other
+    dims hold."""
+    m = x.shape[-1]
+    width = 1 << max(m - 1, 0).bit_length()
+    x = torch.nn.functional.pad(x, (0, width - m))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _bkm(X: torch.Tensor, seeds: torch.Tensor, max_iter: int = 50,
+         sinkhorn_iters: int = 40, eps_scale: float = 0.02
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Balanced k-means for L lanes x I restarts at once: X (L, n, 2) each
+    lane's points, seeds (L, I, k, 2) -> (centers (L, I, k, 2), final
+    transport cost (L, I)). JAX `balanced_kmeans`' `fit_once`, a run each:
+    every Lloyd step takes d2 once and runs the Sinkhorn iterations on it
+    with eps = eps_scale * mean(d2) + 1e-9, then sets the centers to
+    P^T X / (column mass + 1e-12); the cost is sum(P * d2) of the final
+    centers' plan. Each op serves all runs, and no value is read on the
+    host inside the loops.
+
+    A run's arithmetic does not depend on which runs share its batch, so a
+    lane in a batch is bit for bit the lane alone: 51 plans, each kept as
+    the best of three restarts whose costs may tie to the last bits, turn
+    any difference into another restart (seen on an H100: centers 0.8
+    apart). Every reduction is over a contiguous last dim of one run's rows
+    (over the centers of d2 (runs, n, k), over the points of its transpose
+    (runs, k, n)), whose kernel sums a row the same way whatever the number
+    of rows; the points are zero-padded to a multiple of BKM_ROW_ALIGN with
+    point mass 0 (log mass -inf), so every row starts aligned alike; a
+    run's total (eps, cost) ends in `_halving_sum`."""
+    L, n, d = X.shape
+    I, k = seeds.shape[1], seeds.shape[2]
+    R = L * I
+    n_pad = -(-n // BKM_ROW_ALIGN) * BKM_ROW_ALIGN
+    Xr = torch.nn.functional.pad(X, (0, 0, 0, n_pad - n))[:, None].expand(
+        L, I, n_pad, d).reshape(R, n_pad, d)
+    XrT = Xr.transpose(1, 2).contiguous()                  # (R, 2, n_pad)
+    real = torch.arange(n_pad, device=X.device) < n
+    # point mass 1/n, 0 on the padding: its f is -inf and its plan column 0
+    log_a = torch.where(real, -math.log(float(n)), -math.inf).to(
+        X.dtype)[None, :, None]
+    log_b = -math.log(float(k))              # cluster capacity 1/k
+
+    def pairwise(c):                         # (R, n_pad, k), (R, k, n_pad)
+        diff = Xr[:, :, None, :] - c[:, None, :, :]
+        d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+        return d2, d2.transpose(1, 2).contiguous()
+
+    def ot_plan(d2, d2T):                    # the plan, transposed: (R, k, n)
+        rows = torch.sum(d2, dim=2) * real                 # (R, n_pad)
+        total = _halving_sum(torch.sum(rows.view(R, 32, n_pad // 32), dim=2))
+        eps = (eps_scale * (total / (n * k)) + 1e-9)[:, None, None]
+        f = torch.zeros((R, n_pad, 1), dtype=X.dtype, device=X.device)
+        g = torch.zeros((R, k, 1), dtype=X.dtype, device=X.device)
+        for _ in range(sinkhorn_iters):
+            f = eps * (log_a - torch.logsumexp(
+                (g.transpose(1, 2) - d2) / eps, dim=2, keepdim=True))
+            g = eps * (log_b - torch.logsumexp(
+                (f.transpose(1, 2) - d2T) / eps, dim=2, keepdim=True))
+        return torch.exp((f.transpose(1, 2) + g - d2T) / eps)
+
+    centers = seeds.reshape(R, k, d)
+    for _ in range(max_iter):
+        PT = ot_plan(*pairwise(centers))
+        mass = torch.sum(PT, dim=2) + 1e-12                # (R, k), ~1/k
+        centers = torch.stack(
+            [torch.sum(PT * XrT[:, j:j + 1], dim=2) for j in range(d)],
+            dim=-1) / mass[..., None]
+    d2, d2T = pairwise(centers)
+    cost = _halving_sum(torch.sum(ot_plan(d2, d2T) * d2T, dim=2))
+    return centers.reshape(L, I, k, d), cost.reshape(L, I)
+
+
+def balanced_kmeans(X: torch.Tensor, k: int,
+                    generator: Optional[torch.Generator] = None,
+                    n_init: int = 3,
+                    seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Balanced k-means of X (n, 2): centers (k, 2). `n_init`
+    k-means++-seeded restarts from `generator` (or one run per seed of
+    `seeds` (I, k, 2)); the lowest final transport cost wins, the first of
+    equals (jnp.argmin)."""
+    if seeds is None:
+        if generator is None:
+            raise ValueError("balanced_kmeans needs a generator or seeds")
+        seeds = torch.stack([kmeans_plus_plus(X, k, generator)
+                             for _ in range(n_init)])
+    centers, cost = _bkm(X[None], seeds.to(X)[None])
+    return centers[0, int(torch.argmin(cost[0]))]
+
+
+def _nn_bandwidths(centers: np.ndarray, n_neighbors: int = 4,
+                   scale: float = 2.5) -> np.ndarray:
+    """2.5 x the mean distance to the `n_neighbors` nearest other centers,
+    floored at 0.25x the uniform-grid bandwidth for the same k (copy of the
+    JAX package's numpy helper: duplicate centers, e.g. fewer distinct
+    training sites than clusters, would otherwise give a bandwidth of 0)."""
+    k = centers.shape[0]
+    if k == 1:
+        return np.array([scale], dtype=np.float32)
+    diff = centers[:, None, :] - centers[None, :, :]
+    dist = np.sqrt((diff ** 2).sum(-1))
+    np.fill_diagonal(dist, np.inf)
+    nn = min(n_neighbors, k - 1)
+    nearest = np.sort(dist, axis=1)[:, :nn]
+    bw = (nearest.mean(axis=1) * scale).astype(np.float32)
+    floor = 0.25 * scale / max(np.sqrt(k) - 1.0, 1.0)   # 0.25 x uniform bw
+    return np.maximum(bw, np.float32(floor))
+
+
+def _site_bandwidths(centers: np.ndarray, k: int,
+                     n_centers: Sequence[int]) -> np.ndarray:
+    """`_nn_bandwidths`, but a resolution of one center takes the uniform
+    bandwidth of the FIRST resolution (JAX init_centers.py:949-951)."""
+    if k == 1:
+        return np.array([uniform_bandwidth_for(int(n_centers[0]))],
+                        np.float32)
+    return _nn_bandwidths(centers)
+
+
+def random_site(train_coords: np.ndarray, n_centers: Sequence[int],
+                rng: Optional[np.random.RandomState] = None
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """k training sites a resolution, drawn from `rng` with the JAX
+    package's call pattern (with replacement only when k > n)."""
+    rng = rng or np.random.RandomState()
+    centers_list, bw_list = [], []
+    for k in n_centers:
+        k = int(k)
+        idx = rng.choice(len(train_coords), k, replace=k > len(train_coords))
+        centers = train_coords[idx].astype(np.float32)
+        centers_list.append(centers)
+        bw_list.append(_site_bandwidths(centers, k, n_centers))
+    return np.concatenate(centers_list, axis=0), np.concatenate(bw_list,
+                                                                axis=0)
+
+
 def _subsample(train_coords: np.ndarray, cap: Optional[int] = None,
                rng: Optional[np.random.RandomState] = None) -> np.ndarray:
     """Reference-stream subsample to `cap` points (drawn from `rng`)."""
@@ -190,15 +361,14 @@ def init_spatial_centers(method: str, n_centers: Sequence[int],
                          ) -> Tuple[np.ndarray, np.ndarray]:
     """(centers (sum_k, 2), bandwidths (sum_k,)) float32 numpy.
 
-    'uniform' is the regular grid; 'gmm' fits each resolution on `device`
-    (the card unless the caller names the CPU) from the training coords
-    (with their temporal duplicates, i.e. density weighting). Other JAX
-    init methods are not ported yet. This is the batch init of one lane;
-    `stats`: see `init_spatial_centers_batch`."""
-    if method == "gmm" and generator is None:
-        raise ValueError("gmm initialization needs a generator")
+    'uniform' is the regular grid; 'gmm' and 'kmeans_balanced' fit each
+    resolution on `device` (the card unless the caller names the CPU) from
+    the training coords (with their temporal duplicates, i.e. density
+    weighting); 'random_site' draws training sites from `rng`. This is the
+    batch init of one lane; `stats`: see `init_spatial_centers_batch`."""
     return init_spatial_centers_batch(
-        method, n_centers, [train_coords], [generator],
+        method, n_centers, [train_coords],
+        None if generator is None else [generator],
         None if rng is None else [rng], device, subsample, gmm_n_init,
         stats)[0]
 
@@ -217,33 +387,44 @@ def init_spatial_centers_batch(method: str, n_centers: Sequence[int],
     """The spatial init of M lanes of one resolution list at once: one
     (centers (sum_k, 2), bandwidths (sum_k,)) pair a lane.
 
-    'uniform' returns the grid M times. 'gmm': lane i subsamples from
-    `rngs[i]` and seeds every (resolution, restart) from `generators[i]`,
-    resolution by resolution, so its streams do not depend on the other
-    lanes; the EMs of all lanes x restarts of a resolution then run as one
-    batch (`_em`), and each lane keeps its best restart. Only lanes whose
-    subsamples have one size share a batch (in chunks that keep a (lanes,
-    restarts, n, k) tensor within EM_BATCH_ELEMENTS floats), and `_em`
-    takes every sum a run at a time, so a lane's result is bit for bit that
-    of the lane alone. Other init methods are not ported yet. `stats`,
-    where given, collects 'seed_seconds', 'em_seconds' (the device waited
-    for after each) and the 'em_iterations' (M, restarts) of each
-    resolution."""
+    'uniform' returns the grid M times; 'random_site' draws each lane's
+    sites from `rngs[i]`. 'gmm' and 'kmeans_balanced': lane i subsamples
+    from `rngs[i]` and seeds every (resolution, restart) from
+    `generators[i]`, resolution by resolution, so its streams do not depend
+    on the other lanes; the fits of all lanes x restarts of a resolution
+    then run as one batch (`_em`, `_bkm`), and each lane keeps its best
+    restart. Only lanes whose subsamples have one size share a batch, in
+    chunks that keep a (lanes, restarts, n, k) tensor within
+    EM_BATCH_ELEMENTS / BKM_BATCH_ELEMENTS floats; `_em` takes every sum a
+    run at a time, so a GMM lane is bit for bit the lane alone. `stats`,
+    where given, collects 'seed_seconds', 'em_seconds' (the EM's or the
+    Lloyd-Sinkhorn's; the device waited for after each), the
+    'best_restart' (M,) each lane kept and, for the GMM, the
+    'em_iterations' (M, restarts), a list of one array a resolution."""
     M = len(train_coords_list)
     if method == "uniform":
         pair = uniform_grid_centers(n_centers)
         return [pair] * M
-    if method != "gmm":
-        raise NotImplementedError(f"init method {method!r} is not ported yet")
-    if generators is None or len(generators) != M or (
-            rngs is not None and len(rngs) != M):
-        raise ValueError(f"gmm initialization of {M} lanes needs {M} "
-                         f"generators (and {M} rngs or none)")
+    if method in UNPORTED_INIT_METHODS:
+        raise NotImplementedError(f"init method {method!r}: "
+                                  f"{UNPORTED_INIT_METHODS[method]}")
+    if method not in ("gmm", "kmeans_balanced", "random_site"):
+        raise ValueError(f"Unknown init_method: {method}")
     if any(tc is None for tc in train_coords_list):
-        raise ValueError("train_coords required for gmm initialization")
+        raise ValueError(f"train_coords required for {method} initialization")
+    if rngs is not None and len(rngs) != M:
+        raise ValueError(f"{method} initialization of {M} lanes needs {M} "
+                         f"rngs or none")
+    if method == "random_site":
+        return [random_site(tc, n_centers, None if rngs is None else rngs[i])
+                for i, tc in enumerate(train_coords_list)]
+    if generators is None or len(generators) != M:
+        raise ValueError(f"{method} initialization of {M} lanes needs {M} "
+                         f"generators (and {M} rngs or none)")
+    gmm = method == "gmm"
     dev = torch.device(device)
     timed = stats is not None and dev.type == "cuda"
-    ni = 3 if gmm_n_init is None else int(gmm_n_init)
+    ni = 3 if gmm_n_init is None or not gmm else int(gmm_n_init)
     ks = [int(k) for k in n_centers]
     t0 = time.perf_counter()
     Xs = [torch.as_tensor(np.asarray(
@@ -262,28 +443,39 @@ def init_spatial_centers_batch(method: str, n_centers: Sequence[int],
         by_size.setdefault(x.shape[0], []).append(i)
     centers = [[None] * len(ks) for _ in range(M)]
     bandwidths = [[None] * len(ks) for _ in range(M)]
+    budget = EM_BATCH_ELEMENTS if gmm else BKM_BATCH_ELEMENTS
     for r, k in enumerate(ks):
         iters_r = np.zeros((M, ni), np.int32)
+        best_r = np.zeros((M,), np.int64)
         bw_min = 0.25 * uniform_bandwidth_for(k)
         for n, lanes in by_size.items():
-            step = max(1, EM_BATCH_ELEMENTS // (ni * n * k))
+            step = max(1, budget // (ni * n * k))
             for a in range(0, len(lanes), step):
                 idx = lanes[a:a + step]
-                means, sigmas, ll, iters = _em(
-                    torch.stack([Xs[i] for i in idx]),
-                    torch.stack([seeds[i][r] for i in idx]))
-                best = torch.argmax(ll, dim=1)             # (lanes,)
-                pick = torch.arange(len(idx), device=ll.device)
+                X_b = torch.stack([Xs[i] for i in idx])
+                seeds_b = torch.stack([seeds[i][r] for i in idx])
+                if gmm:
+                    means, sigmas, ll, iters = _em(X_b, seeds_b)
+                    best = torch.argmax(ll, dim=1)          # (lanes,)
+                    iters_r[idx] = iters.cpu().numpy()
+                else:
+                    means, cost = _bkm(X_b, seeds_b)
+                    best = torch.argmin(cost, dim=1)        # first of equals
+                pick = torch.arange(len(idx), device=means.device)
                 means_np = means[pick, best].cpu().numpy()
-                sig_np = sigmas[pick, best].cpu().numpy()
-                iters_r[idx] = iters.cpu().numpy()
+                best_r[idx] = best.cpu().numpy()
+                if gmm:
+                    sig_np = sigmas[pick, best].cpu().numpy()
                 for j, i in enumerate(idx):
                     centers[i][r] = means_np[j].astype(np.float32)
-                    bandwidths[i][r] = np.clip(
-                        4.23 * 2.5 * sig_np[j], bw_min,
-                        np.inf).astype(np.float32)
+                    bandwidths[i][r] = (
+                        np.clip(4.23 * 2.5 * sig_np[j], bw_min,
+                                np.inf).astype(np.float32) if gmm
+                        else _site_bandwidths(centers[i][r], k, n_centers))
         if stats is not None:
-            stats.setdefault("em_iterations", []).append(iters_r)
+            stats.setdefault("best_restart", []).append(best_r)
+            if gmm:
+                stats.setdefault("em_iterations", []).append(iters_r)
     if stats is not None:
         stats["seed_seconds"] = t1 - t0
         stats["em_seconds"] = time.perf_counter() - t1

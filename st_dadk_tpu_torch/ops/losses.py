@@ -98,6 +98,17 @@ def _lane_weighted_mean(x: torch.Tensor, weights: torch.Tensor
     return torch.sum(x * w, dim=tuple(range(1, x.dim()))) / denom
 
 
+def quantile_loss_lanes(y_pred: torch.Tensor, y_true: torch.Tensor,
+                        quantile, weights: torch.Tensor) -> torch.Tensor:
+    """`quantile_loss` a lane: y_pred and y_true (M, B, 1); `quantile` one
+    tau for all lanes (a float) or a lane's own tau, a tensor (M,)."""
+    errors = y_true - y_pred
+    if isinstance(quantile, torch.Tensor):
+        quantile = quantile.reshape(-1, *([1] * (errors.dim() - 1)))
+    per_elem = torch.maximum((quantile - 1.0) * errors, quantile * errors)
+    return _lane_weighted_mean(per_elem, weights)
+
+
 def multi_quantile_loss_lanes(y_pred: torch.Tensor, y_true: torch.Tensor,
                               quantile_levels: torch.Tensor,
                               weights: torch.Tensor) -> torch.Tensor:

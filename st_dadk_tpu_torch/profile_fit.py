@@ -38,6 +38,19 @@ activations grow with the lane count. `batch_engine.LANES_PER_DEVICE` takes
 the width this sweep finds best. With `--ragged` the lanes alternate between
 the resolutions [25, 81] and [25, 81, 121], padded to 227 centers: ragged-k
 lanes on the materialised-phi route, whose single fit is the padded lane.
+
+    python3 -m st_dadk_tpu_torch.profile_fit --init 4,16,128 \
+        [--out build/profile_init.json]
+
+The spatial init instead: the widest batch of bench-workload lanes is set up
+on the host once, then for each init method ('kmeans_balanced',
+'random_site', 'gmm') and width M the first M lanes are initialised as one
+batch (`init_spatial_centers_batch`, a warm-up and `REPEATS` timed runs, each
+lane from fresh copies of its streams) with the batch's peak device memory,
+and the first `INIT_LANE_BY_LANE` lanes one at a time (`init_spatial_centers`).
+One batched balanced k-means of the narrowest width and one lane alone run
+under `torch.profiler`: their device activities (the Sinkhorn iterations are
+plain PyTorch operations) and device time.
 """
 from __future__ import annotations
 
@@ -56,6 +69,8 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 EPOCHS = 12       # the fit chip_smoke.py runs: the basis trains from epoch 10
 REPEATS = 3
+INIT_LANE_BY_LANE = 4
+INIT_METHODS = ("kmeans_balanced", "random_site", "gmm")
 # a csrc kernel's demangled name: "(anonymous namespace)::bwd_w_kernel(...)",
 # "void (anonymous namespace)::fwd_kernel<16, 64, ...>(...)" (a template),
 # "st_slabs::centers_sum_kernel(...)" (csrc/slabs.cuh)
@@ -273,6 +288,98 @@ def lanes_sweep(widths, profile_width, out: Path, ragged: bool = False) -> int:
     return 0
 
 
+def init_sweep(widths, out: Path) -> int:
+    """Seconds a lane of each init method, batched and lane by lane, peak
+    memory a batch, and the balanced k-means' device activities (module
+    docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from st_dadk_tpu_torch.bench_workload import bench_workload
+    from st_dadk_tpu_torch.config import ExperimentConfig
+    from st_dadk_tpu_torch.dataio.synthetic import bench_data_file
+    from st_dadk_tpu_torch.ops import init_centers as ic
+    from st_dadk_tpu_torch.train import batch_engine as be
+
+    card = _card()
+    print(f"card: {card}", flush=True)
+    cfg = ExperimentConfig.from_dict(bench_workload(
+        data_file=str(bench_data_file()), n_experiments=max(widths)))
+    setups = be._prepare_job_batch(
+        [(cfg, i + 1, REPO / "build" / "profile_init" / str(i + 1))
+         for i in range(max(widths))], device="cuda")["setups"]
+    ks = list(cfg.k_spatial_centers)
+    n_pts = min(len(setups[0].train_ps.coords), ic.MAX_INIT_SAMPLES)
+
+    def streams(lanes):
+        return ([torch.Generator(device="cuda").manual_seed(s.experiment_seed)
+                 for s in lanes], [copy.deepcopy(s.np_rng) for s in lanes])
+
+    def batched(method, m):
+        gens, rngs = streams(setups[:m])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ic.init_spatial_centers_batch(
+            method, ks, [s.train_ps.coords for s in setups[:m]], gens, rngs,
+            "cuda")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def lane_by_lane(method, m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in setups[:m]:
+            (gen,), (rng,) = streams([s])
+            ic.init_spatial_centers(method, ks, s.train_ps.coords,
+                                    generator=gen, device="cuda", rng=rng)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    rows = []
+    for method in INIT_METHODS:
+        batched(method, min(widths))                       # warm-up
+        one = [lane_by_lane(method, INIT_LANE_BY_LANE) / INIT_LANE_BY_LANE
+               for _ in range(REPEATS)]
+        for m in widths:
+            torch.cuda.reset_peak_memory_stats()
+            secs = [batched(method, m) / m for _ in range(REPEATS)]
+            rows.append({"method": method, "lanes": m,
+                         "batched_s_per_lane": statistics.median(secs),
+                         "batched_runs": secs,
+                         "lane_by_lane_s_per_lane": statistics.median(one),
+                         "lane_by_lane_runs": one,
+                         "peak_device_memory_gib":
+                             torch.cuda.max_memory_allocated() / 2 ** 30})
+            r = rows[-1]
+            print(f"{method:16s} M={m:3d}: batched {r['batched_s_per_lane']:.4f}"
+                  f" s a lane (runs {', '.join(f'{x:.4f}' for x in secs)}), "
+                  f"lane by lane {r['lane_by_lane_s_per_lane']:.4f} s a lane "
+                  f"(first {INIT_LANE_BY_LANE} lanes), peak memory "
+                  f"{r['peak_device_memory_gib']:.3f} GiB", flush=True)
+
+    profiled = {}
+    for name, fn in (("batched", lambda: batched("kmeans_balanced",
+                                                 min(widths))),
+                     ("one lane", lambda: lane_by_lane("kmeans_balanced", 1))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = fn()
+        d = _device_profile(prof, 1)
+        profiled[name] = {"lanes": min(widths) if name == "batched" else 1,
+                          "wall_s": wall, "device_activities": d["activities"],
+                          "device_ms": d["device_ms"], "busy_ms": d["busy_ms"],
+                          "top_device_ms": d["top"]}
+        print(f"kmeans_balanced {name} ({profiled[name]['lanes']} lanes) under "
+              f"the profiler: {d['activities']} device activities, "
+              f"{d['device_ms']:.3f} ms device time, busy {d['busy_ms']:.3f} "
+              f"ms of {1e3 * wall:.3f} ms wall", flush=True)
+    report = {"card": card, "resolutions": ks, "points_a_lane": n_pts,
+              "rows": rows, "kmeans_balanced_profiled": profiled}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    print(f"wrote {out}", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=Path, default=None)
@@ -286,12 +393,18 @@ def main(argv=None) -> int:
                     help="with --lanes: ragged-k lanes (the materialised-phi "
                          "route), resolutions alternating, padded to one "
                          "width")
+    ap.add_argument("--init", default=None,
+                    help="comma-separated lane widths: time the spatial "
+                         "init methods instead of a fit")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fit: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.init:
+        return init_sweep([int(x) for x in args.init.split(",")],
+                          args.out or REPO / "build" / "profile_init.json")
     if args.lanes:
         return lanes_sweep([int(x) for x in args.lanes.split(",")],
                            args.profile_lanes,

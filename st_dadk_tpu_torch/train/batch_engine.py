@@ -36,8 +36,14 @@ holds `GLOBAL_NP_RNG_LOCK`. The JAX engine pads a tail batch to the common
 lane width to reuse its compiled program; eager PyTorch compiles nothing, so
 a tail batch runs at its own width.
 
-Not carried, each raising NotImplementedError where a caller asks for it:
-per-tau jobs (`regression_type: quantile` with several levels) and `mesh`
+Per-tau quantile fits (`regression_type: quantile` with several levels)
+run as one lane a (experiment, tau), written to `<i>/quantile_<q>/` as the
+single path writes them; a batch of one tau trains on it as a float, a
+batch of several taus takes each lane's tau as lane data; then each
+experiment's aggregated `results.json` comes from the single path's reload
+(`aggregate_per_tau`).
+
+Not carried, raising NotImplementedError where a caller asks for it: `mesh`
 arguments. Left out without a knob of its own: tail compaction, packed
 transfers, the bf16 flip past a lane count, the streaming pod path and the
 on-device metrics program; the knobs that select them stay accepted and
@@ -55,7 +61,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from st_dadk_tpu_torch.config import ExperimentConfig
+from st_dadk_tpu_torch.config import ExperimentConfig, resolve_device
 from st_dadk_tpu_torch.dataio.arrays import dense_grid_points
 from st_dadk_tpu_torch.models.st_interp import (STInterpLanes,
                                                 from_jax_params, model_consts,
@@ -64,7 +70,8 @@ from st_dadk_tpu_torch.ops.init_centers import (DATA_ADAPTIVE_INIT_METHODS,
                                                 init_spatial_centers_batch)
 from st_dadk_tpu_torch.train.experiment import (ExperimentSetup,
                                                 finalize_experiment,
-                                                metrics_from_preds)
+                                                metrics_from_preds,
+                                                run_single_experiment)
 from st_dadk_tpu_torch.train.loop import (FitResult, LaneData, fit_lanes,
                                           lane_data_to, predict_lanes,
                                           stack_lane_data)
@@ -88,13 +95,16 @@ def run_experiment_batch(cfg: ExperimentConfig, exp_ids: List[int],
                          mesh: Any = None) -> List[Dict[str, Any]]:
     """Run all `exp_ids` of one config as lanes of one batched program; one
     results dict a lane that ran. Per-tau jobs (one model a quantile level)
-    are not ported."""
-    if is_per_tau(cfg):
-        raise NotImplementedError(
-            "per-tau lanes (regression_type 'quantile' with several levels) "
-            "wait for the per-tau fits (ROADMAP Queue 1: the rest of the "
-            "fit's options)")
+    run as exp_ids x levels lanes, and then one aggregated results dict an
+    experiment comes back (JAX batch_engine.py:237-266)."""
     experiments_dir = Path(experiments_dir)
+    if is_per_tau(cfg):
+        jobs = expand_per_tau_jobs(cfg, exp_ids, experiments_dir)
+        run_lane_jobs(jobs, cfg, skip_existing=skip_existing,
+                      verbose=verbose, device=device, mesh=mesh)
+        return aggregate_per_tau(cfg, exp_ids, experiments_dir,
+                                 skip_existing=skip_existing,
+                                 verbose=verbose)
     jobs = [(cfg, i, experiments_dir / str(i)) for i in exp_ids]
     return run_lane_jobs(jobs, cfg, skip_existing=skip_existing,
                          verbose=verbose, device=device, mesh=mesh)
@@ -106,11 +116,42 @@ def is_per_tau(cfg: ExperimentConfig) -> bool:
             and len(cfg.quantile_levels) > 1)
 
 
+def expand_per_tau_jobs(cfg: ExperimentConfig, exp_ids: Sequence[int],
+                        experiments_dir: Path) -> List[Job]:
+    """One lane a (experiment, tau), written to <i>/quantile_<q>/ with its
+    predictions.npz, which the aggregation reads back."""
+    return [(cfg.replace(current_quantile=float(q), save_artifacts=True), i,
+             Path(experiments_dir) / str(i) / f"quantile_{q}")
+            for i in exp_ids for q in cfg.quantile_levels]
+
+
+def aggregate_per_tau(cfg: ExperimentConfig, exp_ids: Sequence[int],
+                      experiments_dir: Path, skip_existing: bool,
+                      verbose: bool = False) -> List[Dict[str, Any]]:
+    """Each experiment's aggregation over its tau lanes' artifacts, through
+    `run_single_experiment`'s reload path. A fresh run (not
+    `skip_existing`) first drops the experiment's stale top-level
+    results.json, so that the reload cannot stop at it."""
+    out = []
+    for i in exp_ids:
+        exp_dir = Path(experiments_dir) / str(i)
+        if not skip_existing:
+            (exp_dir / "results.json").unlink(missing_ok=True)
+        out.append(run_single_experiment(cfg, i, exp_dir, verbose=verbose,
+                                         skip_existing=True))
+    return out
+
+
+# the JAX package's list; 'config_id', 'save_plots', 'n_jobs' and
+# 'num_workers' are fields there and keys of `extra` here
 _STACKABLE_KEYS = frozenset({
     "data_file", "obs_method", "obs_ratio", "obs_spatial_pattern",
     "obs_spatial_intensity", "split_method", "train_ratio",
-    "normalize_target", "tag", "base_seed", "n_experiments", "extra",
-    "data_root", "save_artifacts", "device",
+    "normalize_target", "tag", "config_id", "base_seed", "n_experiments",
+    "extra", "data_root", "save_plots", "save_artifacts", "n_jobs",
+    "num_workers", "device",
+    # a lane's tau: lane data when a batch mixes them, a float otherwise
+    "current_quantile",
 })
 
 
@@ -129,15 +170,17 @@ def stacking_key(cfg: ExperimentConfig):
     so configs that differ only in their real k layout stack. `cfg.extra`
     is part of the key: its knobs (`shuffle`, `init_subsample`,
     `init_gmm_n_init`, ...) change the init or the epoch program, and the
-    engine reads them from the batch's first config."""
+    engine reads them from the batch's first config; the stackable keys the
+    JAX package holds as fields and the port in `extra` stay out."""
     d = dataclasses.asdict(cfg)
     skip = set(_STACKABLE_KEYS)
     if cfg.k_spatial_pad is not None:
         skip.add("k_spatial_centers")
+    extra = {k: v for k, v in cfg.extra.items() if k not in _STACKABLE_KEYS}
     return tuple(sorted(
         (k, tuple(v) if isinstance(v, list) else v)
         for k, v in d.items() if k not in skip)) + (
-            ("extra", _freeze(cfg.extra)),)
+            ("extra", _freeze(extra)),)
 
 
 def lane_width(cfg: ExperimentConfig) -> int:
@@ -252,17 +295,21 @@ def _prepare_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
             if not (skip_existing and (Path(d) / "results.json").exists())]
     if not todo:
         return None
-    cfg = todo[0][0]
     if len({stacking_key(c) for c, _, _ in todo}) != 1:
         raise ValueError("run_job_batch: configs are not stackable "
                          "(differing model/loop hyperparameters)")
-    if cfg.regression_type not in ("multi-quantile", "mean"):
-        raise NotImplementedError(
-            f"regression_type {cfg.regression_type!r} is not ported yet")
+    # an unset tau is the first quantile level, as on the single path
+    todo = [(c.replace(current_quantile=float(c.quantile_levels[0]))
+             if c.regression_type == "quantile"
+             and c.current_quantile is None else c, i, d)
+            for c, i, d in todo]
+    cfg = todo[0][0]
+    if cfg.regression_type not in ("multi-quantile", "mean", "quantile"):
+        raise ValueError(f"Unknown regression_type: {cfg.regression_type}")
     if cfg.p_covariates > 0:
         raise NotImplementedError(
             "p_covariates > 0: the fit feeds no covariates")
-    dev = torch.device(device or cfg.device)
+    dev = resolve_device(device or cfg.device)
     setups = []
     for cfg_i, exp_id, out_dir in todo:
         s = ExperimentSetup(cfg_i, exp_id, dev, verbose=False,
@@ -360,9 +407,12 @@ def _execute_job_batch(prep: Dict[str, Any], verbose: bool = False
     data: LaneData = lane_data_to(stacked["data"], prep["device"])
     lanes_model, n_params = _init_lane_carries(cfg, setups)
     t_init = time.time() - t0
+    taus = ([float(s.cfg.current_quantile) for s in setups]
+            if cfg.regression_type == "quantile" else None)
     results = fit_lanes(cfg, setups[0].spec, lanes_model, data,
                         stacked["lr_steps"], stacked["lr_recorded"],
-                        [s.experiment_seed for s in setups], verbose=verbose)
+                        [s.experiment_seed for s in setups], verbose=verbose,
+                        taus=taus)
     t_train = time.time() - t0 - t_init
     if verbose:
         print(f"[batch] {len(setups)} experiments x "
@@ -449,6 +499,9 @@ def _finalize_job_batch(state: Dict[str, Any]) -> List[Dict[str, Any]]:
                            **fit_res.timings},
             precomputed=precomputed[li],
             steps_per_epoch=state["stacked"]["data"].B_shared)
+        # a quantile lane's split predictions: the per-tau aggregation
+        # reads them back from predictions.npz
+        r.pop("_split_predictions", None)
         if r["model_parameters"] != state["n_params"][li]:
             raise RuntimeError(
                 f"lane {li}: the stripped model holds "

@@ -1,5 +1,5 @@
-"""Single-experiment runner: data -> masks -> GMM init -> fit -> eval
-(port of `st_dadk_tpu/train/experiment.py` for multi-quantile and mean fits).
+"""Single-experiment runner: data -> masks -> spatial init -> fit -> eval
+(port of `st_dadk_tpu/train/experiment.py`).
 
 Seeding matches the JAX package: experiment seed = base_seed + id - 1; the
 observation mask draws with that seed and the train/valid split with seed +
@@ -11,6 +11,11 @@ predictions.npz and basis_info.npz. No plots yet.
 A ragged-k lane (`k_spatial_pad`) draws its params at its real shapes, fits
 padded to the shared width through the materialised-phi kernels, and is
 stripped back to its real shapes before evaluation and the artifacts.
+
+`regression_type: quantile` with several levels fits one model a level in
+`quantile_<q>/` and writes the JAX package's aggregated `results.json`
+beside them, with the CRPS over the tau models (experiment.py:152-246; the
+combined fan chart is left out with the plots).
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from st_dadk_tpu_torch.config import ExperimentConfig, unported_fit_knobs
+from st_dadk_tpu_torch.config import (ExperimentConfig, resolve_device,
+                                      unported_fit_knobs)
 from st_dadk_tpu_torch.dataio.arrays import (PointSet, dense_grid_points,
                                              pointset_from_mask)
 from st_dadk_tpu_torch.dataio.kaust import load_kaust_csv_single
@@ -40,8 +46,9 @@ from st_dadk_tpu_torch.models.st_interp import (ModelSpec, STInterp,
                                                 strip_lane_padding,
                                                 to_jax_params)
 from st_dadk_tpu_torch.ops.init_centers import (DATA_ADAPTIVE_INIT_METHODS,
+                                                UNPORTED_INIT_METHODS,
                                                 init_spatial_centers)
-from st_dadk_tpu_torch.ops.losses import (check_loss_np,
+from st_dadk_tpu_torch.ops.losses import (check_loss_np, compute_crps,
                                           compute_crps_multi_quantile)
 from st_dadk_tpu_torch.train.loop import (FitResult, adaptive_batch_size, fit,
                                           predict)
@@ -78,8 +85,9 @@ def load_params_npz(path: Path) -> Dict[str, Any]:
 
 def metrics_from_preds(cfg: ExperimentConfig, preds: np.ndarray,
                        trues: np.ndarray) -> Dict[str, float]:
-    """RMSE/MAE/MSE of the median quantile (or the mean head), plus CRPS and
-    check losses for multi-quantile fits."""
+    """RMSE/MAE/MSE of the median quantile (or the single head), plus the
+    check loss of a quantile fit and CRPS and check losses for
+    multi-quantile fits."""
     if cfg.regression_type == "multi-quantile":
         mid = len(cfg.quantile_levels) // 2
         preds_m = preds[:, mid:mid + 1]
@@ -88,6 +96,9 @@ def metrics_from_preds(cfg: ExperimentConfig, preds: np.ndarray,
     mse = float(np.mean((preds_m - trues) ** 2))
     metrics = {"mse": mse, "mae": float(np.mean(np.abs(preds_m - trues))),
                "rmse": float(np.sqrt(mse))}
+    if cfg.regression_type == "quantile" and cfg.current_quantile is not None:
+        metrics["check_loss"] = check_loss_np(preds.ravel(), trues.ravel(),
+                                              float(cfg.current_quantile))
     if cfg.regression_type == "multi-quantile":
         metrics["crps"] = float(compute_crps_multi_quantile(
             preds, trues, cfg.quantile_levels))
@@ -106,9 +117,11 @@ def evaluate_pointset(cfg: ExperimentConfig, model: STInterp, ps: PointSet,
 
 
 class ExperimentSetup:
-    """Data, masks, point sets and the initialised model of one fit. Raises
-    NotImplementedError on a JAX fit knob the port does not carry
-    (`config.unported_fit_knobs`)."""
+    """Data, masks, point sets and the initialised model of one fit on
+    `device` (`config.resolve_device`). Raises NotImplementedError, before
+    any data is read, on a JAX fit knob the port does not carry
+    (`config.unported_fit_knobs`) and on an init method it does not carry
+    (`init_centers.UNPORTED_INIT_METHODS`)."""
 
     def __init__(self, cfg: ExperimentConfig, experiment_id: int,
                  device: torch.device | str, verbose: bool = False,
@@ -118,9 +131,13 @@ class ExperimentSetup:
             raise NotImplementedError(
                 f"fit knobs the port does not carry: "
                 f"{', '.join(f'{k}={cfg.extra[k]!r}' for k in knobs)}")
+        if cfg.spatial_init_method in UNPORTED_INIT_METHODS:
+            raise NotImplementedError(
+                f"spatial_init_method {cfg.spatial_init_method!r}: "
+                f"{UNPORTED_INIT_METHODS[cfg.spatial_init_method]}")
         t0 = time.perf_counter()
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.experiment_id = experiment_id
         self.experiment_seed = cfg.base_seed + experiment_id - 1
 
@@ -217,19 +234,21 @@ def run_single_experiment(config: ExperimentConfig | Dict[str, Any],
                           verbose: bool = True,
                           write_artifacts: bool = True,
                           skip_existing: bool = False) -> Dict[str, Any]:
-    """One fit end to end on `device` (default: the config's), for
-    multi-quantile and mean regressions. With `skip_existing`, a
-    `results.json` already in `output_dir` is returned as stored and nothing
-    runs (JAX experiment.py:147-150)."""
+    """One experiment end to end on `device` (default: the config's). A
+    multi-quantile or mean fit, or a quantile fit of one level (its tau the
+    first level unless `current_quantile` names one), is one fit; a
+    quantile fit of several levels is one fit a level in `quantile_<q>/`,
+    aggregated (`_run_per_tau`). With `skip_existing`, a `results.json`
+    already in `output_dir` is returned as stored and nothing runs (JAX
+    experiment.py:147-150)."""
     cfg = (config if isinstance(config, ExperimentConfig)
            else ExperimentConfig.from_dict(config))
     output_dir = Path(output_dir)
     if skip_existing and (output_dir / "results.json").exists():
         with open(output_dir / "results.json", "r", encoding="utf-8") as f:
             return json.load(f)
-    if cfg.regression_type not in ("multi-quantile", "mean"):
-        raise NotImplementedError(
-            f"regression_type {cfg.regression_type!r} is not ported yet")
+    if cfg.regression_type not in ("multi-quantile", "mean", "quantile"):
+        raise ValueError(f"Unknown regression_type: {cfg.regression_type}")
     if cfg.p_covariates > 0:
         # covariates are model-level only, as in JAX: its fit feeds none
         # (st_dadk_tpu/train/loop.py:226 calls forward with X=None)
@@ -237,9 +256,93 @@ def run_single_experiment(config: ExperimentConfig | Dict[str, Any],
             "p_covariates > 0: the fit feeds no covariates (JAX "
             "train/loop.py:226 passes X=None); STInterp takes X directly")
     output_dir.mkdir(parents=True, exist_ok=True)
+    if cfg.regression_type == "quantile" and len(cfg.quantile_levels) > 1:
+        return _run_per_tau(cfg, experiment_id, output_dir, device, verbose,
+                            write_artifacts, skip_existing)
+    if cfg.regression_type == "quantile" and cfg.current_quantile is None:
+        cfg = cfg.replace(current_quantile=float(cfg.quantile_levels[0]))
     return _run_one_fit(cfg, experiment_id, output_dir,
-                        torch.device(device or cfg.device), verbose,
+                        resolve_device(device or cfg.device), verbose,
                         write_artifacts)
+
+
+def _split_predictions(pred: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A tau model's dense field cut to the three splits, with the truth:
+    what the CRPS over the tau models reads (a predictions.npz's keys)."""
+    field, true = pred["predictions"], pred["true"]
+    out = {}
+    for split in ("train", "test", "valid"):
+        mask = pred[f"{split}_mask"]
+        out[split], out[f"{split}_true"] = field[mask], true[mask]
+    return out
+
+
+def _run_per_tau(cfg: ExperimentConfig, experiment_id: int, output_dir: Path,
+                 device: Optional[torch.device | str], verbose: bool,
+                 write_artifacts: bool, skip_existing: bool
+                 ) -> Dict[str, Any]:
+    """One model a quantile level in `quantile_<q>/` (a level already on
+    disk with its predictions.npz is reloaded under `skip_existing`), then
+    the JAX package's aggregated results (experiment.py:159-224): CRPS over
+    the tau models' split predictions, and the means over levels of their
+    check losses and MAEs. As there, `*_mse` is the mean check loss and
+    `*_rmse` its square root."""
+    quantile_results: Dict[float, Dict[str, Any]] = {}
+    quantile_preds: Dict[float, Dict[str, np.ndarray]] = {}
+    for q in cfg.quantile_levels:
+        q_dir = output_dir / f"quantile_{q}"
+        q_dir.mkdir(parents=True, exist_ok=True)
+        if skip_existing and (q_dir / "results.json").exists() \
+                and (q_dir / "predictions.npz").exists():
+            with open(q_dir / "results.json", "r", encoding="utf-8") as f:
+                quantile_results[q] = json.load(f)
+            quantile_preds[q] = _split_predictions(
+                np.load(q_dir / "predictions.npz"))
+            continue
+        q_cfg = cfg.replace(regression_type="quantile", current_quantile=q)
+        r = _run_one_fit(q_cfg, experiment_id, q_dir,
+                         resolve_device(device or cfg.device), verbose,
+                         write_artifacts)
+        quantile_preds[q] = r.pop("_split_predictions")
+        quantile_results[q] = r
+
+    qs = list(cfg.quantile_levels)
+    crps = {}
+    for split in ("train", "test", "valid"):
+        crps[split] = compute_crps({q: quantile_preds[q][split] for q in qs},
+                                   quantile_preds[qs[0]][f"{split}_true"])
+
+    def mean_of(key):
+        return float(np.mean([quantile_results[q].get(
+            key, quantile_results[q].get(key.replace("check_loss", "mse"),
+                                         0.0)) for q in qs]))
+
+    aggregated = {
+        "experiment_id": experiment_id,
+        "regression_type": "quantile",
+        "quantile_levels": qs,
+        "quantile_results": quantile_results,
+        "train_crps": float(crps["train"]),
+        "test_crps": float(crps["test"]),
+        "valid_crps": float(crps["valid"]),
+        "train_check_loss": mean_of("train_check_loss"),
+        "test_check_loss": mean_of("test_check_loss"),
+        "valid_check_loss": mean_of("valid_check_loss"),
+        "test_mse": mean_of("test_check_loss"),
+        "valid_mse": mean_of("valid_check_loss"),
+        "train_mse": mean_of("train_check_loss"),
+        "test_rmse": float(np.sqrt(mean_of("test_check_loss"))),
+        "valid_rmse": float(np.sqrt(mean_of("valid_check_loss"))),
+        "train_rmse": float(np.sqrt(mean_of("train_check_loss"))),
+        "test_mae": mean_of("test_mae"),
+        "valid_mae": mean_of("valid_mae"),
+        "train_mae": mean_of("train_mae"),
+        "total_time_seconds": float(np.sum(
+            [quantile_results[q].get("total_time_seconds", 0) for q in qs])),
+    }
+    if write_artifacts:
+        save_json(aggregated, output_dir / "results.json")
+    return aggregated
 
 
 def _run_one_fit(cfg: ExperimentConfig, experiment_id: int, output_dir: Path,
@@ -279,7 +382,8 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
     batched evaluation) holds 'train_metrics', 'val_metrics', 'test_metrics'
     and the dense median field 'all_predictions' (T, S), which then are not
     computed again; `steps_per_epoch` is the batch's shared step count
-    where it differs from this fit's own."""
+    where it differs from this fit's own. A quantile fit's returned dict
+    also holds '_split_predictions' (see `_run_per_tau`)."""
     t_eval = time.time()
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -346,7 +450,19 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
         results[f"{split}_mse"] = m["mse"]
         results[f"{split}_mae"] = m["mae"]
         results[f"{split}_rmse"] = m["rmse"]
-    if cfg.regression_type == "multi-quantile":
+    if cfg.regression_type == "quantile":
+        results["regression_type"] = "quantile"
+        results["quantile_level"] = cfg.current_quantile
+        for split, m in (("train", train_metrics), ("valid", val_metrics),
+                         ("test", test_metrics)):
+            results[f"{split}_check_loss"] = m.get("check_loss", m["mse"])
+        # the check loss stands in for the MSE in the flat keys (JAX
+        # experiment.py:556-558)
+        results["test_mse"] = test_metrics.get("check_loss",
+                                               test_metrics["mse"])
+        results["valid_mse"] = val_metrics.get("check_loss",
+                                               val_metrics["mse"])
+    elif cfg.regression_type == "multi-quantile":
         results["regression_type"] = "multi-quantile"
         results["quantile_levels"] = list(cfg.quantile_levels)
         for split, m in (("train", train_metrics), ("valid", val_metrics),
@@ -364,16 +480,20 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
                 wr.writerow([i + 1, history["train_loss"][i],
                              history["val_loss"][i], history["val_rmse"][i],
                              history["lr"][i]])
+    # the dense median (or single-head) field: an artifact, and the split
+    # predictions a per-tau aggregation reads
+    field = (precomputed or {}).get("all_predictions")
+    quantile = cfg.regression_type == "quantile"
+    if field is None and (quantile or (cfg.save_artifacts
+                                       and write_artifacts)):
+        coords_rep, t_rep = dense_grid_points(setup.T, setup.coords)
+        dense = predict(serving, coords_rep, t_rep, chunk)
+        col = (len(cfg.quantile_levels) // 2
+               if cfg.regression_type == "multi-quantile" else 0)
+        field = dense[:, col].reshape(setup.T, setup.S)
     if cfg.save_artifacts and write_artifacts:
         save_params_npz(params, output_dir / "model_final.npz")
         save_params_npz(params, output_dir / "model_best.npz")
-        field = (precomputed or {}).get("all_predictions")
-        if field is None:
-            coords_rep, t_rep = dense_grid_points(setup.T, setup.coords)
-            dense = predict(serving, coords_rep, t_rep, chunk)
-            col = (len(cfg.quantile_levels) // 2
-                   if cfg.regression_type == "multi-quantile" else 0)
-            field = dense[:, col].reshape(setup.T, setup.S)
         np.savez(output_dir / "predictions.npz", predictions=field,
                  true=setup.z_full, coords=setup.coords,
                  train_mask=setup.train_mask, valid_mask=setup.valid_mask,
@@ -396,4 +516,10 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
     if verbose:
         print(f"[EXP {setup.experiment_id}] done in "
               f"{results['total_time_formatted']} -> {output_dir}", flush=True)
+    if quantile:
+        # for the CRPS over the tau models; not in results.json
+        results["_split_predictions"] = _split_predictions(dict(
+            predictions=field, true=setup.z_full,
+            train_mask=setup.train_mask, valid_mask=setup.valid_mask,
+            test_mask=setup.test_mask))
     return results

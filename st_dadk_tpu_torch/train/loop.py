@@ -28,10 +28,17 @@ seed; dropout masks for all lanes come from one generator of the batch in
 one draw, so a lane's dropout stream differs from its sequential fit's: a
 lane and its single fit agree closely only at dropout 0 under
 `shuffle: none`, and statistically otherwise.
+
+`regression_type: quantile` is one model of one tau (`current_quantile`)
+trained on the check loss, which also drives validation and early
+stopping. Lanes of one tau take it as a float, as the single fit does;
+lanes of different taus (the per-tau fits of a batch) take each its own
+from a (M,) tensor, `fit_lanes(taus=...)`.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
 import time
 from dataclasses import dataclass
@@ -51,7 +58,8 @@ from st_dadk_tpu_torch.ops.losses import (mse_loss, mse_loss_lanes,
                                           non_crossing_penalty,
                                           non_crossing_penalty_lanes,
                                           p_nc_delta_penalty,
-                                          p_nc_delta_penalty_lanes)
+                                          p_nc_delta_penalty_lanes,
+                                          quantile_loss, quantile_loss_lanes)
 from st_dadk_tpu_torch.train.optimizer import (AdamW, AdamWLanes,
                                                build_lr_tables,
                                                clip_by_global_norm_,
@@ -66,6 +74,7 @@ class LoopSpec:
     model: ModelSpec
     regression_type: str = "mean"
     quantile_levels: Tuple[float, ...] = (0.1, 0.5, 0.9)
+    current_quantile: Optional[float] = None
     non_crossing_weight: float = 0.0
     non_crossing_power: int = 1
     non_crossing_lambda: float = 0.0
@@ -100,6 +109,7 @@ class LoopSpec:
             model=model,
             regression_type=cfg.regression_type,
             quantile_levels=tuple(cfg.quantile_levels),
+            current_quantile=cfg.current_quantile,
             non_crossing_weight=cfg.non_crossing_weight,
             non_crossing_power=cfg.non_crossing_power,
             non_crossing_lambda=cfg.non_crossing_lambda,
@@ -160,6 +170,8 @@ def loss_from_preds(spec: LoopSpec, model: STInterp, preds: torch.Tensor,
     m = spec.model
     if spec.regression_type == "mean":
         loss = mse_loss(preds, y, w)
+    elif spec.regression_type == "quantile":
+        loss = quantile_loss(preds, y, float(spec.current_quantile), w)
     elif spec.regression_type == "multi-quantile":
         q = torch.tensor(spec.quantile_levels, dtype=torch.float32,
                          device=preds.device)
@@ -535,12 +547,19 @@ def shuffle_lane_indices_(idx: torch.Tensor, n_batches: Sequence[int],
 
 def lane_losses_from_preds(spec: LoopSpec, model: STInterpLanes,
                            preds: torch.Tensor, y: torch.Tensor,
-                           w: torch.Tensor, train: bool) -> torch.Tensor:
+                           w: torch.Tensor, train: bool,
+                           taus: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """`loss_from_preds` a lane: preds (M, B, Q), y (M, B, 1), w (M, B) ->
-    (M,) composite objectives."""
+    (M,) composite objectives. A quantile fit takes `taus` (M,), a lane's
+    own tau, where given, else `spec.current_quantile`."""
     m = spec.model
     if spec.regression_type == "mean":
         loss = mse_loss_lanes(preds, y, w)
+    elif spec.regression_type == "quantile":
+        loss = quantile_loss_lanes(
+            preds, y, float(spec.current_quantile) if taus is None else taus,
+            w)
     elif spec.regression_type == "multi-quantile":
         q = torch.tensor(spec.quantile_levels, dtype=torch.float32,
                          device=preds.device)
@@ -592,7 +611,8 @@ def _transform_grads_lanes(spec: LoopSpec, model: STInterpLanes) -> None:
 
 
 @torch.no_grad()
-def _validate_lanes(spec: LoopSpec, ema: STInterpLanes, data: LaneData
+def _validate_lanes(spec: LoopSpec, ema: STInterpLanes, data: LaneData,
+                    taus: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`_validate` for all lanes in one forward per chunk: (val_loss (M,),
     val_rmse (M,)) on the device."""
@@ -603,7 +623,8 @@ def _validate_lanes(spec: LoopSpec, ema: STInterpLanes, data: LaneData
         ck, tk, yk, wk = (data.va_coords[:, sl], data.va_t[:, sl],
                           data.va_y[:, sl], data.va_w[:, sl])
         preds = ema(ck, tk, train=False)
-        loss = lane_losses_from_preds(spec, ema, preds, yk, wk, train=False)
+        loss = lane_losses_from_preds(spec, ema, preds, yk, wk, train=False,
+                                      taus=taus)
         if spec.regression_type == "multi-quantile":
             mid = len(spec.quantile_levels) // 2
             preds = preds[..., mid:mid + 1]
@@ -620,7 +641,8 @@ def _validate_lanes(spec: LoopSpec, ema: STInterpLanes, data: LaneData
 def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
               model: STInterpLanes, data: LaneData, lr_steps: np.ndarray,
               lr_recorded: Sequence[np.ndarray], seeds: Sequence[int],
-              verbose: bool = False) -> List[FitResult]:
+              verbose: bool = False,
+              taus: Optional[Sequence[float]] = None) -> List[FitResult]:
     """Train the M lanes of `model` in place; one FitResult a lane.
 
     `lr_steps` (M, epochs, B_shared, 2) holds each lane's per-step (MLP,
@@ -632,7 +654,10 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
     reads a device value on the host or loops over lanes; the host reads
     `stopped.all()` once an epoch. Histories are cut at each lane's own stop
     epoch. `timings['epochs_seconds']` is the loop's wall (steps,
-    validation and bookkeeping; the card is waited for once an epoch)."""
+    validation and bookkeeping; the card is waited for once an epoch).
+    `taus[i]` is lane i's tau of a quantile fit (default: the config's):
+    one tau for all lanes is a float of the loss, as in the single fit;
+    several become lane data (JAX batch_engine.py:808-836)."""
     device = data.packed_tr.device
     M, cap = data.packed_tr.shape[0], data.packed_tr.shape[1]
     bs, B = data.batch_size, data.B_shared
@@ -644,6 +669,15 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
     spec = LoopSpec.from_config(cfg, spec_model, bs, B, data.val_chunk,
                                 data.n_val_chunks)
     f32 = dict(dtype=torch.float32, device=device)
+    tau_lanes = None
+    if spec.regression_type == "quantile":
+        taus = [float(spec.current_quantile)] * M if taus is None else taus
+        if len(taus) != M:
+            raise ValueError(f"{len(taus)} taus for {M} lanes")
+        if len(set(taus)) == 1:
+            spec = dataclasses.replace(spec, current_quantile=float(taus[0]))
+        else:
+            tau_lanes = torch.tensor([float(q) for q in taus], **f32)
     lr_t = torch.as_tensor(np.ascontiguousarray(
         np.transpose(lr_steps, (1, 2, 0, 3)), np.float32), device=device)
     n_batches = torch.tensor(data.n_batches, dtype=torch.int32, device=device)
@@ -708,7 +742,7 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
                 p.grad = None
             preds = model(coords_e[b], t_e[b], train=True, generator=drop_gen)
             loss = lane_losses_from_preds(spec, model, preds, y_e[b], w_e[b],
-                                          train=True)
+                                          train=True, taus=tau_lanes)
             # lanes share no parameter: the sum's gradient is each lane's own
             loss.sum().backward()
             _transform_grads_lanes(spec, model)
@@ -722,7 +756,8 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
                 nan_epoch = nan_epoch | (executes & ~torch.isfinite(loss_d))
         with torch.no_grad():
             train_loss = torch.where(nan_epoch, nan, loss_sum / n_batches_f)
-            val_loss, val_rmse = _validate_lanes(spec, ema_model, data)
+            val_loss, val_rmse = _validate_lanes(spec, ema_model, data,
+                                                 tau_lanes)
 
             # JAX _epoch_bookkeeping, a lane each
             finite = torch.isfinite(val_loss)

@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from st_dadk_tpu_torch.config import ExperimentConfig
+from st_dadk_tpu_torch.config import ExperimentConfig, resolve_device
 from st_dadk_tpu_torch.train.experiment import run_single_experiment
 from st_dadk_tpu_torch.utils.io import save_json
 
@@ -126,7 +126,7 @@ def run_multiple_experiments(
     device: Optional[torch.device | str] = None,
 ) -> Optional[Dict[str, Any]]:
     """Run repeats [start, end] on `device` (default: the config's, the
-    card) and aggregate everything on disk.
+    card; `config.resolve_device`) and aggregate everything on disk.
 
     engine='sequential' runs the fits one after the other; a fit that fails
     writes `error.txt` into its directory and the run goes on.
@@ -146,7 +146,7 @@ def run_multiple_experiments(
     n_experiments = int(cfg.n_experiments)
     start_id = start_exp_id or 1
     end_id = end_exp_id or n_experiments
-    device = torch.device(device or cfg.device)
+    device = resolve_device(device or cfg.device)
 
     output_dir = Path(output_dir)
     experiments_dir = output_dir / "experiments"

@@ -232,9 +232,11 @@ def test_batched_eval_equals_the_single_fits_evaluation(toy_csv):
 def test_stacking_key_and_lr_tables_equal_jax(toy_csv):
     """The keys that may differ between lanes are the JAX engine's, and the
     per-lane LR tables are equal element by element."""
-    import dataclasses
-    fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
-    assert tbe._STACKABLE_KEYS == set(jbe._STACKABLE_KEYS) & fields
+    # the JAX list whole: the keys that are fields there and `extra`
+    # here ('config_id', 'save_plots', ...) stay out of the key too
+    assert tbe._STACKABLE_KEYS == set(jbe._STACKABLE_KEYS)
+    assert tbe.stacking_key(_cfg(toy_csv, config_id=1)) == \
+        tbe.stacking_key(_cfg(toy_csv, config_id=2))
     a = _cfg(toy_csv)
     assert tbe.stacking_key(a) == tbe.stacking_key(
         a.replace(base_seed=7, obs_ratio=0.9, data_file="x.csv"))
@@ -264,11 +266,23 @@ def test_stacking_key_and_lr_tables_equal_jax(toy_csv):
 @pytest.mark.parametrize("case", ["per_tau", "ragged_k", "mesh"])
 def test_what_the_engine_refuses(toy_csv, tmp_path, case):
     if case == "per_tau":
+        # a positive case now: one lane a (experiment, tau) in
+        # <i>/quantile_<q>/, then each experiment's aggregated results.json
         cfg = _cfg(toy_csv, regression_type="quantile",
-                   quantile_levels=[0.1, 0.5, 0.9])
+                   quantile_levels=[0.1, 0.5, 0.9], epochs=2)
         assert tbe.is_per_tau(cfg)
-        with pytest.raises(NotImplementedError, match="per-tau"):
-            tbe.run_experiment_batch(cfg, [1, 2], tmp_path)
+        res = tbe.run_experiment_batch(cfg, [1, 2], tmp_path)
+        assert [r["experiment_id"] for r in res] == [1, 2]
+        for i in (1, 2):
+            for q in (0.1, 0.5, 0.9):
+                d = tmp_path / str(i) / f"quantile_{q}"
+                assert (d / "predictions.npz").exists()
+                assert json.loads((d / "results.json").read_text())[
+                    "quantile_level"] == q
+            r = json.loads((tmp_path / str(i) / "results.json").read_text())
+            assert r["quantile_levels"] == [0.1, 0.5, 0.9]
+            assert np.isfinite(r["test_crps"])
+        return
     elif case == "ragged_k":
         # the positive case of this list: a padded config runs as lanes and
         # is written at its real shapes

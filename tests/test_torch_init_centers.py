@@ -65,8 +65,8 @@ def test_bandwidth_floor_and_uniform_path():
     for a, b in zip(ti.init_spatial_centers("uniform", [25, 81]),
                     ji.init_spatial_centers("uniform", [25, 81])):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        ti.init_spatial_centers("kmeans_balanced", [9], X, generator=g)
+    with pytest.raises(NotImplementedError, match="kmeans_exact"):
+        ti.init_spatial_centers("kmeans_exact", [9], X, generator=g)
 
 
 # -- the batched init of a batch of lanes ----------------------------------------
@@ -160,8 +160,8 @@ def test_batched_init_uniform_chunks_and_refusals():
     for (c1, b1), (c2, b2) in zip(whole, parts):
         np.testing.assert_array_equal(c2, c1)
         np.testing.assert_array_equal(b2, b1)
-    with pytest.raises(NotImplementedError):
-        ti.init_spatial_centers_batch("kmeans_balanced", [9], X, gens())
+    with pytest.raises(NotImplementedError, match="kmeans_exact"):
+        ti.init_spatial_centers_batch("kmeans_exact", [9], X, gens())
     with pytest.raises(ValueError, match="generators"):
         ti.init_spatial_centers_batch("gmm", [9], X, gens()[:1])
     with pytest.raises(ValueError, match="train_coords"):
