@@ -5,8 +5,9 @@
     python3 chip_smoke.py --kernels-only  # build + check + time the kernels
 
 Phases, each of which fails the run (non-zero exit, no result line):
-  1. build the two CUDA libraries from st_dadk_tpu_torch/csrc with nvcc,
-     one nvcc process each, both at once;
+  1. build the two CUDA libraries from st_dadk_tpu_torch/csrc with nvcc and
+     the two host libraries from native/ with g++, one compiler process
+     each, all four at once;
   2. check that basis d coords' square root equals __fsqrt_rn for every
      float of its range; hold each of the seven kernels against its plain
      PyTorch version on the card, at the fit's shapes, two ragged ones and
@@ -75,8 +76,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
  13. `run_grid_search` over {uniform+fixed, kmeans_balanced+learnable} x
      {[25, 81], [25, 81, 121]}, 2 seeds, vmap: the four CSV/JSON files, one
      summary a config, two ragged buckets padded to 227 on the phi route
-     with their junk rows exactly 0.
-Each of phases 3-7 and 11-13 sets the launch counts to 0 just before it
+     with their junk rows exactly 0;
+ 14. the host libraries: the exact k-means (`kmeans_constrained`) on phase
+     7's lane 0 subsample at k = 25 / 81 / 121 with the native transport
+     solver and with its plain version, the HiGHS LP, seconds both ways:
+     bitwise equal centers and labels where k is below the number of
+     distinct sites, and at every k the two solvers' plans of one
+     assignment (at each run's final centers) of equal cost (where k
+     exceeds the sites, clusters share a site, the optimal plan is not
+     unique and the two solvers may pick different optima); the stand-in
+     CSV through the native loader and the numpy reader, bitwise equal;
+ 15. Table 4.4 as phase 11 with `--da_stdk_init_method kmeans_exact`: every
+     DA-STDK lane's initial centers bitwise its exact k-means alone, fused
+     kernels only;
+ 16. the hash shuffle: the permutation on the card bitwise the CPU's and a
+     permutation, with one set of multipliers and a lane axis; the bench
+     fit under `shuffle: perm` (the port's earlier shuffle), its scores
+     printed beside phase 3's under the default `auto`;
+ 17. checkpoint and resume: the bench fit, 6 epochs straight against 3
+     epochs into a checkpoint and a resume to 6, bitwise (histories,
+     serving and final params); a fit whose LR overflows writes
+     nan_diagnostics.json; a fit with `save_plots: true` completes, with
+     the warning and no figure where matplotlib is missing.
+Each of phases 3-7, 11-13 and 15 sets the launch counts to 0 just before it
 and reads them just after; it checks the fit's losses, centers and test metrics. The
 last line of standard output is one JSON object with "ok" and the device;
 the line before it lists the kernels.
@@ -224,6 +246,16 @@ PER_TAU_KEYS = {"experiment_id", "regression_type", "quantile_levels",
     for m in ("crps", "check_loss", "mse", "rmse", "mae")}
 # phase 13: the grid {uniform+fixed, kmeans_balanced+learnable} x RAGGED_GRID
 GRID_SEEDS = 2
+# phase 14: the host libraries of native/ and the exact k-means' resolutions
+HOST_LIBS = ("transport", "ingest")
+EXACT_KS = (25, 81, 121)
+# phase 16: caps of the hash permutation on the card against the CPU
+HASH_CAPS = (1, 2, 512, 1000, 8000, 8192)
+# phase 17: the bench fit straight against RESUME_AT epochs and a resume
+RESUME_EPOCHS, RESUME_AT = 6, 3
+# JAX's keys of nan_diagnostics.json (st_dadk_tpu/train/experiment.py:415)
+NAN_DIAG_KEYS = {"nan_epochs", "n_epochs_run", "train_loss_tail",
+                 "val_loss_tail", "inputs", "params"}
 # bars: (rtol, atol) of each kernel against its plain version
 BARS = {
     "fused_first_layer_fwd": (0.0, 1e-4),       # tests/test_pallas_fused.py:40
@@ -687,13 +719,16 @@ def basis_lane_kernel_phase(torch, sbk, basis_ids, cal, worst):
 
 
 def build_all(_build) -> None:
-    """One nvcc process per library, both started together."""
+    """One compiler process per library, all started together: nvcc for
+    the CUDA sources, g++ for the host libraries of native/."""
     t0 = time.time()
     names = sorted({Path(src).stem for src, _ in KERNELS.values()})
-    with ThreadPoolExecutor(len(names)) as pool:
-        futures = {nm: pool.submit(_build.build, nm, True) for nm in names}
-        libs = {nm: f.result() for nm, f in futures.items()}
-    print(f"built {', '.join(p.name for p in libs.values())} in "
+    with ThreadPoolExecutor(len(names) + len(HOST_LIBS)) as pool:
+        futures = [pool.submit(_build.build, nm, True) for nm in names]
+        futures += [pool.submit(_build.build_host, nm, True)
+                    for nm in HOST_LIBS]
+        libs = [f.result() for f in futures]
+    print(f"built {', '.join(p.name for p in libs)} in "
           f"{time.time() - t0:.1f} s", flush=True)
 
 
@@ -701,6 +736,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels-only", action="store_true")
     args = ap.parse_args(argv)
+    t_start = time.time()
 
     import torch
     if not torch.cuda.is_available():
@@ -759,6 +795,7 @@ def main(argv=None) -> int:
          "lanes_ms": ({str(m): t for m, t in lane_ms[nm].items()}
                       if nm in lane_ms else None)}
         for nm, (src, replaces) in KERNELS.items()]}
+    print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -805,7 +842,15 @@ class Phases:
                              lambda: self.init_methods_phase(jobs)),
                             ("11 (Table 4.4)", self.table_phase),
                             ("12 (per-tau lanes)", self.per_tau_phase),
-                            ("13 (grid)", self.grid_phase)):
+                            ("13 (grid)", self.grid_phase),
+                            ("14 (host libraries)",
+                             lambda: self.host_phase(jobs)),
+                            ("15 (Table 4.4, kmeans_exact)",
+                             lambda: self.table_phase("kmeans_exact")),
+                            ("16 (hash shuffle)",
+                             lambda: self.shuffle_phase(bench)),
+                            ("17 (resume, diagnostics, figures)",
+                             self.resume_phase)):
             t0 = time.time()
             phase()
             print(f"phase {name}: {time.time() - t0:.1f} s", flush=True)
@@ -1707,13 +1752,17 @@ class Phases:
                           + [("gmm (phase 9)", self.gmm_seconds)]),
               flush=True)
 
-    def table_phase(self):
+    def table_phase(self, da_init=None):
         """Phase 11: Table 4.4 through `cli/run_table_4_4.py`'s `main` on the
         repo's config file (the 'tpu' device name and the YAML reader run
         here), TABLE_SEEDS seeds x EPOCHS epochs a cell, engine vmap: 8 finite
         CRPS values, STDK's centers the uniform grid after training, DA-STDK's
         centers moved in training and lane 1's initial centers its balanced
-        k-means alone, on the fused route only."""
+        k-means alone, on the fused route only. Phase 15 (`da_init`
+        'kmeans_exact', the CLI's --da_stdk_init_method): each DA-STDK
+        lane's init seconds, and lane 1's initial centers in each DA-STDK
+        cell bitwise its exact k-means alone (phase 14 and the CPU tests
+        hold the solver; this shows the CLI hands a lane its stream)."""
         import shutil
 
         import numpy as np
@@ -1724,7 +1773,8 @@ class Phases:
         from st_dadk_tpu_torch.ops.init_centers import init_spatial_centers
         from st_dadk_tpu_torch.train.experiment import ExperimentSetup
 
-        out_dir = REPO / "build" / "chip_smoke_table_4_4"
+        out_dir = REPO / "build" / ("chip_smoke_table_4_4"
+                                    + (f"_{da_init}" if da_init else ""))
         shutil.rmtree(out_dir, ignore_errors=True)
         argv = ["--config", str(REPO / "configs" / "config_st_interp.yaml"),
                 "--data_file", str(self.data_file),
@@ -1733,6 +1783,8 @@ class Phases:
                                            "basis_unfreeze_epoch":
                                            TABLE_UNFREEZE}),
                 "--output_dir", str(out_dir)]
+        if da_init:
+            argv += ["--da_stdk_init_method", da_init]
         print("Table 4.4 phase: python3 -m st_dadk_tpu_torch.cli.run_table_4_4 "
               + " ".join(argv), flush=True)
         _, counts = self.counted(lambda: t44.main(argv))
@@ -1748,6 +1800,17 @@ class Phases:
         for nm, c in counts.items():
             check(c > 0 if nm in fused else c == 0,
                   f"{nm} launched {c} times in the Table 4.4 phase")
+
+        def exact_alone(cfg, i):
+            """Lane i's exact k-means alone, from its setup's streams."""
+            setup = ExperimentSetup(cfg, i, "cuda", defer_model=True)
+            return init_spatial_centers(da_init, cfg.k_spatial_centers,
+                                        setup.train_ps.coords,
+                                        rng=setup.np_rng)[0]
+
+        # the lane-1 exact k-means run on threads: the native solver and
+        # numpy's large ops release the GIL
+        pool, exact = ThreadPoolExecutor(4), []
         for scenario, model in (k.split("/") for k in cells):
             cdir = out_dir / f"table4.4_{scenario}_{model}"
             cfg = ExperimentConfig.from_yaml(cdir / "config.yaml")
@@ -1766,6 +1829,20 @@ class Phases:
                     continue
                 check(moved > 0.0, f"{cdir.name} lane {i}: the centers did "
                       f"not move in training")
+                if da_init == "kmeans_exact":
+                    check(cfg.spatial_init_method == da_init,
+                          f"{cdir.name}: init {cfg.spatial_init_method!r}")
+                    st = json.loads((cdir / "experiments" / str(i)
+                                     / "results.json").read_text()
+                                    )["stage_timings"]
+                    print(f"  {cdir.name} lane {i}: exact k-means init "
+                          f"{st['init_seconds']:.4f} s a lane (the batch's "
+                          f"{st['batch_init_seconds']:.4f} s over its "
+                          f"{st['batch_lanes']} lanes)", flush=True)
+                    if i == 1:
+                        exact.append((cdir.name, i, init, moved,
+                                      pool.submit(exact_alone, cfg, i)))
+                    continue
                 if i > 1:
                     continue     # lane 1's init alone, for time; phase 10
                                  # holds every lane of a batch
@@ -1784,6 +1861,15 @@ class Phases:
                                        atol=KMB_BATCH_ATOL)),
                       f"{cdir.name} lane {i}: initial centers {d:.3e} from "
                       f"its balanced k-means")
+        for name, i, init, moved, want in exact:
+            want = want.result()
+            d = float(np.abs(init - want).max())
+            print(f"  {name} lane {i}: initial centers vs its exact k-means "
+                  f"alone max |d| {d:.3e}; moved {moved:.3e} in training",
+                  flush=True)
+            check(bool(np.array_equal(init, want)), f"{name} lane {i}: "
+                  f"initial centers {d:.3e} from its exact k-means alone")
+        pool.shutdown()
 
     def per_tau_phase(self):
         """Phase 12: the bench workload as per-tau quantile fits,
@@ -1981,6 +2067,188 @@ class Phases:
                           f"{where} padded rows moved: max |x| {junk}")
         print(f"grid: {len(states)} ragged buckets of {2 * GRID_SEEDS} lanes "
               f"padded to {LANE_PAD}; junk rows exactly 0", flush=True)
+
+    def host_phase(self, jobs):
+        """Phase 14: the host libraries built from native/ (build_all):
+        the exact k-means of phase 7's lane 0 subsample (the float64 draw
+        its init makes) with the native transport solver against the LP:
+        bitwise where k < the distinct sites; at every k, one assignment at
+        each run's final centers solved both ways at equal cost. The
+        stand-in CSV through the native loader against the numpy reader,
+        bitwise."""
+        import copy
+
+        import numpy as np
+
+        from st_dadk_tpu_torch.dataio.kaust import read_kaust_csv
+        from st_dadk_tpu_torch.dataio.native import load_csv_native
+        from st_dadk_tpu_torch.ops import _build
+        from st_dadk_tpu_torch.ops.init_centers import _subsample
+        from st_dadk_tpu_torch.ops.kmeans_exact import (balanced_caps,
+                                                        kmeans_constrained,
+                                                        transport_assign,
+                                                        transport_assign_native)
+
+        for nm in HOST_LIBS:
+            path = _build.host_library_path(nm)
+            check(path.exists(), f"host library {path.name} was not built")
+        setups, _ = self.init_setups(jobs)
+        s = setups[0]
+        X = np.asarray(_subsample(s.train_ps.coords, None,
+                                  copy.deepcopy(s.np_rng)), np.float64)
+        sites, counts = np.unique(X, axis=0, return_counts=True)
+        n_sites = len(sites)
+        for k in EXACT_KS:
+            t0 = time.perf_counter()
+            cn, ln = kmeans_constrained(X, k)
+            t1 = time.perf_counter()
+            cl, ll = kmeans_constrained(X, k, solver="lp")
+            t2 = time.perf_counter()
+            d = float(np.abs(cn - cl).max())
+            inertia = [float(((X - c[lab]) ** 2).sum())
+                       for c, lab in ((cn, ln), (cl, ll))]
+            gaps = []
+            for c in (cn, cl):
+                cost = ((sites[:, None] - c[None]) ** 2).sum(-1)
+                caps = balanced_caps(len(X), k)
+                plans = (transport_assign_native(cost, counts, caps)[0],
+                         transport_assign(cost, counts, caps)[0])
+                a, b = (float((p * cost).sum()) for p in plans)
+                gaps.append(abs(a - b) / b)
+            print(f"  exact k-means, {len(X)} points on {n_sites} sites, "
+                  f"k={k}: native {t1 - t0:.4f} s, LP {t2 - t1:.4f} s; max "
+                  f"|d centers| {d:.3e}, labels equal "
+                  f"{bool(np.array_equal(ln, ll))}, inertia native "
+                  f"{inertia[0]!r} LP {inertia[1]!r}; one assignment at "
+                  f"either run's centers: relative cost gap "
+                  f"{max(gaps):.3e}", flush=True)
+            check(max(gaps) <= 1e-12, f"exact k-means k={k}: the native "
+                  f"plan's cost is {max(gaps):.3e} from the LP's")
+            if k < n_sites:
+                check(bool(np.array_equal(cn, cl)
+                           and np.array_equal(ln, ll)),
+                      f"exact k-means k={k}: the native solver's centers "
+                      f"are {d:.3e} from the LP's")
+        t0 = time.perf_counter()
+        z_n, c_n, rows_n = load_csv_native(self.data_file)
+        t1 = time.perf_counter()
+        z_p, c_p, rows_p = read_kaust_csv(self.data_file)
+        t2 = time.perf_counter()
+        print(f"  stand-in CSV ({rows_n} rows): native {t1 - t0:.4f} s, "
+              f"numpy {t2 - t1:.4f} s", flush=True)
+        check(bool(rows_n == rows_p and np.array_equal(c_n, c_p)
+                   and np.array_equal(z_n, z_p, equal_nan=True)),
+              "the native CSV loader and the numpy reader disagree")
+
+    def shuffle_phase(self, bench):
+        """Phase 16: the hash permutation on the card against the CPU's for
+        the same multipliers, a row alone and as a lane axis; then the bench
+        fit under 'perm' beside phase 3's under the default 'auto'."""
+        torch = self.torch
+        from st_dadk_tpu_torch.train import loop as tl
+
+        for cap in HASH_CAPS:
+            g = torch.Generator().manual_seed(cap)
+            r = torch.randint(0, tl.hash_width(cap), (4, 4), generator=g)
+            cpu = tl.hash_permutation_any(r, cap)
+            gpu = tl.hash_permutation_any(r.cuda(), cap).cpu()
+            check(torch.equal(gpu, cpu), f"hash permutation, cap {cap}: "
+                  f"the card's differs from the CPU's")
+            check(torch.equal(tl.hash_permutation_any(r[1].cuda(), cap).cpu(),
+                              cpu[1]), f"hash permutation, cap {cap}: a lane "
+                  f"differs from its row alone")
+            check(bool((torch.sort(cpu, dim=1).values
+                        == torch.arange(cap)).all()),
+                  f"hash permutation, cap {cap}: not a permutation")
+        print(f"hash permutation: caps {list(HASH_CAPS)}, 4 lanes each: the "
+              f"card's bitwise the CPU's, each a permutation", flush=True)
+        _, perm, _, _ = self.fit("bench, shuffle perm",
+                                 REPO / "build" / "chip_smoke_fit_perm",
+                                 shuffle="perm")
+        auto = bench[1]
+        for key in ("test_rmse", "test_crps", "valid_rmse", "valid_crps"):
+            print(f"  bench fit {key}: shuffle auto {auto[key]!r}, perm "
+                  f"{perm[key]!r}", flush=True)
+
+    def resume_phase(self):
+        """Phase 17: the bench fit RESUME_EPOCHS epochs straight against
+        RESUME_AT epochs into a checkpoint and a resume, bitwise; the NaN
+        diagnostics of a fit whose LR overflows the weights; a fit with
+        save_plots on."""
+        import contextlib
+        import importlib.util
+        import io
+        import shutil
+
+        import numpy as np
+
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.config import ExperimentConfig
+        from st_dadk_tpu_torch.train import experiment as texp
+        from st_dadk_tpu_torch.train import loop as tl
+
+        cfg = ExperimentConfig.from_dict(bench_workload(
+            data_file=str(self.data_file), epochs=RESUME_EPOCHS))
+
+        def run(**kw):
+            s = texp.ExperimentSetup(cfg, 1, "cuda")
+            return tl.fit(cfg, s.spec, s.model, s.train_ps, s.valid_ps,
+                          seed=s.experiment_seed, epochs_chunk=RESUME_AT,
+                          **kw)
+
+        ckpt = REPO / "build" / "chip_smoke_resume.npz"
+        ckpt.unlink(missing_ok=True)
+        t0 = time.time()
+        straight = run()
+        part = run(checkpoint_path=ckpt, session_epochs=RESUME_AT)
+        resumed = run(checkpoint_path=ckpt, resume=True)
+        check(part.n_epochs_run == RESUME_AT
+              and resumed.n_epochs_run == straight.n_epochs_run
+              == RESUME_EPOCHS, f"resume: epochs {part.n_epochs_run} / "
+              f"{resumed.n_epochs_run} / {straight.n_epochs_run}")
+        same = all(np.array_equal(straight.history[k], resumed.history[k])
+                   for k in ("train_loss", "val_loss", "val_rmse"))
+        flat = texp._flatten_params
+        for tree in ("params", "final_ema"):
+            a, b = flat(getattr(straight, tree)), flat(getattr(resumed, tree))
+            same = same and all(np.array_equal(a[k], b[k]) for k in a)
+        print(f"resume: {RESUME_EPOCHS} epochs straight against {RESUME_AT} "
+              f"+ resume: bitwise {same} (train loss "
+              f"{straight.history['train_loss'][-1]!r} / "
+              f"{resumed.history['train_loss'][-1]!r}); "
+              f"{time.time() - t0:.1f} s", flush=True)
+        check(same, "the resumed bench fit differs from the straight one")
+
+        out = REPO / "build" / "chip_smoke_nan"
+        shutil.rmtree(out, ignore_errors=True)
+        texp.run_single_experiment(bench_workload(
+            data_file=str(self.data_file), epochs=2, lr=1e38), 1, out,
+            device="cuda", verbose=False)
+        diag = json.loads((out / "nan_diagnostics.json").read_text())
+        check(set(diag) == NAN_DIAG_KEYS and diag["nan_epochs"] == [0, 1],
+              f"nan_diagnostics.json: keys {sorted(diag)}, NaN epochs "
+              f"{diag.get('nan_epochs')}")
+        print(f"NaN fit: nan_diagnostics.json with JAX's keys, NaN epochs "
+              f"{diag['nan_epochs']}", flush=True)
+
+        out = REPO / "build" / "chip_smoke_plots"
+        shutil.rmtree(out, ignore_errors=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = texp.run_single_experiment(bench_workload(
+                data_file=str(self.data_file), epochs=2, save_plots=True,
+                save_artifacts=True), 1, out, device="cuda", verbose=False)
+        pngs = sorted(p.name for p in out.glob("*.png"))
+        if importlib.util.find_spec("matplotlib") is None:
+            warned = "[WARNING] plotting failed" in buf.getvalue()
+            check(warned and not pngs, f"save_plots without matplotlib: "
+                  f"warning {warned}, figures {pngs}")
+        else:
+            check(len(pngs) == 7, f"save_plots: figures {pngs}")
+        check(bool(np.isfinite(res["test_crps"])),
+              "save_plots fit: non-finite test CRPS")
+        print(f"save_plots fit: completed, figures {pngs or 'none'}; "
+              + buf.getvalue().strip().replace("\n", " | "), flush=True)
 
     def saved_model(self, cfg, out_dir, device, pad=None):
         """The fit's saved params as a model on `device`; with `pad`, padded

@@ -2,8 +2,8 @@
 
 Every known key is a dataclass field with the reference code's default;
 unknown keys are kept in `extra`. The fields are the JAX package's that
-the port reads; the others (TPU knobs, CLI and plotting keys) land in
-`extra`, so a config file of the JAX package loads here and round-trips.
+the port reads; the others (TPU knobs, CLI keys) land in `extra`, so a
+config file of the JAX package loads here and round-trips.
 
 Config files are read and written by this module's own parser of the flat
 YAML subset the repo's configs use (`load_yaml` / `dump_yaml`), so the port
@@ -43,7 +43,7 @@ class ExperimentConfig:
     k_spatial_centers: List[int] = field(default_factory=lambda: [25, 81, 121])
     k_temporal_centers: List[int] = field(default_factory=lambda: [10, 15, 45])
     spatial_basis_function: str = "wendland"   # wendland | gaussian | triangular
-    spatial_init_method: str = "uniform"       # uniform | gmm | random_site | kmeans_balanced
+    spatial_init_method: str = "uniform"       # uniform | gmm | random_site | kmeans_balanced | kmeans_exact
     spatial_learnable: bool = False
     hidden_dims: List[int] = field(default_factory=lambda: [256, 256, 128])
     dropout: float = 0.1
@@ -107,14 +107,16 @@ class ExperimentConfig:
     data_root: Optional[str] = None            # prefix for relative data_file paths
     train_dtype: str = "auto"                  # the port trains in float32 only
     k_spatial_pad: Optional[int] = None        # ragged-k lane: phi padded to this width
+    save_plots: bool = True                    # the figures (viz/plots.py) at finalize
     save_artifacts: bool = True                # model/prediction/basis npz files
     eval_chunk: int = 32768                    # points per predict chunk
 
-    # unknown keys. The port reads 'shuffle' ('none' = identity order),
-    # 'init_subsample', 'init_gmm_n_init' and 'lanes_per_device' (lanes a
-    # batch of the lane engine);
-    # `unported_fit_knobs` names the JAX fit knobs it refuses, and the setup
-    # raises on them. Accepted and ignored on purpose: the JAX package's TPU
+    # unknown keys. The port reads 'shuffle' ('auto' | 'hash' | 'perm' |
+    # 'none', train/loop.py), 'init_subsample', 'init_gmm_n_init',
+    # 'init_seed_rounds', 'init_em_dtype', 'ablate_validate',
+    # 'sparsity_threshold_ratio' (the basis-evolution figure) and
+    # 'lanes_per_device' (lanes a batch of the lane engine).
+    # Accepted and ignored on purpose: the JAX package's TPU
     # and lane-engine knobs, which change how a fit runs there but not its
     # numbers ('pregather', 'remat', 'profile_dir', 'packed_upload',
     # 'final_stop_sync', 'packed_finalize_pull',
@@ -123,7 +125,7 @@ class ExperimentConfig:
     # 'packed_optimizer',
     # 'scan_unroll', 'tail_compaction', 'compaction_epoch', 'mesh_axis',
     # 'dropout_rng' (its RNG streams do not cross frameworks anyway) and the
-    # CLI and plotting keys), and 'init_gmm_fused': JAX runs the resolutions'
+    # CLI keys), and 'init_gmm_fused': JAX runs the resolutions'
     # GMM EMs as one loop with the same seeding keys and the same tol stop
     # for each (resolution, restart) (st_dadk_tpu/ops/init_centers.py:
     # 408-434 against :281-303), the EM the port runs per resolution; on
@@ -216,27 +218,6 @@ def resolve_device(name: Any) -> "torch.device":
     if isinstance(name, torch.device):
         return name
     return torch.device(_ACCELERATOR_NAMES.get(str(name), str(name)))
-
-
-def unported_fit_knobs(cfg: ExperimentConfig) -> List[str]:
-    """The JAX fit knobs in `cfg.extra` that change a fit's numbers and that
-    the port does not carry (st_dadk_tpu/train/experiment.py:304-308,
-    train/loop.py:196):
-      - 'init_seed_rounds': R-round k-means++ seeding in place of the exact
-        sequential draw (st_dadk_tpu/ops/init_centers.py:170-177);
-      - 'init_em_dtype: bfloat16': the GMM EM's (n, k) tensors stored in
-        bf16 (any other value keeps float32, init_centers.py:230);
-      - 'ablate_validate: true': the train loss stands in for the
-        validation loss (loop.py:550-551)."""
-    extra = cfg.extra
-    knobs = []
-    if extra.get("init_seed_rounds") is not None:
-        knobs.append("init_seed_rounds")
-    if extra.get("init_em_dtype") == "bfloat16":
-        knobs.append("init_em_dtype")
-    if bool(extra.get("ablate_validate", False)):
-        knobs.append("ablate_validate")
-    return knobs
 
 
 # ---------------------------------------------------------------------------

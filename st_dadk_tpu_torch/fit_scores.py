@@ -1,7 +1,8 @@
 """Test and validation scores of chip_smoke.py's three fits at full
 precision, from this checkout or another one, on one GPU.
 
-    python3 -m st_dadk_tpu_torch.fit_scores [--tree DIR] [--out FILE]
+    python3 -m st_dadk_tpu_torch.fit_scores [--tree DIR] [--shuffle MODE]
+                                            [--out FILE]
 
 The fits are chip_smoke.py's (`FITS`): the bench workload cut to `EPOCHS`
 epochs (fused route), its ragged-k lane of 25 + 81 centers padded to 227
@@ -14,6 +15,10 @@ launch counts, and writes `--out` (JSON).
               checkout, e.g. a `git archive` of the parent commit unpacked
               into a directory that .gitignore lists, so that two commits'
               scores compare bitwise within one call on one card.
+  --shuffle MODE  the fits' `shuffle` (default: the config's own, 'auto');
+              'perm' is the torch.randperm order every shuffle but 'none'
+              took before the hash shuffle, so it compares a later tree
+              with an earlier one bitwise.
 """
 from __future__ import annotations
 
@@ -56,6 +61,7 @@ def _import_from(tree: Path):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", type=Path, default=None)
+    ap.add_argument("--shuffle", default=None)
     ap.add_argument("--out", type=Path,
                     default=REPO / "build" / "fit_scores.json")
     args = ap.parse_args(argv)
@@ -70,13 +76,16 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}\ntree: {tree}", flush=True)
+    print(f"card: {card}\ntree: {tree}\nshuffle: {args.shuffle or 'default'}",
+          flush=True)
+    shuffle = {} if args.shuffle is None else {"shuffle": args.shuffle}
     data_file = mods["dataio.synthetic"].bench_data_file()
-    result = {"card": card, "tree": str(tree), "fits": {}}
+    result = {"card": card, "tree": str(tree), "shuffle": args.shuffle,
+              "fits": {}}
     for name, overrides in FITS.items():
         cfg = mods["bench_workload"].bench_workload(
             data_file=str(data_file), epochs=EPOCHS, save_artifacts=True,
-            **overrides)
+            **overrides, **shuffle)
         for mod in kernels:
             mod.reset_launch_counts()
         res = mods["train.experiment"].run_single_experiment(

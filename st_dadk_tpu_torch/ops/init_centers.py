@@ -35,8 +35,18 @@ restarts of one subsample size run as one batch, every reduction arranged
 so that a run sums alike whatever shares its batch: a lane's centers are
 bit for bit those of the lane alone.
 'random_site' draws k training sites a resolution from the lane's numpy
-stream with the JAX package's call pattern. 'kmeans_exact' (a host-side
-min-cost-flow solver in the JAX package) is not ported.
+stream with the JAX package's call pattern. 'kmeans_exact' is the exact
+size-constrained k-means of `ops/kmeans_exact.py` (Lloyd steps on the
+native transport solver), on the host, lane by lane: each lane subsamples
+from its own numpy stream in float64, as the JAX package replays a lane's
+stream, and solves each resolution with `kmeans_constrained`.
+
+Two JAX knobs change the GMM and balanced k-means inits:
+`seed_rounds` (config `init_seed_rounds`) swaps the exact sequential
+k-means++ seeding for the R-round draw `kmeans_plus_plus_rounds`;
+`em_dtype='bfloat16'` (config `init_em_dtype`) stores the GMM EM's (n, k)
+tensors, the distances and the responsibilities, in bf16, with the
+distances formed in float32 first and every sum taken in float32.
 """
 from __future__ import annotations
 
@@ -49,26 +59,24 @@ import torch
 
 from st_dadk_tpu_torch.ops.basis import (uniform_bandwidth_for,
                                          uniform_grid_centers)
+from st_dadk_tpu_torch.ops.kmeans_exact import kmeans_constrained
 
 MAX_INIT_SAMPLES = 10_000
 # the init methods that consume training coordinates
 DATA_ADAPTIVE_INIT_METHODS = ("gmm", "random_site", "kmeans_balanced",
                               "kmeans_exact")
-# refused by the experiment set-up before any data is read
-UNPORTED_INIT_METHODS = {
-    "kmeans_exact": "the exact min-cost-flow k-means (st_dadk_tpu/ops/"
-                    "kmeans_exact.py with native/transport.cpp) is not ported "
-                    "yet (ROADMAP Queue 1 item 4)"}
-
-
-def _choice(p: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """One index drawn by inverse CDF, as jax.random.choice(p=...) draws:
-    an all-zero p (every point already a seed, e.g. fewer distinct training
-    sites than centers) picks index 0 instead of failing."""
+def _choice(p: torch.Tensor, generator: torch.Generator,
+            size: int = 1) -> torch.Tensor:
+    """`size` indices drawn with replacement by inverse CDF, as
+    jax.random.choice(p=...) draws: an all-zero p (every point already a
+    seed, e.g. fewer distinct training sites than centers) picks index 0
+    instead of failing. One index is a 0-dim tensor."""
     cum = torch.cumsum(p, dim=0)
-    u = torch.rand((1,), generator=generator, device=p.device, dtype=p.dtype)
-    idx = torch.searchsorted(cum, cum[-1:] * (1.0 - u))
-    return torch.clamp(idx, max=p.shape[0] - 1)[0]
+    u = torch.rand((size,), generator=generator, device=p.device,
+                   dtype=p.dtype)
+    idx = torch.clamp(torch.searchsorted(cum, cum[-1:] * (1.0 - u)),
+                      max=p.shape[0] - 1)
+    return idx[0] if size == 1 else idx
 
 
 def kmeans_plus_plus(X: torch.Tensor, k: int,
@@ -85,12 +93,50 @@ def kmeans_plus_plus(X: torch.Tensor, k: int,
     return torch.stack(centers)
 
 
+def kmeans_plus_plus_rounds(X: torch.Tensor, k: int,
+                            generator: torch.Generator,
+                            rounds: int = 8) -> torch.Tensor:
+    """Low-depth k-means++ (JAX init_centers.py:111-168): the first seed,
+    then the k - 1 others in `rounds` batches of near-equal size, each drawn
+    i.i.d. from the current d2-weighted distribution (k-means||-style), d2
+    updated once a round. Draws within a round do not see each other, so
+    seeds may repeat; the EM or Lloyd steps absorb that. With k - 1 rounds
+    it makes the exact seeding's draws."""
+    n = X.shape[0]
+    rounds = max(1, min(int(rounds), max(k - 1, 1)))
+    ones = torch.ones(n, dtype=X.dtype, device=X.device)
+    first = X[_choice(ones / n, generator)]
+    d2 = torch.sum((X - first) ** 2, dim=1)
+    base, rem = divmod(k - 1, rounds)
+    parts = [first[None]]
+    for r in range(rounds):
+        b = base + (1 if r < rem else 0)
+        if b == 0:
+            continue
+        p = d2 / torch.clamp(d2.sum(), min=1e-12)
+        cand = X[_choice(p, generator, b)].reshape(b, -1)
+        cand_d2 = torch.sum((X[:, None, :] - cand[None]) ** 2, dim=-1)
+        d2 = torch.minimum(d2, torch.min(cand_d2, dim=1).values)
+        parts.append(cand)
+    return torch.cat(parts, dim=0)
+
+
+def _seed_centers(X: torch.Tensor, k: int, generator: torch.Generator,
+                  seed_rounds: Optional[int] = None) -> torch.Tensor:
+    """The exact sequential k-means++ seeding, or with `seed_rounds` the
+    R-round draw (JAX `_seed_centers`, init_centers.py:170-177)."""
+    if seed_rounds is None:
+        return kmeans_plus_plus(X, k, generator)
+    return kmeans_plus_plus_rounds(X, k, generator, int(seed_rounds))
+
+
 EM_CHECK_EVERY = 4             # iterations between host reads of the run mask
 EM_BATCH_ELEMENTS = 2 ** 27    # floats of one (lanes, restarts, n, k) tensor
 
 
 def _em(X: torch.Tensor, means: torch.Tensor, max_iter: int = 100,
-        reg_covar: float = 1e-6, tol: float = 1e-3
+        reg_covar: float = 1e-6, tol: float = 1e-3,
+        em_dtype: Optional[str] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Tol-stopped spherical EM for L lanes x I restarts at once: X
     (L, n, 2) each lane's points, means (L, I, k, 2) seeds -> (means
@@ -108,7 +154,15 @@ def _em(X: torch.Tensor, means: torch.Tensor, max_iter: int = 100,
     keeps the update only where the run is still going (`torch.where` on a
     device mask); a run stops after the update whose |ll - ll_prev| < tol,
     as the JAX while_loop tests the change after the M-step it just took.
-    The mask is read on the host every EM_CHECK_EVERY iterations."""
+    The mask is read on the host every EM_CHECK_EVERY iterations.
+
+    `em_dtype='bfloat16'` stores the distances and the responsibilities in
+    bf16 where the JAX EM does (init_centers.py:230-243, :360-366): the
+    distances are formed in float32 and rounded once; the E-step reads
+    them in float32; the masses, the means and the variances sum in
+    float32, the variance's products taken in bf16 as there."""
+    # any other value keeps float32, as in JAX (init_centers.py:230)
+    big = torch.bfloat16 if em_dtype == "bfloat16" else torch.float32
     L, n, d = X.shape
     I, k = means.shape[1], means.shape[2]
     R = L * I                                              # runs, lane-major
@@ -127,18 +181,18 @@ def _em(X: torch.Tensor, means: torch.Tensor, max_iter: int = 100,
 
     def pairwise_d2(m):                                    # -> (R, n, k)
         diff = Xr[:, :, None, :] - m[:, None, :, :]
-        return torch.sum(diff * diff, dim=-1)
+        return torch.sum(diff * diff, dim=-1).to(big)
 
     def estep(d2, var, weights):
         log_w = torch.log(torch.clamp(weights, min=1e-30))
-        log_prob = (-0.5 * (d2 / var[:, None]
+        log_prob = (-0.5 * (d2.float() / var[:, None]
                             + d * torch.log(2 * math.pi * var)[:, None])
                     + log_w[:, None])
         m = torch.max(log_prob, dim=-1, keepdim=True).values
         p = torch.exp(log_prob - m)
         s = per_run(lambda pr: torch.sum(pr, dim=1, keepdim=True), p)
         log_norm = m[..., 0] + torch.log(s[..., 0])        # (R, n)
-        return p / s, per_run(torch.mean, log_norm)
+        return (p / s).to(big), per_run(torch.mean, log_norm)
 
     d2 = pairwise_d2(means)
     going = torch.ones((R,), dtype=torch.bool, device=X.device)
@@ -147,12 +201,14 @@ def _em(X: torch.Tensor, means: torch.Tensor, max_iter: int = 100,
                          device=X.device)
     for it in range(max_iter):
         resp, ll = estep(d2, var, weights)
-        nk = per_run(lambda rr: rr.sum(dim=0), resp) + 1e-10      # (R, k)
-        means_new = torch.stack([resp[r].T @ X[lane_of[r]]
+        nk = per_run(lambda rr: rr.sum(dim=0, dtype=torch.float32),
+                     resp) + 1e-10                                # (R, k)
+        means_new = torch.stack([resp[r].float().T @ X[lane_of[r]]
                                  for r in range(R)]) / nk[..., None]
         d2_new = pairwise_d2(means_new)
         var_new = torch.clamp(
-            per_run(lambda t: t.sum(dim=0), resp * d2_new) / (nk * d),
+            per_run(lambda t: t.sum(dim=0, dtype=torch.float32),
+                    resp * d2_new) / (nk * d),
             min=0.0) + reg_covar
         g2, g3 = going[:, None], going[:, None, None]
         means = torch.where(g3, means_new, means)
@@ -175,19 +231,23 @@ def gmm_spherical(X: torch.Tensor, k: int,
                   generator: Optional[torch.Generator] = None,
                   max_iter: int = 100, n_init: int = 3,
                   reg_covar: float = 1e-6, tol: float = 1e-3,
-                  seeds: Optional[Sequence[torch.Tensor]] = None
+                  seeds: Optional[Sequence[torch.Tensor]] = None,
+                  em_dtype: Optional[str] = None,
+                  seed_rounds: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fit a spherical GMM to X (n, 2): (means (k, 2), sigmas (k,)).
 
     `n_init` k-means++-seeded restarts (or one EM per given seed in
-    `seeds`), the best final log-likelihood kept (the first of equals)."""
+    `seeds`), the best final log-likelihood kept (the first of equals).
+    `em_dtype` and `seed_rounds`: see `_em` and `_seed_centers`."""
     if seeds is None:
         if generator is None:
             raise ValueError("gmm_spherical needs a generator or seeds")
-        seeds = [kmeans_plus_plus(X, k, generator) for _ in range(n_init)]
+        seeds = [_seed_centers(X, k, generator, seed_rounds)
+                 for _ in range(n_init)]
     means, sigmas, ll, _ = _em(
         X[None], torch.stack([s.to(X) for s in seeds])[None], max_iter,
-        reg_covar, tol)
+        reg_covar, tol, em_dtype)
     best = int(torch.argmax(ll[0]))
     return means[0, best], sigmas[0, best]
 
@@ -279,15 +339,16 @@ def _bkm(X: torch.Tensor, seeds: torch.Tensor, max_iter: int = 50,
 def balanced_kmeans(X: torch.Tensor, k: int,
                     generator: Optional[torch.Generator] = None,
                     n_init: int = 3,
-                    seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    seeds: Optional[torch.Tensor] = None,
+                    seed_rounds: Optional[int] = None) -> torch.Tensor:
     """Balanced k-means of X (n, 2): centers (k, 2). `n_init`
     k-means++-seeded restarts from `generator` (or one run per seed of
     `seeds` (I, k, 2)); the lowest final transport cost wins, the first of
-    equals (jnp.argmin)."""
+    equals (jnp.argmin). `seed_rounds`: see `_seed_centers`."""
     if seeds is None:
         if generator is None:
             raise ValueError("balanced_kmeans needs a generator or seeds")
-        seeds = torch.stack([kmeans_plus_plus(X, k, generator)
+        seeds = torch.stack([_seed_centers(X, k, generator, seed_rounds)
                              for _ in range(n_init)])
     centers, cost = _bkm(X[None], seeds.to(X)[None])
     return centers[0, int(torch.argmin(cost[0]))]
@@ -320,6 +381,25 @@ def _site_bandwidths(centers: np.ndarray, k: int,
         return np.array([uniform_bandwidth_for(int(n_centers[0]))],
                         np.float32)
     return _nn_bandwidths(centers)
+
+
+def kmeans_exact(train_coords: np.ndarray, n_centers: Sequence[int],
+                 rng: Optional[np.random.RandomState] = None,
+                 subsample: Optional[int] = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """The exact balanced k-means init of one lane (JAX
+    init_centers.py:955-970): the float64 subsample drawn from `rng`, then
+    `kmeans_constrained` a resolution (its own RandomState(42) seeding, the
+    native transport solver), bandwidths by `_site_bandwidths`."""
+    X = np.asarray(_subsample(train_coords, subsample, rng), np.float64)
+    centers_list, bw_list = [], []
+    for k in n_centers:
+        k = int(k)
+        centers = kmeans_constrained(X, k)[0].astype(np.float32)
+        centers_list.append(centers)
+        bw_list.append(_site_bandwidths(centers, k, n_centers))
+    return np.concatenate(centers_list, axis=0), np.concatenate(bw_list,
+                                                                axis=0)
 
 
 def random_site(train_coords: np.ndarray, n_centers: Sequence[int],
@@ -357,20 +437,24 @@ def init_spatial_centers(method: str, n_centers: Sequence[int],
                          rng: Optional[np.random.RandomState] = None,
                          subsample: Optional[int] = None,
                          gmm_n_init: Optional[int] = None,
-                         stats: Optional[Dict[str, Any]] = None
+                         stats: Optional[Dict[str, Any]] = None,
+                         seed_rounds: Optional[int] = None,
+                         em_dtype: Optional[str] = None
                          ) -> Tuple[np.ndarray, np.ndarray]:
     """(centers (sum_k, 2), bandwidths (sum_k,)) float32 numpy.
 
     'uniform' is the regular grid; 'gmm' and 'kmeans_balanced' fit each
     resolution on `device` (the card unless the caller names the CPU) from
     the training coords (with their temporal duplicates, i.e. density
-    weighting); 'random_site' draws training sites from `rng`. This is the
-    batch init of one lane; `stats`: see `init_spatial_centers_batch`."""
+    weighting); 'random_site' draws training sites from `rng`;
+    'kmeans_exact' solves each resolution on the host from a subsample
+    drawn from `rng`. This is the batch init of one lane; `stats`,
+    `seed_rounds`, `em_dtype`: see `init_spatial_centers_batch`."""
     return init_spatial_centers_batch(
         method, n_centers, [train_coords],
         None if generator is None else [generator],
         None if rng is None else [rng], device, subsample, gmm_n_init,
-        stats)[0]
+        stats, seed_rounds, em_dtype)[0]
 
 
 def init_spatial_centers_batch(method: str, n_centers: Sequence[int],
@@ -382,13 +466,17 @@ def init_spatial_centers_batch(method: str, n_centers: Sequence[int],
                                device: torch.device | str = "cuda",
                                subsample: Optional[int] = None,
                                gmm_n_init: Optional[int] = None,
-                               stats: Optional[Dict[str, Any]] = None
+                               stats: Optional[Dict[str, Any]] = None,
+                               seed_rounds: Optional[int] = None,
+                               em_dtype: Optional[str] = None
                                ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """The spatial init of M lanes of one resolution list at once: one
     (centers (sum_k, 2), bandwidths (sum_k,)) pair a lane.
 
     'uniform' returns the grid M times; 'random_site' draws each lane's
-    sites from `rngs[i]`. 'gmm' and 'kmeans_balanced': lane i subsamples
+    sites from `rngs[i]`; 'kmeans_exact' runs `kmeans_exact` lane by lane
+    on the host, each lane's subsample from `rngs[i]` (a lane in a batch is
+    the lane alone). 'gmm' and 'kmeans_balanced': lane i subsamples
     from `rngs[i]` and seeds every (resolution, restart) from
     `generators[i]`, resolution by resolution, so its streams do not depend
     on the other lanes; the fits of all lanes x restarts of a resolution
@@ -400,15 +488,15 @@ def init_spatial_centers_batch(method: str, n_centers: Sequence[int],
     where given, collects 'seed_seconds', 'em_seconds' (the EM's or the
     Lloyd-Sinkhorn's; the device waited for after each), the
     'best_restart' (M,) each lane kept and, for the GMM, the
-    'em_iterations' (M, restarts), a list of one array a resolution."""
+    'em_iterations' (M, restarts), a list of one array a resolution.
+    `seed_rounds` (JAX `init_seed_rounds`) seeds every restart with
+    `kmeans_plus_plus_rounds`; `em_dtype='bfloat16'` (JAX `init_em_dtype`)
+    stores the GMM EM's (n, k) tensors in bf16 (`_em`)."""
     M = len(train_coords_list)
     if method == "uniform":
         pair = uniform_grid_centers(n_centers)
         return [pair] * M
-    if method in UNPORTED_INIT_METHODS:
-        raise NotImplementedError(f"init method {method!r}: "
-                                  f"{UNPORTED_INIT_METHODS[method]}")
-    if method not in ("gmm", "kmeans_balanced", "random_site"):
+    if method not in DATA_ADAPTIVE_INIT_METHODS:
         raise ValueError(f"Unknown init_method: {method}")
     if any(tc is None for tc in train_coords_list):
         raise ValueError(f"train_coords required for {method} initialization")
@@ -418,6 +506,15 @@ def init_spatial_centers_batch(method: str, n_centers: Sequence[int],
     if method == "random_site":
         return [random_site(tc, n_centers, None if rngs is None else rngs[i])
                 for i, tc in enumerate(train_coords_list)]
+    if method == "kmeans_exact":
+        t0 = time.perf_counter()
+        out = [kmeans_exact(tc, n_centers, None if rngs is None else rngs[i],
+                            subsample)
+               for i, tc in enumerate(train_coords_list)]
+        if stats is not None:
+            stats["seed_seconds"] = 0.0
+            stats["em_seconds"] = time.perf_counter() - t0
+        return out
     if generators is None or len(generators) != M:
         raise ValueError(f"{method} initialization of {M} lanes needs {M} "
                          f"generators (and {M} rngs or none)")
@@ -432,7 +529,8 @@ def init_spatial_centers_batch(method: str, n_centers: Sequence[int],
         np.float32), device=dev) for i, tc in enumerate(train_coords_list)]
     # seeds[i][r]: (restarts, k_r, 2), each lane from its own generator,
     # resolution-major
-    seeds = [[torch.stack([kmeans_plus_plus(X, k, gen) for _ in range(ni)])
+    seeds = [[torch.stack([_seed_centers(X, k, gen, seed_rounds)
+                           for _ in range(ni)])
               for k in ks] for X, gen in zip(Xs, generators)]
     if timed:
         torch.cuda.synchronize(dev)
@@ -455,7 +553,8 @@ def init_spatial_centers_batch(method: str, n_centers: Sequence[int],
                 X_b = torch.stack([Xs[i] for i in idx])
                 seeds_b = torch.stack([seeds[i][r] for i in idx])
                 if gmm:
-                    means, sigmas, ll, iters = _em(X_b, seeds_b)
+                    means, sigmas, ll, iters = _em(X_b, seeds_b,
+                                                   em_dtype=em_dtype)
                     best = torch.argmax(ll, dim=1)          # (lanes,)
                     iters_r[idx] = iters.cpu().numpy()
                 else:

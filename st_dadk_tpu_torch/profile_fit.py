@@ -44,7 +44,8 @@ lanes on the materialised-phi route, whose single fit is the padded lane.
 
 The spatial init instead: the widest batch of bench-workload lanes is set up
 on the host once, then for each init method ('kmeans_balanced',
-'random_site', 'gmm') and width M the first M lanes are initialised as one
+'random_site', 'gmm', 'kmeans_exact': the host solver, a batch lane by lane)
+and width M the first M lanes are initialised as one
 batch (`init_spatial_centers_batch`, a warm-up and `REPEATS` timed runs, each
 lane from fresh copies of its streams) with the batch's peak device memory,
 and the first `INIT_LANE_BY_LANE` lanes one at a time (`init_spatial_centers`).
@@ -70,7 +71,7 @@ REPO = Path(__file__).resolve().parents[1]
 EPOCHS = 12       # the fit chip_smoke.py runs: the basis trains from epoch 10
 REPEATS = 3
 INIT_LANE_BY_LANE = 4
-INIT_METHODS = ("kmeans_balanced", "random_site", "gmm")
+INIT_METHODS = ("kmeans_balanced", "random_site", "gmm", "kmeans_exact")
 # a csrc kernel's demangled name: "(anonymous namespace)::bwd_w_kernel(...)",
 # "void (anonymous namespace)::fwd_kernel<16, 64, ...>(...)" (a template),
 # "st_slabs::centers_sum_kernel(...)" (csrc/slabs.cuh)

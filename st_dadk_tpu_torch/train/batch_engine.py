@@ -70,6 +70,7 @@ from st_dadk_tpu_torch.ops.init_centers import (DATA_ADAPTIVE_INIT_METHODS,
                                                 init_spatial_centers_batch)
 from st_dadk_tpu_torch.train.experiment import (ExperimentSetup,
                                                 finalize_experiment,
+                                                init_knobs,
                                                 metrics_from_preds,
                                                 run_single_experiment)
 from st_dadk_tpu_torch.train.loop import (FitResult, LaneData, fit_lanes,
@@ -142,8 +143,8 @@ def aggregate_per_tau(cfg: ExperimentConfig, exp_ids: Sequence[int],
     return out
 
 
-# the JAX package's list; 'config_id', 'save_plots', 'n_jobs' and
-# 'num_workers' are fields there and keys of `extra` here
+# the JAX package's list; 'config_id', 'n_jobs' and 'num_workers' are
+# fields there and keys of `extra` here
 _STACKABLE_KEYS = frozenset({
     "data_file", "obs_method", "obs_ratio", "obs_spatial_pattern",
     "obs_spatial_intensity", "split_method", "train_ratio",
@@ -386,8 +387,7 @@ def _init_lane_carries(cfg: ExperimentConfig,
             generators=[torch.Generator(device=s.device).manual_seed(
                 s.experiment_seed) for s in lanes],
             rngs=[s.np_rng for s in lanes], device=lanes[0].device,
-            subsample=cfg.extra.get("init_subsample"),
-            gmm_n_init=cfg.extra.get("init_gmm_n_init"))
+            **init_knobs(cfg))
         per_lane = (time.perf_counter() - t0) / len(lanes)
         for s, (centers, bandwidths) in zip(lanes, inits):
             s.timings["init_seconds"] = per_lane

@@ -6,7 +6,13 @@ observation mask draws with that seed and the train/valid split with seed +
 10000, so the masks are identical. Writes `results.json` (the JAX keys plus
 the fit's step count, validation chunks and per-epoch center shift) and
 `training_history.csv`; with `save_artifacts`, also model_{final,best}.npz,
-predictions.npz and basis_info.npz. No plots yet.
+predictions.npz and basis_info.npz; with `save_plots` (the default, as in
+JAX), the figures of `viz/plots.py`, each family inside one try as JAX's
+finalize has them (experiment.py:636-662): a figure never fails a fit, and
+where one raises (no matplotlib, say) the fit prints JAX's warning and
+writes no more figures. After a NaN-poisoned epoch, `nan_diagnostics.json`
+holds the poisoned epochs and the statistics of the serving and final
+params and of the training inputs (JAX experiment.py:380-431, :567-577).
 
 A ragged-k lane (`k_spatial_pad`) draws its params at its real shapes, fits
 padded to the shared width through the materialised-phi kernels, and is
@@ -14,8 +20,8 @@ stripped back to its real shapes before evaluation and the artifacts.
 
 `regression_type: quantile` with several levels fits one model a level in
 `quantile_<q>/` and writes the JAX package's aggregated `results.json`
-beside them, with the CRPS over the tau models (experiment.py:152-246; the
-combined fan chart is left out with the plots).
+beside them, with the CRPS over the tau models (experiment.py:152-246),
+and the combined fan chart of the tau models' fields.
 """
 from __future__ import annotations
 
@@ -30,8 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from st_dadk_tpu_torch.config import (ExperimentConfig, resolve_device,
-                                      unported_fit_knobs)
+from st_dadk_tpu_torch.config import ExperimentConfig, resolve_device
 from st_dadk_tpu_torch.dataio.arrays import (PointSet, dense_grid_points,
                                              pointset_from_mask)
 from st_dadk_tpu_torch.dataio.kaust import load_kaust_csv_single
@@ -46,7 +51,6 @@ from st_dadk_tpu_torch.models.st_interp import (ModelSpec, STInterp,
                                                 strip_lane_padding,
                                                 to_jax_params)
 from st_dadk_tpu_torch.ops.init_centers import (DATA_ADAPTIVE_INIT_METHODS,
-                                                UNPORTED_INIT_METHODS,
                                                 init_spatial_centers)
 from st_dadk_tpu_torch.ops.losses import (check_loss_np, compute_crps,
                                           compute_crps_multi_quantile)
@@ -116,25 +120,22 @@ def evaluate_pointset(cfg: ExperimentConfig, model: STInterp, ps: PointSet,
     return metrics_from_preds(cfg, preds, ps.y), preds
 
 
+def init_knobs(cfg: ExperimentConfig) -> Dict[str, Any]:
+    """The JAX init knobs of `cfg.extra` as `init_spatial_centers(_batch)`
+    arguments (JAX experiment.py:304-308)."""
+    return {"subsample": cfg.extra.get("init_subsample"),
+            "gmm_n_init": cfg.extra.get("init_gmm_n_init"),
+            "seed_rounds": cfg.extra.get("init_seed_rounds"),
+            "em_dtype": cfg.extra.get("init_em_dtype")}
+
+
 class ExperimentSetup:
     """Data, masks, point sets and the initialised model of one fit on
-    `device` (`config.resolve_device`). Raises NotImplementedError, before
-    any data is read, on a JAX fit knob the port does not carry
-    (`config.unported_fit_knobs`) and on an init method it does not carry
-    (`init_centers.UNPORTED_INIT_METHODS`)."""
+    `device` (`config.resolve_device`)."""
 
     def __init__(self, cfg: ExperimentConfig, experiment_id: int,
                  device: torch.device | str, verbose: bool = False,
                  defer_model: bool = False):
-        knobs = unported_fit_knobs(cfg)
-        if knobs:
-            raise NotImplementedError(
-                f"fit knobs the port does not carry: "
-                f"{', '.join(f'{k}={cfg.extra[k]!r}' for k in knobs)}")
-        if cfg.spatial_init_method in UNPORTED_INIT_METHODS:
-            raise NotImplementedError(
-                f"spatial_init_method {cfg.spatial_init_method!r}: "
-                f"{UNPORTED_INIT_METHODS[cfg.spatial_init_method]}")
         t0 = time.perf_counter()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -176,8 +177,7 @@ class ExperimentSetup:
             centers, bandwidths = init_spatial_centers(
                 cfg.spatial_init_method, cfg.k_spatial_centers, train_coords,
                 generator=gen, device=self.device, rng=self.np_rng,
-                subsample=cfg.extra.get("init_subsample"),
-                gmm_n_init=cfg.extra.get("init_gmm_n_init"))
+                **init_knobs(cfg))
             self.timings["init_seconds"] = time.perf_counter() - t1
             self.finish_model(centers, bandwidths)
 
@@ -342,6 +342,24 @@ def _run_per_tau(cfg: ExperimentConfig, experiment_id: int, output_dir: Path,
     }
     if write_artifacts:
         save_json(aggregated, output_dir / "results.json")
+    if cfg.save_plots and cfg.save_artifacts and write_artifacts:
+        try:
+            from st_dadk_tpu_torch.viz.plots import \
+                plot_combined_quantile_series
+            qpred, z_full = {}, None
+            for q in qs:
+                f = output_dir / f"quantile_{q}" / "predictions.npz"
+                if f.exists():
+                    d = np.load(f)
+                    qpred[q] = d["predictions"]
+                    z_full, coords = d["true"], d["coords"]
+                    train_mask, test_mask = d["train_mask"], d["test_mask"]
+            if len(qpred) == len(qs) and z_full is not None:
+                plot_combined_quantile_series(qpred, z_full, coords,
+                                              train_mask, test_mask,
+                                              output_dir)
+        except Exception as e:   # a figure never fails the experiment
+            print(f"[WARNING] combined quantile plot failed: {e}")
     return aggregated
 
 
@@ -391,8 +409,16 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
     params, consts = result.params, model_consts(setup.model)
     if cfg.k_spatial_pad is not None:
         spec = real_lane_spec(cfg, spec)
-        params, consts = strip_lane_padding(spec, int(cfg.k_spatial_pad),
-                                            params, consts)
+        k_pad = int(cfg.k_spatial_pad)
+        params, consts_real = strip_lane_padding(spec, k_pad, params, consts)
+        final_ema = (None if result.final_ema is None else
+                     strip_lane_padding(spec, k_pad, result.final_ema,
+                                        consts)[0])
+        result = result._replace(
+            params=params, final_ema=final_ema,
+            centers_history=tuple((e, np.asarray(c)[:spec.k_spatial])
+                                  for e, c in result.centers_history))
+        consts = consts_real
     serving = from_jax_params(spec, params, consts, device=setup.device)
     chunk = int(cfg.eval_chunk)
 
@@ -470,6 +496,15 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
             results[f"{split}_crps"] = m["crps"]
             results[f"{split}_check_loss"] = m["mean_check_loss"]
 
+    nan_epochs = np.flatnonzero(~np.isfinite(
+        np.asarray(result.history["train_loss"], np.float64)))
+    if nan_epochs.size and write_artifacts:
+        _write_nan_diagnostics(output_dir, result, setup, nan_epochs)
+        if verbose:
+            print(f"[WARNING] NaN train loss in epochs "
+                  f"{nan_epochs.tolist()}; diagnostics -> "
+                  f"{output_dir / 'nan_diagnostics.json'}")
+
     if write_artifacts:
         save_json(results, output_dir / "results.json")
         with open(output_dir / "training_history.csv", "w", newline="",
@@ -500,11 +535,7 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
                  test_mask=setup.test_mask)
         init_c = consts["spatial_centers_init"]
         init_bw = consts["spatial_bandwidths_init"]
-        if spec.spatial_learnable:
-            final_c = np.asarray(params["basis"]["centers"])
-            final_bw = np.exp(np.asarray(params["basis"]["log_bandwidths"]))
-        else:
-            final_c, final_bw = init_c, init_bw
+        final_c, final_bw = _final_basis(spec, params, consts)
         np.savez(output_dir / "basis_info.npz",
                  spatial_centers_init=init_c, spatial_centers_final=final_c,
                  spatial_bandwidths_init=init_bw,
@@ -513,6 +544,12 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
                  temporal_centers_final=consts["temporal_centers"],
                  temporal_bandwidths_init=consts["temporal_bandwidths"],
                  temporal_bandwidths_final=consts["temporal_bandwidths"])
+    if cfg.save_plots and write_artifacts:
+        try:
+            _write_figures(cfg, spec, setup, result, serving, params,
+                           consts, history, field, output_dir)
+        except Exception as e:  # a figure never fails the experiment
+            print(f"[WARNING] plotting failed: {e}")
     if verbose:
         print(f"[EXP {setup.experiment_id}] done in "
               f"{results['total_time_formatted']} -> {output_dir}", flush=True)
@@ -523,3 +560,99 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
             train_mask=setup.train_mask, valid_mask=setup.valid_mask,
             test_mask=setup.test_mask))
     return results
+
+
+def _final_basis(spec: ModelSpec, params: Dict[str, Any],
+                 consts: Dict[str, Any]) -> Tuple[np.ndarray, np.ndarray]:
+    """(centers, bandwidths) after training: the learned ones, else the
+    initial ones."""
+    if spec.spatial_learnable:
+        return (np.asarray(params["basis"]["centers"]),
+                np.exp(np.asarray(params["basis"]["log_bandwidths"])))
+    return (np.asarray(consts["spatial_centers_init"]),
+            np.asarray(consts["spatial_bandwidths_init"]))
+
+
+def _write_figures(cfg: ExperimentConfig, spec: ModelSpec,
+                   setup: ExperimentSetup, result: FitResult,
+                   serving: STInterp, params: Dict[str, Any],
+                   consts: Dict[str, Any], history: Dict[str, list],
+                   field: Optional[np.ndarray], output_dir: Path) -> None:
+    """The per-experiment figures of JAX's finalize (experiment.py:636-662)
+    in its order; the first that raises ends the family."""
+    from st_dadk_tpu_torch.viz import plots
+    plots.plot_training_curves(history, output_dir / "training_curves.png")
+    plots.plot_observation_pattern(setup.coords, setup.obs_mask,
+                                   setup.train_mask, setup.valid_mask,
+                                   output_dir)
+    plots.plot_predictions(cfg, serving, setup.z_full, setup.coords,
+                           setup.train_mask, output_dir)
+    if field is None:
+        coords_rep, t_rep = dense_grid_points(setup.T, setup.coords)
+        dense = predict(serving, coords_rep, t_rep, int(cfg.eval_chunk))
+        col = (len(cfg.quantile_levels) // 2
+               if cfg.regression_type == "multi-quantile" else 0)
+        field = dense[:, col].reshape(setup.T, setup.S)
+    plots.plot_spatial_mse(setup.z_full, setup.coords, field,
+                           setup.train_mask, output_dir)
+    plots.plot_temporal_series(cfg, serving, setup.z_full, setup.coords,
+                               setup.train_mask, setup.valid_mask,
+                               setup.test_mask, output_dir)
+    inactive = plots.inactive_basis_mask(
+        np.asarray(params["mlp"]["linear_0"]["w"]), spec.k_spatial, spec.p,
+        float(cfg.extra.get("sparsity_threshold_ratio", 0.01)))
+    plots.plot_basis_evolution(
+        np.asarray(consts["spatial_centers_init"]),
+        np.asarray(consts["spatial_bandwidths_init"]),
+        *_final_basis(spec, params, consts), setup.train_ps.coords,
+        output_dir, list(result.centers_history), inactive=inactive)
+
+
+def _tensor_stats(arr: np.ndarray) -> Dict[str, Any]:
+    a = np.asarray(arr, np.float64)
+    finite = np.isfinite(a)
+    fa = a[finite]
+    return {
+        "shape": list(a.shape),
+        "n_nonfinite": int((~finite).sum()),
+        "min": float(fa.min()) if fa.size else None,
+        "max": float(fa.max()) if fa.size else None,
+        "mean": float(fa.mean()) if fa.size else None,
+        "std": float(fa.std()) if fa.size else None,
+    }
+
+
+def _write_nan_diagnostics(output_dir: Path, result: FitResult,
+                           setup: ExperimentSetup,
+                           nan_epochs: np.ndarray) -> None:
+    """Postmortem after NaN-poisoned epochs, keyed as the JAX package keys
+    it (experiment.py:394-431): the poisoned epochs, the tails of the loss
+    histories, per-tensor statistics of the serving and final-EMA params
+    and of the training inputs."""
+    flat_params: Dict[str, Any] = {}
+
+    def walk(tree, prefix, into):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}{k}.", into)
+        else:
+            into[prefix[:-1]] = _tensor_stats(np.asarray(tree))
+
+    walk(result.params, "serving_params.", flat_params)
+    if result.final_ema is not None:
+        walk(result.final_ema, "final_ema.", flat_params)
+    diag = {
+        "nan_epochs": nan_epochs.tolist(),
+        "n_epochs_run": int(result.n_epochs_run),
+        "train_loss_tail": np.asarray(
+            result.history["train_loss"])[-10:].tolist(),
+        "val_loss_tail": np.asarray(
+            result.history["val_loss"])[-10:].tolist(),
+        "inputs": {
+            "train_y": _tensor_stats(setup.train_ps.y),
+            "train_coords": _tensor_stats(setup.train_ps.coords),
+            "train_t": _tensor_stats(setup.train_ps.t),
+        },
+        "params": flat_params,
+    }
+    save_json(diag, output_dir / "nan_diagnostics.json")

@@ -11,20 +11,33 @@ an eager loop over epochs and minibatches with the same semantics:
     in chunks of min(max(16 batch, 32768), n_valid);
   - best-EMA checkpoint, early stopping (patience, optional plateau margin);
   - a NaN loss poisons its step (the update still applies, as in the
-    reference) and skips the rest of the epoch.
+    reference) and skips the rest of the epoch;
+  - `ablate_validate: true` (JAX loop.py:550-551): the epoch's train loss
+    stands in for the validation loss and the validation RMSE is 0;
+  - with `checkpoint_path`, the whole loop state goes to an npz file every
+    `epochs_chunk` epochs, and `resume=True` continues from it bit for bit
+    (`save_fit_checkpoint` / `load_fit_checkpoint`, JAX loop.py:1151-1290).
 
-Shuffle: `extra['shuffle'] == 'none'` keeps the identity order (for parity
-tests); anything else draws `torch.randperm` from the fit's generator. The
-JAX hash/sort permutations and RNG streams do not cross frameworks, so the
-two packages agree on batch order only under 'none', and on dropout masks
-only at dropout 0.
+Shuffle (`extra['shuffle']`, JAX `epoch_batch_indices`, loop.py:381-413):
+'auto' (the default) and 'hash' permute the epoch's capacity by the keyed
+multiply-xorshift bijection of `hash_permutation_any` wherever the lanes
+are uniform (a single fit always is), 'perm' draws `torch.randperm`, and
+'none' keeps the identity order. The bijection's four multipliers are drawn
+from the fit's generator once an epoch (`hash_multipliers`); fed JAX's
+multipliers, the permutation is JAX's bit for bit. The generators do not
+cross frameworks, so the two packages agree on batch order only where the
+multipliers are handed across or under 'none', and on dropout masks only
+at dropout 0.
 
 `fit_lanes` runs M such fits of one spec as lanes of one eager program
 (JAX `_run_epoch` / `_epoch_bookkeeping` under vmap): every op serves all
 lanes, the NaN flag, the loss sum and the early-stopping state stay on the
 device, and the host reads one flag an epoch (all lanes stopped). Each lane
-shuffles its own capacity from its own generator seeded with its experiment
-seed; dropout masks for all lanes come from one generator of the batch in
+shuffles from its own generator seeded with its experiment seed: uniform
+lanes by the bijection with the lane's own multipliers, all lanes in one
+set of elementwise ops; lanes of different batch counts by a permutation
+of their own capacity. Dropout masks for all lanes come from one generator
+of the batch in
 one draw, so a lane's dropout stream differs from its sequential fit's: a
 lane and its single fit agree closely only at dropout 0 under
 `shuffle: none`, and statistically otherwise.
@@ -42,7 +55,8 @@ import dataclasses
 import math
 import time
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +65,7 @@ from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.dataio.arrays import PointSet, pad_pointset
 from st_dadk_tpu_torch.models.st_interp import (ModelSpec, STInterp,
                                                 STInterpLanes, lane_tree,
+                                                load_jax_params,
                                                 to_jax_params)
 from st_dadk_tpu_torch.ops.losses import (mse_loss, mse_loss_lanes,
                                           multi_quantile_loss,
@@ -100,6 +115,7 @@ class LoopSpec:
     n_val_chunks: int = 1
     record_centers: bool = False
     shuffle: str = "auto"
+    ablate_validate: bool = False
 
     @classmethod
     def from_config(cls, cfg: ExperimentConfig, model: ModelSpec,
@@ -134,8 +150,22 @@ class LoopSpec:
             val_chunk=val_chunk,
             n_val_chunks=n_val_chunks,
             record_centers=cfg.spatial_learnable,
-            shuffle=str(cfg.extra.get("shuffle", "auto")),
+            shuffle=_shuffle_mode(cfg),
+            ablate_validate=bool(cfg.extra.get("ablate_validate", False)),
         )
+
+
+SHUFFLES = ("auto", "hash", "perm", "none")
+# epochs between the centers kept for the basis-evolution figure (JAX
+# assemble_result, loop.py:1318-1320)
+CENTERS_EVERY = 100
+
+
+def _shuffle_mode(cfg: ExperimentConfig) -> str:
+    mode = str(cfg.extra.get("shuffle", "auto"))
+    if mode not in SHUFFLES:
+        raise ValueError(f"shuffle must be one of {SHUFFLES}, got {mode!r}")
+    return mode
 
 
 class TrainData(NamedTuple):
@@ -270,6 +300,9 @@ class FitResult(NamedTuple):
     n_steps: int
     n_val_chunks: int          # validation forwards per epoch
     timings: Dict[str, float]
+    final_ema: Optional[Dict] = None     # the last EMA, JAX layout
+    # [(epoch, centers (k, 2))] every CENTERS_EVERY epochs, learnable basis
+    centers_history: Tuple = ()
 
 
 def adaptive_batch_size(n_train: int, batch_size: int,
@@ -306,23 +339,200 @@ def prepare_train_data(train_ps: PointSet, valid_ps: PointSet,
     return data, B, vchunk
 
 
+def hash_width(cap: int) -> int:
+    """The power of two the bijection of `hash_permutation_any` runs on."""
+    cap = int(cap)
+    return cap if cap & (cap - 1) == 0 else 1 << cap.bit_length()
+
+
+def hash_multipliers(cap: int, generator: torch.Generator,
+                     device: torch.device | str) -> torch.Tensor:
+    """The bijection's four random values for one epoch, (4,) int64 in
+    [0, hash_width(cap)), as JAX draws them (loop.py:435-436)."""
+    return torch.randint(0, hash_width(cap), (4,), generator=generator,
+                         device=device)
+
+
+def hash_permutation(r: torch.Tensor, cap: int) -> torch.Tensor:
+    """Keyed exact permutation of [0, cap) for a power-of-two cap (JAX
+    loop.py:416-441): three rounds of (odd multiply mod 2^w, xorshift
+    right) after an xor with r[3], each invertible on w-bit integers. `r`
+    (..., 4) int64 holds one set of values a permutation; the result is
+    (..., cap) int64. JAX multiplies in uint32, which wraps mod 2^32 and so
+    mod 2^w; here the product stays exact in int64 (w <= 31) and is masked
+    to w bits, the same residue."""
+    w = int(cap).bit_length() - 1
+    mask = cap - 1
+    s1, s2 = max(1, w // 2), max(1, w // 3)
+    r = r.to(torch.int64)
+    x = torch.arange(cap, dtype=torch.int64, device=r.device).expand(
+        *r.shape[:-1], cap)
+    x = x ^ (r[..., 3:4] & mask)
+    for i in range(3):
+        x = (x * (2 * r[..., i:i + 1] + 1)) & mask
+        x = x ^ (x >> (s1 if i % 2 == 0 else s2))
+    return x
+
+
+def hash_permutation_any(r: torch.Tensor, cap: int) -> torch.Tensor:
+    """Keyed permutation of [0, cap) for any cap (JAX loop.py:444-461): the
+    bijection on hash_width(cap), restricted to [0, cap) in its order by one
+    cumsum and one scatter. `r` (..., 4) as in `hash_permutation`."""
+    big_n = hash_width(cap)
+    if big_n == cap:
+        return hash_permutation(r, cap)
+    big = hash_permutation(r, big_n)
+    keep = big < cap
+    pos = torch.where(keep, torch.cumsum(keep, dim=-1) - 1, cap)
+    out = torch.zeros((*big.shape[:-1], cap + 1), dtype=torch.int64,
+                      device=big.device)
+    out.scatter_(-1, pos, big)      # the dropped entries land in column cap
+    return out[..., :cap]
+
+
 def epoch_batch_indices(cap: int, bs: int, B: int, shuffle: str,
                         generator: torch.Generator,
                         device: torch.device) -> torch.Tensor:
-    """(B, bs) point indices of one epoch."""
+    """(B, bs) point indices of one epoch of a single fit (whose lane is
+    uniform): the identity order under 'none', `torch.randperm` under
+    'perm', the bijection with multipliers from `generator` under 'auto'
+    and 'hash'."""
     if shuffle == "none":
         return (torch.arange(B * bs, device=device) % cap).reshape(B, bs)
-    perm = torch.randperm(cap, generator=generator, device=device)
+    if shuffle == "perm":
+        perm = torch.randperm(cap, generator=generator, device=device)
+    elif shuffle in ("auto", "hash"):
+        perm = hash_permutation_any(
+            hash_multipliers(cap, generator, device), cap)
+    else:
+        raise ValueError(f"shuffle must be one of {SHUFFLES}, got "
+                         f"{shuffle!r}")
     return perm[:B * bs].reshape(B, bs)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint and resume of a single fit (JAX loop.py:1130-1190)
+# ---------------------------------------------------------------------------
+
+def _flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten_tree(v, f"{prefix}{k}."))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def save_fit_checkpoint(path, carry: Dict[str, Any], epochs_done: int,
+                        hists: list) -> None:
+    """The whole loop state in one npz file, in the JAX package's layout:
+    the carry tree flattened to dotted names (params, opt_state.{m,v,step},
+    ema, best_ema, the early-stop scalars), `__epochs_done` and the
+    concatenated history under `__hist.<name>`. The fit's generator state
+    (`carry['generator_state']`) takes the place of JAX's PRNG key
+    (`__key_data`) as `__generator_state`. Written to a temporary file and
+    moved over `path`, so a crash leaves the previous checkpoint."""
+    state = dict(carry)
+    gen_state = state.pop("generator_state")
+    flat = _flatten_tree(state)
+    flat["__generator_state"] = np.asarray(gen_state, np.uint8)
+    flat["__epochs_done"] = np.asarray(epochs_done)
+    hist_cat = {f"__hist.{k}": np.concatenate([h[k] for h in hists])
+                for k in (hists[0] if hists else {})}
+    tmp = Path(str(path) + ".tmp.npz")
+    np.savez(tmp, **flat, **hist_cat)
+    tmp.replace(path)
+
+
+def load_fit_checkpoint(path) -> Tuple[Dict[str, Any], int, list]:
+    """(carry, epochs_done, [history]) of `save_fit_checkpoint`."""
+    data = np.load(path, allow_pickle=False)
+    flat, hist = {}, {}
+    epochs_done, gen_state = 0, None
+    for name in data.files:
+        if name == "__generator_state":
+            gen_state = data[name]
+        elif name == "__epochs_done":
+            epochs_done = int(data[name])
+        elif name.startswith("__hist."):
+            hist[name[len("__hist."):]] = data[name]
+        else:
+            flat[name] = data[name]
+    carry = lane_tree(flat)
+    carry["generator_state"] = gen_state
+    return carry, epochs_done, [hist] if hist else []
+
+
+def _fit_carry(model: STInterp, opt: AdamW, ema_model: STInterp,
+               best_ema: Sequence[torch.Tensor], book: Dict[str, Any],
+               gen: torch.Generator) -> Dict[str, Any]:
+    """The single fit's loop state as a JAX-layout carry of numpy arrays."""
+    names = [n for n, _ in model.named_parameters()]
+    host = lambda ts: lane_tree({n: t.detach().cpu().numpy().copy()
+                                 for n, t in zip(names, ts)})
+    params = [p for _, p in model.named_parameters()]
+    return {
+        "params": host(params),
+        "opt_state": {"m": host([opt.m[id(p)] for p in params]),
+                      "v": host([opt.v[id(p)] for p in params]),
+                      "step": np.asarray(opt.step_count, np.int32)},
+        "ema": to_jax_params(ema_model),
+        "best_ema": host(best_ema),
+        # float64: the host's bookkeeping, whose values the checkpoint
+        # must give back exactly (JAX's carry holds float32 scalars)
+        "best_val": np.asarray(book["best_val"], np.float64),
+        "sig_best": np.asarray(book["sig_best"], np.float64),
+        "has_best": np.asarray(book["has_best"]),
+        "patience_ctr": np.asarray(book["patience_ctr"], np.int32),
+        "stopped": np.asarray(book["stopped"]),
+        "stop_epoch": np.asarray(book["stop_epoch"], np.int32),
+        "generator_state": gen.get_state().numpy(),
+    }
+
+
+def _restore_fit_carry(carry: Dict[str, Any], model: STInterp, opt: AdamW,
+                       ema_model: STInterp, best_ema: Sequence[torch.Tensor],
+                       gen: torch.Generator) -> Dict[str, Any]:
+    """Load `carry` into the fit's objects in place; its early-stop
+    bookkeeping as a dict."""
+    load_jax_params(model, carry["params"])
+    load_jax_params(ema_model, carry["ema"])
+    m, v = _flatten_tree(carry["opt_state"]["m"]), \
+        _flatten_tree(carry["opt_state"]["v"])
+    best = _flatten_tree(carry["best_ema"])
+    with torch.no_grad():
+        for (name, p), dst in zip(model.named_parameters(), best_ema):
+            opt.m[id(p)].copy_(torch.as_tensor(m[name]))
+            opt.v[id(p)].copy_(torch.as_tensor(v[name]))
+            dst.copy_(torch.as_tensor(best[name]))
+    opt.step_count = int(carry["opt_state"]["step"])
+    gen.set_state(torch.as_tensor(carry["generator_state"], dtype=torch.uint8))
+    return {"best_val": float(carry["best_val"]),
+            "sig_best": float(carry["sig_best"]),
+            "has_best": bool(carry["has_best"]),
+            "patience_ctr": int(carry["patience_ctr"]),
+            "stopped": bool(carry["stopped"]),
+            "stop_epoch": int(carry["stop_epoch"])}
 
 
 def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
         train_ps: PointSet, valid_ps: PointSet, seed: int,
-        verbose: bool = False) -> FitResult:
+        verbose: bool = False, epochs_chunk: int = 50,
+        checkpoint_path: Optional[str | Path] = None, resume: bool = False,
+        session_epochs: Optional[int] = None) -> FitResult:
     """Train `model` in place; return the serving params and history.
 
     The device is the model's; shuffle and dropout draw from one generator
-    on it, seeded with `seed`."""
+    on it, seeded with `seed`. With `checkpoint_path` (an `.npz` file;
+    `train/checkpoint.py`), the whole loop state is written every
+    `epochs_chunk` epochs, at an early stop and at the session's end;
+    `resume=True` continues from it, bit for bit the uninterrupted fit on
+    the same device. `session_epochs` caps the epochs this call runs (JAX
+    loop.py:1192-1290)."""
+    from st_dadk_tpu_torch.train.checkpoint import (checkpoint_exists,
+                                                    load_checkpoint,
+                                                    save_checkpoint)
     device = next(model.parameters()).device
     batch_size = adaptive_batch_size(train_ps.n_real, cfg.batch_size)
     data, B, val_chunk = prepare_train_data(train_ps, valid_ps, batch_size,
@@ -343,19 +553,52 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
     for p in ema:
         p.requires_grad_(False)
 
-    best_val, sig_best = math.inf, math.inf
-    has_best, stopped, stop_epoch, patience_ctr = False, False, 0, 0
+    book = {"best_val": math.inf, "sig_best": math.inf, "has_best": False,
+            "patience_ctr": 0, "stopped": False, "stop_epoch": 0}
     hist: Dict[str, List[float]] = {"train_loss": [], "val_loss": [],
-                                    "val_rmse": []}
-    center_shift: List[float] = []
-    n_steps = 0
+                                    "val_rmse": [], "center_shift": []}
+    centers_history: List[Tuple[int, np.ndarray]] = []
+    epochs_done = 0
+    # checkpoint_exists refuses a directory (Orbax) path before any epoch
+    if checkpoint_path is not None and checkpoint_exists(checkpoint_path) \
+            and resume:
+        carry, epochs_done, hists = load_checkpoint(checkpoint_path)
+        book = _restore_fit_carry(carry, model, opt, ema_model, best_ema,
+                                  gen)
+        for h in hists:
+            for k in hist:
+                hist[k] = [float(x) for x in h.get(k, [])]
+            centers_history = [
+                (int(e), c) for e, c in zip(h.get("centers_epochs", []),
+                                            h.get("centers", []))]
+        if verbose:
+            print(f"Resumed training from epoch {epochs_done}")
+    E = int(cfg.epochs)
+    session_limit = E if session_epochs is None else \
+        min(E, epochs_done + int(session_epochs))
+    chunk = max(1, min(int(epochs_chunk), E))
+    session_start = epochs_done
+
+    def save():
+        h = {k: np.asarray(v, np.float64) for k, v in hist.items()}
+        h["centers_epochs"] = np.asarray([e for e, _ in centers_history],
+                                         np.int64)
+        h["centers"] = (np.stack([c for _, c in centers_history])
+                        if centers_history else np.zeros((0, 0, 2),
+                                                         np.float32))
+        save_checkpoint(checkpoint_path,
+                        _fit_carry(model, opt, ema_model, best_ema, book,
+                                   gen), epochs_done, [h])
+
     t_steps = t_val = t_first = t_first_epoch = 0.0
     cap = data.tr_coords.shape[0]
     packed_tr = torch.cat([data.tr_coords, data.tr_t, data.tr_y,
                            data.tr_w[:, None]], dim=1)          # (cap, 5)
 
     t_loop = time.perf_counter()
-    for epoch in range(cfg.epochs):
+    for epoch in range(epochs_done, session_limit):
+        if book["stopped"]:
+            break
         t0 = time.perf_counter()
         idx = epoch_batch_indices(cap, batch_size, B, spec.shuffle, gen, device)
         batches = packed_tr[idx]                               # (B, bs, 5)
@@ -372,7 +615,6 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
             s = epoch * B + b
             opt.step({"mlp": float(lr_mlp[s]), "basis": float(lr_basis[s])})
             ema_update(ema, params, data.ema_decay)
-            n_steps += 1
             lv = float(loss.detach())
             loss_sum += lv
             if not math.isfinite(lv):
@@ -380,24 +622,28 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
                 break
         train_loss = math.nan if nan_epoch else loss_sum / max(B, 1)
         t1 = time.perf_counter()
-        val_loss, val_rmse = _validate(spec, ema_model, data)
+        if spec.ablate_validate:
+            val_loss, val_rmse = train_loss, 0.0
+        else:
+            val_loss, val_rmse = _validate(spec, ema_model, data)
         t_steps += t1 - t0
         t_val += time.perf_counter() - t1
-        if epoch == 0:
+        if epoch == session_start:
             t_first = t1 - t0      # includes the process's first launches
 
-        improved = math.isfinite(val_loss) and val_loss < best_val
+        improved = math.isfinite(val_loss) and val_loss < book["best_val"]
         if improved:
-            best_val, has_best = val_loss, True
+            book["best_val"], book["has_best"] = val_loss, True
             with torch.no_grad():
                 for dst, src in zip(best_ema, ema):
                     dst.copy_(src)
+        sig_best = book["sig_best"]
         sig_thresh = (sig_best - spec.min_rel_delta * abs(sig_best)
                       if math.isfinite(sig_best) else sig_best)
         if math.isfinite(val_loss) and val_loss < sig_thresh:
-            sig_best, patience_ctr = val_loss, 0
+            book["sig_best"], book["patience_ctr"] = val_loss, 0
         else:
-            patience_ctr += 1
+            book["patience_ctr"] += 1
         hist["train_loss"].append(train_loss)
         hist["val_loss"].append(val_loss)
         hist["val_rmse"].append(val_rmse)
@@ -406,39 +652,53 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
             # max is the real centers' (pad_lane_model's invariant)
             with torch.no_grad():
                 c = model.basis.centers
-                center_shift.append(float(torch.max(torch.abs(
+                hist["center_shift"].append(float(torch.max(torch.abs(
                     c - model.spatial_centers_init))))
-        if epoch == 0:
+                if (epoch + 1) % CENTERS_EVERY == 0:
+                    centers_history.append(
+                        (epoch + 1, c.detach().cpu().numpy().copy()))
+        if epoch == session_start:
             t_first_epoch = time.perf_counter() - t0
         if verbose:
             print(f"  epoch {epoch + 1:4d} train {train_loss:.6f} "
                   f"val {val_loss:.6f} rmse {val_rmse:.6f}", flush=True)
-        if patience_ctr >= spec.patience:
-            stopped, stop_epoch = True, epoch + 1
+        epochs_done = epoch + 1
+        if book["patience_ctr"] >= spec.patience:
+            book["stopped"], book["stop_epoch"] = True, epoch + 1
             if verbose:
-                print(f"Early stopping at epoch {stop_epoch}")
-            break
+                print(f"Early stopping at epoch {epoch + 1}")
+        if checkpoint_path is not None and (
+                (epochs_done - session_start) % chunk == 0
+                or epochs_done == session_limit or book["stopped"]):
+            save()
     t_epochs = time.perf_counter() - t_loop
 
-    n_run = stop_epoch if stopped else cfg.epochs
-    history = {k: np.asarray(v[:n_run], np.float64) for k, v in hist.items()}
+    stopped = book["stopped"]
+    n_run = book["stop_epoch"] if stopped else epochs_done
+    history = {k: np.asarray(hist[k][:n_run], np.float64)
+               for k in ("train_loss", "val_loss", "val_rmse")}
     history["lr"] = lr_recorded[:n_run].copy()
-    if has_best:
+    final_ema = to_jax_params(ema_model)
+    if book["has_best"]:
         with torch.no_grad():
             for dst, src in zip(ema, best_ema):
                 dst.copy_(src)
     serving = to_jax_params(ema_model)
     return FitResult(
         params=serving, history=history,
-        best_val=float(best_val), n_epochs_run=n_run, stopped_early=stopped,
-        center_shift=np.asarray(center_shift[:n_run]), n_steps=n_steps,
-        n_val_chunks=spec.n_val_chunks,
+        best_val=float(book["best_val"]), n_epochs_run=n_run,
+        stopped_early=stopped,
+        center_shift=np.asarray(hist["center_shift"][:n_run]),
+        n_steps=opt.step_count, n_val_chunks=spec.n_val_chunks,
         # epochs_seconds / first_epoch_seconds: the loop's wall, steps,
         # validation and bookkeeping, as `fit_lanes` records them
         timings={"train_steps_seconds": t_steps, "validate_seconds": t_val,
                  "first_epoch_steps_seconds": t_first,
                  "epochs_seconds": t_epochs,
-                 "first_epoch_seconds": t_first_epoch})
+                 "first_epoch_seconds": t_first_epoch},
+        final_ema=final_ema,
+        centers_history=tuple((e, c) for e, c in centers_history
+                              if e <= n_run))
 
 
 # ---------------------------------------------------------------------------
@@ -647,7 +907,11 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
 
     `lr_steps` (M, epochs, B_shared, 2) holds each lane's per-step (MLP,
     basis) LRs and is uploaded once; `lr_recorded[i]` (epochs,) is lane i's
-    recorded LR; `seeds[i]` seeds lane i's shuffle. A step executes in a
+    recorded LR; `seeds[i]` seeds lane i's shuffle: under 'auto' and
+    'hash', lanes of one batch count (uniform lanes) permute by the
+    bijection, each with the multipliers its own generator draws, where
+    its single fit draws them; lanes of different batch counts, and every
+    lane under 'perm', by `shuffle_lane_indices_`. A step executes in a
     lane only while b < the lane's batch count, no earlier batch of the
     epoch gave the lane a non-finite loss, and the lane has not stopped; a
     stopped lane keeps its whole state and writes NaN history rows. No step
@@ -711,7 +975,8 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
     hist = {k: torch.full((E, M), math.nan, **f32)
             for k in ("train_loss", "val_loss", "val_rmse", "center_shift")}
 
-    shuffled = spec.shuffle != "none"
+    hashed = (spec.shuffle in ("auto", "hash")
+              and all(nb == B for nb in data.n_batches))
     lane_gens = [torch.Generator(device=device).manual_seed(int(sd))
                  for sd in seeds]
     drop_gen = torch.Generator(device=device).manual_seed(int(seeds[0]))
@@ -721,15 +986,20 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
     def epoch_batches() -> Tuple[torch.Tensor, ...]:
         """The epoch's minibatches, step-major and contiguous: coords
         (B, M, bs, 2), t and y (B, M, bs, 1), w (B, M, bs)."""
-        if shuffled:
+        order = idx
+        if hashed:                    # cap == B * bs: every lane is uniform
+            order = hash_permutation_any(torch.stack(
+                [hash_multipliers(cap, g, device) for g in lane_gens]), cap)
+        elif spec.shuffle != "none":
             shuffle_lane_indices_(idx, data.n_batches, bs, lane_gens)
-        packed = data.packed_tr[lane_ar, idx].reshape(M, B, bs, 5)
+        packed = data.packed_tr[lane_ar, order].reshape(M, B, bs, 5)
         packed = packed.transpose(0, 1)
         return (packed[..., 0:2].contiguous(), packed[..., 2:3].contiguous(),
                 packed[..., 3:4].contiguous(), packed[..., 4].contiguous())
 
     t_first = 0.0
     epochs_done = 0
+    centers_history: List[Tuple[int, np.ndarray]] = []
     t_loop = time.perf_counter()
     for epoch in range(E):
         t0 = time.perf_counter()
@@ -756,8 +1026,11 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
                 nan_epoch = nan_epoch | (executes & ~torch.isfinite(loss_d))
         with torch.no_grad():
             train_loss = torch.where(nan_epoch, nan, loss_sum / n_batches_f)
-            val_loss, val_rmse = _validate_lanes(spec, ema_model, data,
-                                                 tau_lanes)
+            if spec.ablate_validate:
+                val_loss, val_rmse = train_loss, torch.zeros_like(train_loss)
+            else:
+                val_loss, val_rmse = _validate_lanes(spec, ema_model, data,
+                                                     tau_lanes)
 
             # JAX _epoch_bookkeeping, a lane each
             finite = torch.isfinite(val_loss)
@@ -787,6 +1060,9 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
                 hist["center_shift"][epoch] = torch.amax(torch.abs(
                     model.basis.centers - model.spatial_centers_init),
                     dim=(1, 2))
+                if (epoch + 1) % CENTERS_EVERY == 0:
+                    centers_history.append(
+                        (epoch + 1, model.basis.centers.cpu().numpy()))
             epochs_done = epoch + 1
             all_stopped = bool(stopped.all())     # the epoch's one host read
         if epoch == 0:
@@ -804,6 +1080,8 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
         serving = {name: torch.where(
             has_best.reshape(M, *([1] * (b.dim() - 1))), b, e).cpu().numpy()
             for (name, e), b in zip(ema_model.named_parameters(), best_ema)}
+        final = {name: e.cpu().numpy()
+                 for name, e in ema_model.named_parameters()}
     hist_h = {k: v.cpu().numpy().astype(np.float64) for k, v in hist.items()}
     stopped_h = stopped.cpu().numpy()
     stop_epoch_h = stop_epoch.cpu().numpy()
@@ -826,7 +1104,11 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
             timings={"epochs_seconds": t_epochs,
                      "first_epoch_seconds": t_first,
                      "epochs_run_batch": float(epochs_done),
-                     "steps_per_epoch_batch": float(B)}))
+                     "steps_per_epoch_batch": float(B)},
+            final_ema=lane_tree({name: v[i].copy()
+                                 for name, v in final.items()}),
+            centers_history=tuple((e, c[i].copy()) for e, c in
+                                  centers_history if e <= n_run)))
     return results
 
 

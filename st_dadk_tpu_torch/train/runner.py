@@ -11,9 +11,11 @@ disk. The filesystem contract is the JAX package's:
     <output_dir>/summary/all_experiments.csv
 
 `all_experiments.csv` is written with the `csv` module (the JAX package uses
-pandas): same columns, same order. Left out: the two summary figures (they
-belong to the plotting module, which is not ported yet), the multi-host
-barriers and process striping (one card, one process), and `engine="dp"`.
+pandas): same columns, same order. The two summary figures
+(`averaged_spatial_mse.png`, `observation_density.png`) are drawn from the
+experiments' predictions.npz inside one try, as there: a figure never
+fails the run. Left out: the multi-host barriers and process striping (one
+card, one process), and `engine="dp"`.
 """
 from __future__ import annotations
 
@@ -82,6 +84,19 @@ def aggregate_results(all_results: List[Dict[str, Any]], summary_dir: Path
             "values": [float(v) for v in arr],
         }
     save_json(summary, summary_dir / "summary_statistics.json")
+
+    # cross-experiment maps (JAX runner.py:82-93); figures only
+    try:
+        from st_dadk_tpu_torch.viz.plots import (
+            create_averaged_spatial_mse, create_observation_density_map)
+        exp_dirs = [Path(r["config"]["output_dir"]) for r in all_results
+                    if isinstance(r.get("config"), dict)
+                    and r["config"].get("output_dir")]
+        if exp_dirs:
+            create_averaged_spatial_mse(exp_dirs, summary_dir)
+            create_observation_density_map(exp_dirs, summary_dir)
+    except Exception as e:
+        print(f"[WARNING] summary figures failed: {e}")
 
     columns: Dict[str, List[Any]] = {
         "experiment_id": [r.get("experiment_id", i + 1)

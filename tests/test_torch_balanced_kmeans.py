@@ -204,12 +204,23 @@ def test_halving_sum():
 def test_data_adaptive_methods_and_the_unported_one(tmp_path):
     assert set(ti.DATA_ADAPTIVE_INIT_METHODS) == {
         "gmm", "random_site", "kmeans_balanced", "kmeans_exact"}
-    # kmeans_exact is refused at set-up, before the (missing) data is read
+    # kmeans_exact, once refused at set-up, now sets up and initialises
+    # from the exact k-means of the setup's training coords
+    rng = np.random.default_rng(2)
+    sites = rng.uniform(size=(20, 2)).round(5)
+    (tmp_path / "toy.csv").write_text("\n".join(
+        ["x,y,t,z"] + [f"{x},{y},{t},{np.sin(3 * x) + t / 10:.5f}"
+                       for t in range(1, 7) for x, y in sites]))
     cfg = ExperimentConfig.from_dict(dict(
         spatial_init_method="kmeans_exact", device="cpu",
-        data_file=str(tmp_path / "absent.csv")))
-    with pytest.raises(NotImplementedError, match="kmeans_exact"):
-        ExperimentSetup(cfg, 1, "cpu")
+        data_file=str(tmp_path / "toy.csv"), k_spatial_centers=[4],
+        k_temporal_centers=[3], hidden_dims=[8], obs_ratio=0.8))
+    setup = ExperimentSetup(cfg, 1, "cpu")
+    want = ti.init_spatial_centers(
+        "kmeans_exact", [4], setup.train_ps.coords,
+        rng=ExperimentSetup(cfg, 1, "cpu", defer_model=True).np_rng)
+    np.testing.assert_array_equal(
+        setup.model.spatial_centers_init.numpy(), want[0])
     with pytest.raises(ValueError, match="Unknown init_method"):
         ti.init_spatial_centers_batch("kmeans", [4], [_points(0, 50)],
                                       *_streams(1), "cpu")

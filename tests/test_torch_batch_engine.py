@@ -22,7 +22,7 @@ _BASE = dict(
     patience=50, warmup_epochs=1, scheduler="cosine", grad_clip=10.0,
     regression_type="mean", obs_method="site-wise", obs_ratio=0.5,
     obs_spatial_pattern="uniform", split_method="random", train_ratio=0.8,
-    n_experiments=4, base_seed=100, save_artifacts=True)
+    n_experiments=4, base_seed=100, save_artifacts=True, save_plots=False)
 
 
 def _cfg(toy_dir, **kw):

@@ -120,7 +120,7 @@ def toy(tmp_path_factory):
         "obs_ratio: 0.5\nwarmup_epochs: 1\nbasis_unfreeze_epoch: 1\n"
         "spatial_init_method: uniform\nregression_type: multi-quantile\n"
         "quantile_levels: [0.1, 0.5, 0.9]\nlr: 5e-3\nsave_artifacts: true\n"
-        "device: cpu\n")
+        "save_plots: false\ndevice: cpu\n")
     return d
 
 

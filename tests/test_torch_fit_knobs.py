@@ -1,7 +1,8 @@
 """Two guards of the port's public surface.
 
-- A JAX fit knob that the port does not carry raises NotImplementedError at
-  setup and names the knob, instead of fitting differently without a word;
+- The JAX fit knobs that change a fit's numbers (`init_seed_rounds`,
+  `init_em_dtype: bfloat16`, `ablate_validate: true`) reach the fit: the
+  setup's init is the init with the knob, and the fit runs to its results;
   the JAX package's TPU knobs and `init_gmm_fused` (the same EM, see
   st_dadk_tpu_torch/config.py) are accepted.
 - The public constructors put what they build on the card unless the
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from st_dadk_tpu.ops import init_centers as ji
-from st_dadk_tpu_torch.config import ExperimentConfig, unported_fit_knobs
+from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.models import st_interp as tm
 from st_dadk_tpu_torch.ops import init_centers as ti
 from st_dadk_tpu_torch.train import experiment as texp
@@ -35,24 +36,58 @@ def toy_csv(tmp_path_factory):
 
 
 def _cfg(toy_csv, **extra):
-    return ExperimentConfig.from_dict(dict(
+    return ExperimentConfig.from_dict({**dict(
         data_file=str(toy_csv), k_spatial_centers=[4], k_temporal_centers=[3],
         hidden_dims=[8], regression_type="multi-quantile",
-        quantile_levels=[0.1, 0.5, 0.9], epochs=1, **extra))
+        quantile_levels=[0.1, 0.5, 0.9], epochs=1), **extra})
+
+
+def _setup_init(cfg):
+    """The spatial init ExperimentSetup makes for `cfg`, recomputed from
+    the setup's own streams with `init_spatial_centers` directly."""
+    setup = texp.ExperimentSetup(cfg, 1, "cpu", defer_model=True)
+    return setup, ti.init_spatial_centers(
+        cfg.spatial_init_method, cfg.k_spatial_centers,
+        setup.train_ps.coords,
+        generator=torch.Generator().manual_seed(setup.experiment_seed),
+        device="cpu", rng=setup.np_rng, **texp.init_knobs(cfg))
 
 
 @pytest.mark.parametrize("knob,value", [("init_seed_rounds", 4),
                                         ("init_em_dtype", "bfloat16"),
                                         ("ablate_validate", True)])
 def test_unported_knob_raises_at_setup(toy_csv, tmp_path, knob, value):
-    cfg = _cfg(toy_csv, **{knob: value})
-    assert unported_fit_knobs(cfg) == [knob]
-    with pytest.raises(NotImplementedError, match=knob):
-        texp.ExperimentSetup(cfg, 1, "cpu")
-    with pytest.raises(NotImplementedError, match=knob):
-        texp.run_single_experiment(cfg, 1, tmp_path, device="cpu",
-                                   verbose=False)
-    assert not (tmp_path / "results.json").exists()
+    """Once refused at setup, each knob now runs and changes what it
+    should: the init knobs give the setup the GMM init with the knob (and
+    another than without it, the bf16 EM within bf16's reach of it), and
+    `ablate_validate` puts the train loss in place of the validation loss
+    and 0 in place of the validation RMSE (JAX loop.py:550-551)."""
+    # 9 centers: 4 seeding rounds then draw more than one seed a round
+    gmm = dict(spatial_init_method="gmm", k_spatial_centers=[9],
+               obs_ratio=0.9)
+    cfg = _cfg(toy_csv, **gmm, **{knob: value})
+    setup = texp.ExperimentSetup(cfg, 1, "cpu")
+    centers = setup.model.spatial_centers_init.numpy()
+    _, (want_c, want_bw) = _setup_init(cfg)
+    np.testing.assert_array_equal(centers, want_c)
+    np.testing.assert_array_equal(
+        setup.model.spatial_bandwidths_init.numpy(), want_bw)
+    _, (plain_c, _) = _setup_init(_cfg(toy_csv, **gmm))
+    if knob == "init_seed_rounds":
+        assert not np.array_equal(centers, plain_c)
+    elif knob == "init_em_dtype":
+        # bf16 keeps 8 bits of a distance: the EM's optimum moves by a few
+        # thousandths of the unit square, far less than a center spacing
+        np.testing.assert_allclose(centers, plain_c, atol=2e-2)
+    res = texp.run_single_experiment(cfg, 1, tmp_path, device="cpu",
+                                     verbose=False)
+    assert (tmp_path / "results.json").exists()
+    hist = res["training_history"]
+    if knob == "ablate_validate":
+        assert hist["val_loss"] == hist["train_loss"]
+        assert hist["val_rmse"] == [0.0] * len(hist["val_rmse"])
+    else:
+        assert hist["val_loss"] != hist["train_loss"]
 
 
 @pytest.mark.parametrize("knob,value", [("init_gmm_fused", True),
@@ -62,10 +97,9 @@ def test_unported_knob_raises_at_setup(toy_csv, tmp_path, knob, value):
                                         ("init_em_dtype", "float32"),
                                         ("ablate_validate", False)])
 def test_accepted_knob_sets_up(toy_csv, knob, value):
-    """TPU knobs, `init_gmm_fused`, and the values of the unported knobs
-    that keep the JAX default fit."""
+    """TPU knobs, `init_gmm_fused`, and the values of the init and
+    validation knobs that keep the JAX default fit."""
     cfg = _cfg(toy_csv, spatial_init_method="gmm", **{knob: value})
-    assert unported_fit_knobs(cfg) == []
     setup = texp.ExperimentSetup(cfg, 1, "cpu")
     assert setup.model is not None and cfg.extra[knob] == value
 

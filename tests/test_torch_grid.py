@@ -108,7 +108,7 @@ def test_buckets_and_ragged_pads_equal_jax(tmp_path, monkeypatch):
     _write_toy(tmp_path / "b.csv", seed=1, sites=30)
     base = dict(tag="g", k_temporal_centers=[4], hidden_dims=[8],
                 n_experiments=2, regression_type="multi-quantile",
-                quantile_levels=[0.1, 0.5, 0.9], epochs=1)
+                quantile_levels=[0.1, 0.5, 0.9], epochs=1, save_plots=False)
     grid = {"data_file": [str(tmp_path / "a.csv"), str(tmp_path / "b.csv")],
             "k_spatial_centers": [[4], [4, 9], [9, 16]],
             "spatial_init_method": ["uniform", "kmeans_balanced"],
@@ -182,7 +182,8 @@ def test_a_small_grid_end_to_end(tmp_path):
                 n_experiments=2, batch_size=64, obs_ratio=0.5,
                 obs_method="site-wise", regression_type="multi-quantile",
                 quantile_levels=[0.1, 0.5, 0.9], warmup_epochs=1,
-                basis_unfreeze_epoch=1, save_artifacts=True)
+                basis_unfreeze_epoch=1, save_artifacts=True,
+                save_plots=False)
     grid = {"spatial_init_method": ["uniform", "kmeans_balanced"],
             "spatial_learnable": [True, False],
             "k_spatial_centers": [[4], [4, 9]]}

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of st_dadk_tpu_torch pulls
-in neither jax, yaml, pandas nor st_dadk_tpu (none of them exists on the
-machine with the GPU)."""
+in neither jax, yaml, pandas, matplotlib nor st_dadk_tpu (none of them
+exists on the machine with the GPU; the figures import matplotlib inside
+their functions)."""
 import json
 import subprocess
 import sys
@@ -17,7 +18,7 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "yaml", "pandas",
-                                    "st_dadk_tpu", "triton"))
+                                    "st_dadk_tpu", "triton", "matplotlib"))
 print(json.dumps({"modules": names, "forbidden": bad}))
 """
 
@@ -32,6 +33,10 @@ def test_port_imports_no_jax_yaml_pandas_or_reference():
     assert "st_dadk_tpu_torch.train.experiment" in res["modules"]
     assert "st_dadk_tpu_torch.train.runner" in res["modules"]
     assert "st_dadk_tpu_torch.train.batch_engine" in res["modules"]
+    for name in ("ops.kmeans_exact", "train.checkpoint", "viz.plots",
+                 "utils.metrics", "utils.seed", "utils.covariance",
+                 "dataio.native"):
+        assert f"st_dadk_tpu_torch.{name}" in res["modules"], name
     assert res["forbidden"] == []
 
 
@@ -44,6 +49,10 @@ def test_sources_name_no_jax_package():
                 mod = s.split()[1].split(".")[0]
                 assert mod not in ("jax", "st_dadk_tpu", "pandas"), \
                     f"{path}: {s}"
+            # matplotlib only inside a function (viz/plots.py)
+            assert not (line.startswith(("import matplotlib",
+                                         "from matplotlib"))), \
+                f"{path}: {s}"
 
 
 def _imported_modules(path):

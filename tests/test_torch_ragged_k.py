@@ -60,7 +60,8 @@ def _cfg_dict(toy_csv, **kw):
         sparsity_lambda_group=1e-4,
         obs_method="site-wise", obs_ratio=0.5, obs_spatial_pattern="uniform",
         split_method="random", train_ratio=0.8, base_seed=100,
-        save_artifacts=True, shuffle="none", spatial_init_method="uniform")
+        save_artifacts=True, shuffle="none", spatial_init_method="uniform",
+        save_plots=False)
     base.update(kw)
     return base
 

@@ -23,7 +23,8 @@ def _cfg(toy_dir, **kw):
         warmup_epochs=1, scheduler="cosine", grad_clip=10.0,
         regression_type="mean", obs_method="site-wise", obs_ratio=0.5,
         obs_spatial_pattern="uniform", split_method="random", train_ratio=0.8,
-        n_experiments=3, base_seed=100, save_artifacts=True, device="cpu")
+        n_experiments=3, base_seed=100, save_artifacts=True, device="cpu",
+        save_plots=False)
     base.update(kw)
     return ExperimentConfig.from_dict(base)
 
