@@ -97,11 +97,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
      epochs into a checkpoint and a resume to 6, bitwise (histories,
      serving and final params); a fit whose LR overflows writes
      nan_diagnostics.json; a fit with `save_plots: true` completes, with
-     the warning and no figure where matplotlib is missing.
-Each of phases 3-7, 11-13 and 15 sets the launch counts to 0 just before it
-and reads them just after; it checks the fit's losses, centers and test metrics. The
-last line of standard output is one JSON object with "ok" and the device;
-the line before it lists the kernels.
+     the warning and no figure where matplotlib is missing;
+ 18. the competition submission: a family in 2a's layout cut from the
+     stand-in field (`dataio/competition.py`: train t = 1..90 with a seeded
+     share of rows dropped, test t = 91..100 at every site, the solutions)
+     through `cli/predict_submission.py`'s `main` on
+     configs/config_st_interp.yaml at full width, 12 epochs: one finite
+     value a test row, RMSE / MAE against the solutions, the fused
+     forward's, dW's and d centers' launches, and each held against its
+     plain version and timed (device time a launch, beside the plain
+     version's) at the step's shape (N = 4096);
+ 19. the forecast: `cli/forecast_submission.py` on that family at
+     ForecastSpec's defaults, batch 4096, 20 epochs: one finite value a test
+     row, RMSE beside persistence, the phi forward's launches (steps,
+     validations and the forecast) and no launch of a basis backward or
+     fused kernel; then the phi kernel against its plain version at the
+     forecaster's shapes (k = 106 fixed centers, N = 4096 and the
+     validation rows) and through `models/legacy_basis.embed` (k = 227),
+     and held and timed at the step's shape;
+ 20. a bench-workload fit with no hidden layer (`hidden_dims: []`, no
+     sparsity penalty, which needs a first layer), 12 epochs, on the phi
+     route: phi forward and basis d centers launched, no
+     fused kernel; then `cli/analyze_table_4_4.py` on phase 11's tree and
+     `cli/analyze_grid_search.py` on phase 13's (their CSVs; figures only
+     where matplotlib is installed);
+ 21. every kernel against its plain version at each shape (N, k, H, basis)
+     a counted run of phases 3-20 launched it at without a lane axis or a
+     column mask (the wrappers keep their launch shapes): the step, the
+     validation and the prediction chunks of every fit, seeded inputs,
+     the bars of phase 2.
+Each of phases 3-7, 11-13, 15 and 18-20 sets the launch counts to 0 just
+before it and reads them just after; it checks the fit's losses, centers
+and test metrics. The last line of standard output is one JSON object with
+"ok" and the device; the line before it lists the kernels, with the launches
+of phases 18-20 under "competition_launches" and, as "max_abs_err", the
+worst difference from the plain version in phases 2, 18-19 and 21.
 """
 from __future__ import annotations
 
@@ -253,6 +283,13 @@ EXACT_KS = (25, 81, 121)
 HASH_CAPS = (1, 2, 512, 1000, 8000, 8192)
 # phase 17: the bench fit straight against RESUME_AT epochs and a resume
 RESUME_EPOCHS, RESUME_AT = 6, 3
+# phases 18-20: the competition family (under build/), the epochs each run
+# is cut to, the forecast's batch, and the phi shape of the legacy basis
+COMPETITION_DIR = "build/chip_smoke_competition"
+SUBMIT_EPOCHS, FORECAST_EPOCHS = 12, 20
+FORECAST_BATCH = 4096
+SUBMIT_BATCH = 4096             # config_st_interp's batch_size
+LEGACY_PHI_N = 4096
 # JAX's keys of nan_diagnostics.json (st_dadk_tpu/train/experiment.py:415)
 NAN_DIAG_KEYS = {"nan_epochs", "n_epochs_run", "train_loss_tail",
                  "val_loss_tail", "inputs", "params"}
@@ -769,11 +806,15 @@ def main(argv=None) -> int:
     lane_ms.update(basis_lane_kernel_phase(torch, sbk, BASIS_IDS,
                                            CALIBRATION_FACTORS, worst))
     launches = {nm: None for nm in KERNELS}
-    lane_launches = {}
+    lane_launches, competition, competition_ms = {}, {}, {}
     if not args.kernels_only:
         phases = Phases(torch, ffl, sbk)
         launches = phases.run()
         lane_launches = phases.lane_launches
+        competition = phases.competition_launches
+        competition_ms = phases.competition_times
+        for nm, err in phases.held_err.items():
+            worst[nm] = max(worst[nm], err)
 
     # ms, plain_ms, bound_ms and library_ms at the training step's shape
     # (device time a launch); "by_n" holds all three fit shapes
@@ -793,7 +834,12 @@ def main(argv=None) -> int:
          # lane count at the step's shape
          "lane_launches": lane_launches.get(nm),
          "lanes_ms": ({str(m): t for m, t in lane_ms[nm].items()}
-                      if nm in lane_ms else None)}
+                      if nm in lane_ms else None),
+         # launches in each run of phases 18-20 (the competition path)
+         "competition_launches": {run: counts[nm] for run, counts
+                                  in competition.items()} or None,
+         # device ms a launch at the step shapes of phases 18-19
+         "competition_ms": competition_ms.get(nm)}
         for nm, (src, replaces) in KERNELS.items()]}
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(json.dumps(report))
@@ -810,6 +856,11 @@ class Phases:
     def __init__(self, torch, ffl, sbk):
         self.torch, self.ffl, self.sbk = torch, ffl, sbk
         self.lane_launches = {}
+        self.competition_launches = {}
+        self.competition_times = {}
+        # kernel -> every launch shape of the counted runs; kernel -> the
+        # worst max |d| of the checks at those shapes and in time_shape
+        self.launched, self.held_err = {}, {}
 
     def counted(self, fn):
         """(fn(), launch counts of every kernel during fn)."""
@@ -819,6 +870,9 @@ class Phases:
         torch.cuda.synchronize()
         out = fn()
         torch.cuda.synchronize()
+        for nm, keys in {**self.ffl.launch_shapes(),
+                         **self.sbk.launch_shapes()}.items():
+            self.launched.setdefault(nm, set()).update(keys)
         return out, {**self.ffl.launch_counts(), **self.sbk.launch_counts()}
 
     def run(self):
@@ -850,7 +904,14 @@ class Phases:
                             ("16 (hash shuffle)",
                              lambda: self.shuffle_phase(bench)),
                             ("17 (resume, diagnostics, figures)",
-                             self.resume_phase)):
+                             self.resume_phase),
+                            ("18 (competition submission)",
+                             self.submission_phase),
+                            ("19 (forecast)", self.forecast_phase),
+                            ("20 (no hidden layer, analysis)",
+                             self.no_hidden_phase),
+                            ("21 (every launch shape)",
+                             self.launch_shapes_phase)):
             t0 = time.time()
             phase()
             print(f"phase {name}: {time.time() - t0:.1f} s", flush=True)
@@ -2249,6 +2310,261 @@ class Phases:
               "save_plots fit: non-finite test CRPS")
         print(f"save_plots fit: completed, figures {pngs or 'none'}; "
               + buf.getvalue().strip().replace("\n", " | "), flush=True)
+
+    def competition_family(self):
+        """The family of phases 18-19 (2a's layout), cut from the stand-in
+        field once a run."""
+        from st_dadk_tpu_torch.dataio.competition import \
+            write_competition_family
+
+        if getattr(self, "family", None) is None:
+            import shutil
+            shutil.rmtree(REPO / COMPETITION_DIR, ignore_errors=True)
+            self.family = write_competition_family(self.data_file,
+                                                   REPO / COMPETITION_DIR)
+        return self.family
+
+    def hold(self, nm, kern, plain, where):
+        """One call of kernel `nm` against its plain version at BARS[nm]:
+        fails on a non-finite output or on excess; keeps the worst max |d|
+        for the result line."""
+        torch = self.torch
+        rtol, atol = BARS[nm]
+        got, want = kern(), plain()
+        worst = 0.0
+        for a, b in zip(_outputs(got), _outputs(want)):
+            check(bool(torch.isfinite(a).all()),
+                  f"{nm}: non-finite output at {where}")
+            mx, excess = _err(torch, a, b, rtol, atol)
+            worst = max(worst, mx)
+            check(excess <= 0.0,
+                  f"{nm} disagrees with its plain version at {where} (max "
+                  f"|d| {mx:.3e}, rtol {rtol}, atol {atol})")
+        self.held_err[nm] = max(self.held_err.get(nm, 0.0), worst)
+        return worst
+
+    def launch_shapes_phase(self):
+        """Phase 21: each kernel against its plain version at every shape
+        (N, k, H, basis) that a counted run of phases 3-20 launched it at
+        without a lane axis or a column mask, on seeded inputs; the lane
+        phases hold the lane axis and the mask."""
+        from st_dadk_tpu_torch.ops.basis import BASIS_IDS, CALIBRATION_FACTORS
+
+        torch = self.torch
+        basis_names = {v: nm for nm, v in BASIS_IDS.items()}
+        for nm in KERNELS:
+            keys = sorted(self.launched.get(nm, ()))
+            flat = [key for key in keys if not key[0] and not key[4]]
+            worst, shapes = 0.0, []
+            for i, (_, n, k, h, _, bid) in enumerate(flat):
+                coords, centers, bw, w, grad_h, grad_phi = _inputs(
+                    torch, n, k, max(h, 1), seed=300 + i)
+                basis = basis_names[bid]
+                inv_bw = 1.0 / (bw * CALIBRATION_FACTORS[basis])
+                kern, plain = _pairs(self.ffl, self.sbk, coords, centers,
+                                     inv_bw.contiguous(), w, grad_h,
+                                     grad_phi, bid)[nm]
+                where = f"launch shape N={n} k={k} H={h} {basis}"
+                worst = max(worst, self.hold(nm, kern, plain, where))
+                shapes.append(f"{n}x{k}" + (f"x{h}" if h else "")
+                              + ("" if basis == "wendland" else f" {basis}"))
+            print(f"  {nm}: held at {len(flat)} launch shapes ("
+                  + ", ".join(shapes) + f"), worst max |d| {worst:.3e} "
+                  f"(rtol, atol {BARS[nm]}); {len(keys) - len(flat)} more "
+                  "with a lane axis or a mask", flush=True)
+
+    def time_shape(self, names, n, k, h, tag):
+        """Each kernel in `names` against its plain version at (n, k, h),
+        Wendland; then device ms a launch of both, CUDA-graph replays in
+        turns, beside its bound; kept for the result line."""
+        from st_dadk_tpu_torch.ops.basis import BASIS_IDS
+        from st_dadk_tpu_torch.utils.timing import graph_ms, in_turns
+
+        coords, centers, bw, w, grad_h, grad_phi = _inputs(self.torch, n, k,
+                                                           h, seed=98)
+        pairs = _pairs(self.ffl, self.sbk, coords, centers,
+                       (1.0 / bw).contiguous(), w, grad_h, grad_phi,
+                       BASIS_IDS["wendland"])
+        for nm in names:
+            self.hold(nm, *pairs[nm], f"{tag} N={n} k={k} H={h}")
+            ms, plain_ms = in_turns(graph_ms, *pairs[nm][::-1])
+            b, by = bound_ms(nm, n, k, h)
+            self.competition_times.setdefault(nm, {})[
+                f"{tag} N={n} k={k} H={h}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                "bound_by": by}
+            print(f"  {nm:31s} {tag} N={n} k={k}: device {ms:.4f} ms "
+                  f"(plain {plain_ms:.4f}), bound {b:.4f} ms ({by}, "
+                  f"{100 * b / ms:.1f} % of device)", flush=True)
+
+    def _submission(self, name, main, argv):
+        """Run a submission CLI's `main` counted; check one finite value a
+        test row, on disk as returned; (summary, launch counts)."""
+        import numpy as np
+
+        from st_dadk_tpu_torch.dataio.kaust import read_columns
+
+        fam = self.competition_family()
+        print(f"{name}: python3 -m st_dadk_tpu_torch.cli.{name} "
+              + " ".join(argv), flush=True)
+        summary, counts = self.counted(lambda: main(argv))
+        z = summary["z_hat"]
+        n_test = len(read_columns(fam["test"])["t"])
+        written = read_columns(summary["out"])["z"]
+        check(len(z) == n_test and len(written) == n_test,
+              f"{name}: {len(z)} values ({len(written)} written) for "
+              f"{n_test} test rows")
+        check(bool(np.all(np.isfinite(z))), f"{name}: non-finite values")
+        check(bool(np.array_equal(written, z)),
+              f"{name}: the written submission differs from its values")
+        check("rmse" in summary, f"{name}: no score against the solutions")
+        self.competition_launches[name] = counts
+        return summary, counts, n_test
+
+    def submission_phase(self):
+        """Phase 18: `cli/predict_submission` on the stand-in family at full
+        width (configs/config_st_interp.yaml), SUBMIT_EPOCHS epochs."""
+        from st_dadk_tpu_torch.cli import predict_submission as ps
+
+        fam = self.competition_family()
+        argv = ["--family", str(fam["stem"]),
+                "--config", str(REPO / "configs" / "config_st_interp.yaml"),
+                "--epochs", str(SUBMIT_EPOCHS),
+                "--out", str(fam["stem"].parent / "submission.csv")]
+        summary, counts, n_test = self._submission("predict_submission",
+                                                   ps.main, argv)
+        fused = ("fused_first_layer_fwd", "fused_first_layer_bwd_w",
+                 "fused_first_layer_bwd_centers")
+        print(f"predict_submission: {n_test} rows, RMSE {summary['rmse']!r} "
+              f"MAE {summary['mae']!r}, {summary['n_epochs_run']} epochs in "
+              f"{summary['train_seconds']:.1f} s; launches "
+              + json.dumps({k: v for k, v in counts.items() if v}),
+              flush=True)
+        for nm in fused:
+            check(counts[nm] > 0, f"predict_submission: {nm} never launched")
+        for nm in ("spatial_basis_fwd", "spatial_basis_bwd_centers",
+                   "spatial_basis_bwd_points", "fused_first_layer_bwd_points"):
+            check(counts[nm] == 0, f"predict_submission: {nm} launched "
+                  f"{counts[nm]} times on the fused route")
+        self.time_shape(fused, SUBMIT_BATCH, 227, 256, "predict_submission step")
+
+    def forecast_phase(self):
+        """Phase 19: `cli/forecast_submission` at ForecastSpec's defaults,
+        FORECAST_EPOCHS epochs: phi forward launches only; then the phi
+        kernel against its plain version at the forecaster's and the
+        legacy basis's shapes."""
+        import numpy as np
+
+        from st_dadk_tpu_torch.cli import forecast_submission as fs
+        from st_dadk_tpu_torch.models import legacy_basis
+        from st_dadk_tpu_torch.models.forecaster import ForecastSpec
+        from st_dadk_tpu_torch.ops.basis import (BASIS_IDS,
+                                                 CALIBRATION_FACTORS,
+                                                 uniform_grid_centers)
+        from st_dadk_tpu_torch.train.loop import n_predict_chunks
+        torch, sbk = self.torch, self.sbk
+
+        fam = self.competition_family()
+        argv = ["--family", str(fam["stem"]),
+                "--epochs", str(FORECAST_EPOCHS),
+                "--batch_size", str(FORECAST_BATCH),
+                "--out", str(fam["stem"].parent / "forecast.csv"),
+                "--device", "cuda"]
+        summary, counts, n_test = self._submission("forecast_submission",
+                                                   fs.main, argv)
+        n_ep = summary["hist"]["n_epochs_run"]
+        steps = -(-summary["n_train_rows"] // FORECAST_BATCH)
+        want = n_ep * (steps + 1) + n_predict_chunks(summary["n_obs_sites"])
+        print(f"forecast_submission: {n_test} rows ({summary['n_obs_sites']} "
+              f"sites with a complete history), RMSE {summary['rmse']!r} MAE "
+              f"{summary['mae']!r}, persistence RMSE "
+              f"{summary['persistence_rmse']!r}; {n_ep} epochs x {steps} "
+              f"steps in {summary['train_seconds']:.1f} s; launches "
+              + json.dumps({k: v for k, v in counts.items() if v}),
+              flush=True)
+        check(counts["spatial_basis_fwd"] == want,
+              f"forecast: phi forward launched {counts['spatial_basis_fwd']} "
+              f"times, not {want} (steps, validations, the forecast)")
+        for nm, c in counts.items():
+            if nm != "spatial_basis_fwd":
+                check(c == 0, f"forecast: {nm} launched {c} times")
+
+        # the phi kernel against its plain version at the forecaster's and
+        # the legacy basis's shapes
+        spec = ForecastSpec()
+        bid = BASIS_IDS[spec.spatial_basis_function]
+        sc, sb = uniform_grid_centers(spec.k_spatial_centers)
+        lc, lb = legacy_basis.legacy_centers_and_bandwidths()
+        rtol, atol = BARS["spatial_basis_fwd"]
+        gen = torch.Generator().manual_seed(19)
+        for what, centers, bws, n in (
+                ("forecaster step", sc, sb, FORECAST_BATCH),
+                ("forecaster validation", sc, sb, summary["n_valid_rows"]),
+                ("legacy basis", lc, lb, LEGACY_PHI_N)):
+            coords = torch.rand((n, 2), generator=gen).cuda()
+            c = torch.as_tensor(centers).cuda()
+            inv_bw = (1.0 / (torch.as_tensor(bws).cuda()
+                             * CALIBRATION_FACTORS["wendland"])).contiguous()
+            got = (legacy_basis.embed(coords) if what == "legacy basis"
+                   else sbk.spatial_basis_fwd(coords, c, inv_bw, bid))
+            plain = sbk.plain_fwd(coords, c, inv_bw, bid)
+            mx, excess = _err(torch, got, plain, rtol, atol)
+            print(f"phi kernel, {what} (N={n}, k={c.shape[0]}): max |d| "
+                  f"{mx:.3e} against its plain version (atol {atol})",
+                  flush=True)
+            check(bool(torch.isfinite(got).all()) and excess <= 0.0,
+                  f"phi kernel, {what}: disagrees with its plain version "
+                  f"(max |d| {mx:.3e})")
+        check(np.isfinite(summary["persistence_rmse"]),
+              "forecast: non-finite persistence RMSE")
+        self.time_shape(("spatial_basis_fwd",), FORECAST_BATCH,
+                        spec.k_spatial, spec.hidden_dims[0], "forecast step")
+
+    def no_hidden_phase(self):
+        """Phase 20: a bench fit with no hidden layer (the phi route), then
+        the two analysis CLIs on phases 11 and 13's trees."""
+        import csv
+
+        import numpy as np
+
+        from st_dadk_tpu_torch.cli import analyze_grid_search as agrid
+        from st_dadk_tpu_torch.cli import analyze_table_4_4 as a44
+
+        out_dir = REPO / "build" / "chip_smoke_no_hidden"
+        cfg, res, counts, _ = self.fit(
+            "no hidden layer", out_dir, hidden_dims=[],
+            sparsity_penalty_type="none")
+        self.competition_launches["no_hidden_fit"] = counts
+        want = self.expected_fwd(res)
+        check(counts["spatial_basis_fwd"] == want,
+              f"no hidden layer: phi forward launched "
+              f"{counts['spatial_basis_fwd']} times, not {want}")
+        check(counts["spatial_basis_bwd_centers"] > 0,
+              "no hidden layer: basis d centers never launched")
+        for nm, c in counts.items():
+            if nm.startswith("fused_first_layer") or nm.endswith("bwd_points"):
+                check(c == 0, f"no hidden layer: {nm} launched {c} times")
+        check(res["model_parameters"] == (
+            (sum(cfg["k_spatial_centers"]) + sum(cfg["k_temporal_centers"])
+             + 1) * len(cfg["quantile_levels"])
+            + 3 * sum(cfg["k_spatial_centers"])),
+            f"no hidden layer: {res['model_parameters']} parameters")
+
+        t44 = REPO / "build" / "chip_smoke_table_4_4"
+        with open(a44.main([str(t44)]), newline="", encoding="utf-8") as f:
+            rows = list(csv.reader(f))
+        check(len(rows) == 5 and all(len(r) == 3 and all(r[1:])
+                                     for r in rows[1:]),
+              f"table_4_4_rendered.csv: {rows}")
+        grid = REPO / "build" / "chip_smoke_grid"
+        detailed = agrid.main([str(grid)])
+        check(len(detailed) > 0 and all(
+            np.isfinite(d["test_crps_mean"]) for d in detailed)
+            and (grid / "detailed_summary.csv").exists(),
+            f"detailed_summary: {detailed}")
+        print(f"analysis: Table 4.4 rendered ({len(rows) - 1} scenarios x "
+              f"{len(rows[0]) - 1} models), grid detailed summary "
+              f"{len(detailed)} rows", flush=True)
 
     def saved_model(self, cfg, out_dir, device, pad=None):
         """The fit's saved params as a model on `device`; with `pad`, padded

@@ -7,9 +7,10 @@
 `PARAM_GRID` and `config_filter` are the JAX script's: 6 data files x
 wendland x {uniform+fixed, kmeans_balanced+learnable} x random obs 10%
 corner. Engine 'vmap' runs each bucket of stackable configs x repeats as
-lanes on the card (`sweep.grid.run_grid_search`). The analysis script of
-the JAX package needs pandas and is not started: the run prints where its
-results are.
+lanes on the card (`sweep.grid.run_grid_search`). A run with a config
+that succeeded ends with the analysis (`cli/analyze_grid_search.py`) of its
+results directory, as the JAX script does; a failure of the analysis is
+reported and does not fail the run.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from datetime import datetime
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
+from st_dadk_tpu_torch.cli.analyze_grid_search import analyze
 from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.sweep.grid import (generate_config_combinations,
                                           run_grid_search)
@@ -102,6 +104,11 @@ def main(argv: Optional[List[str]] = None
     n_ok = sum(1 for r in results if r["status"] == "success")
     print(f"\nGRID SEARCH COMPLETE: {n_ok}/{len(results)} configs succeeded")
     print(f"Results: {output_dir}")
+    if n_ok > 0:
+        try:
+            analyze(output_dir)
+        except Exception as e:  # the JAX script runs it with check=False
+            print(f"[WARNING] grid analysis failed: {e!r}")
     return results
 
 

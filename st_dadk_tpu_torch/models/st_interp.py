@@ -14,7 +14,9 @@ The first layer takes one of two kernel routes (`ModelSpec.phi_route`):
   - materialised phi: phi (N, k) from the spatial-basis kernels
     (`ops.spatial_basis_kernels`), times `spatial_k_mask` on a ragged-k lane,
     then [X | phi | psi] @ W + b: the JAX `_embed` + `forward` path. Ragged-k
-    lanes, covariates and `use_pallas_training` take it.
+    lanes, covariates, `use_pallas_training` and a model with no hidden layer
+    (`hidden_dims: []`, whose head reads [X | phi | psi] directly, JAX
+    st_interp.py:89 and :388-389) take it.
 
 Weights keep the JAX layout: `mlp.linear_i.w` is (in, out), so W_s =
 w[p:p+k_s] is a contiguous row slice, and parameter names equal the JAX
@@ -81,11 +83,17 @@ class ModelSpec:
         return self.p + self.k_spatial + self.k_temporal
 
     @property
+    def last_hidden_dim(self) -> int:
+        """The head's input width: the last hidden layer's, or the feature
+        width of a model with no hidden layer."""
+        return self.hidden_dims[-1] if self.hidden_dims else self.input_dim
+
+    @property
     def fused_predict(self) -> bool:
         """Whether dense predict takes the fused forward: with no
-        covariates and off a padded lane (JAX loop.py:1348, where
-        `use_pallas` is off for ragged lanes)."""
-        return self.p == 0 and not self.padded_lane
+        covariates, off a padded lane (JAX loop.py:1348, where `use_pallas`
+        is off for ragged lanes) and with a first hidden layer to fuse."""
+        return self.p == 0 and not self.padded_lane and bool(self.hidden_dims)
 
     @property
     def delta_head(self) -> bool:
@@ -96,13 +104,12 @@ def spec_from_config(cfg: ExperimentConfig) -> ModelSpec:
     """The model spec of a config. A ragged-k lane (`k_spatial_pad`) sees
     one padded resolution of k_spatial_pad centers, as in JAX; its real
     layout stays in the config (init, finalize). The first layer takes the
-    materialised-phi route for a ragged lane, for covariates, and for
+    materialised-phi route for a ragged lane, for covariates, for a model
+    with no hidden layer (no first layer to fuse phi into) and for
     `use_pallas_training` without `use_fused_training` (the order of JAX
     `forward` :388 and `_embed` :226), and the fused route otherwise.
-    Raises NotImplementedError for what the port does not carry: a model
-    without a hidden layer, and the bf16 trunk."""
-    if not cfg.hidden_dims:
-        raise NotImplementedError("the port's first layer needs a hidden layer")
+    Raises NotImplementedError for the bf16 trunk, which the port does not
+    carry."""
     if cfg.train_dtype == "bf16":
         raise NotImplementedError("the port trains in float32 only")
     ragged = cfg.k_spatial_pad is not None
@@ -118,7 +125,7 @@ def spec_from_config(cfg: ExperimentConfig) -> ModelSpec:
         spatial_learnable=cfg.spatial_learnable,
         output_dim=cfg.output_dim,
         use_delta_reparameterization=cfg.use_delta_reparameterization,
-        phi_route=(ragged or cfg.p_covariates > 0
+        phi_route=(ragged or cfg.p_covariates > 0 or not cfg.hidden_dims
                    or (cfg.use_pallas_training and not cfg.use_fused_training)),
         padded_lane=ragged,
     )
@@ -159,8 +166,6 @@ class STInterp(nn.Module):
                  spatial_bandwidths: np.ndarray,
                  spatial_k_mask: Optional[np.ndarray] = None):
         super().__init__()
-        if not spec.hidden_dims:
-            raise NotImplementedError("the port's first layer needs a hidden layer")
         self.spec = spec
         centers = torch.tensor(np.asarray(spatial_centers, np.float32))
         bws = torch.tensor(np.asarray(spatial_bandwidths, np.float32))
@@ -204,29 +209,26 @@ class STInterp(nn.Module):
         """yhat(s, t): (B, output_dim). `X` (B, p) are the covariates of a
         model with p > 0. `fused` picks the first layer's route (default:
         the spec's). Dropout (train=True, dropout > 0) draws one
-        (B, sum(hidden)) uniform block from `generator`."""
+        (B, sum(hidden)) uniform block from `generator`; a model with no
+        hidden layer feeds the features to the head and draws nothing."""
         if fused is None:
             fused = not self.spec.phi_route
+        if not self.spec.hidden_dims:
+            if fused:
+                raise ValueError("a model with no hidden layer has no first "
+                                 "layer to fuse")
+            return self.head(self.features(coords, t, X))
         h = self.first_layer(coords, t, X, fused)
         return self.head(self.trunk_from_h1(h, train, generator))
 
-    def first_layer(self, coords: torch.Tensor, t: torch.Tensor,
-                    X: Optional[torch.Tensor], fused: bool) -> torch.Tensor:
-        """The first layer's pre-norm output h1 (B, H1) on either route."""
+    def features(self, coords: torch.Tensor, t: torch.Tensor,
+                 X: Optional[torch.Tensor]) -> torch.Tensor:
+        """[X | phi | psi] (B, input_dim) with phi from the materialised-phi
+        kernels (JAX `_embed`)."""
         spec = self.spec
         centers, bandwidths = self.spatial_params()
-        lin0 = self.mlp.linear_0
         psi = temporal_basis_embed(t, self.temporal_centers,
                                    self.temporal_bandwidths)
-        if fused:
-            if spec.p > 0 or self.spatial_k_mask is not None:
-                raise ValueError("the fused first layer takes neither "
-                                 "covariates nor a column mask")
-            k_s = spec.k_spatial
-            h = fused_spatial_first_layer(coords, centers, bandwidths,
-                                          lin0.w[:k_s],
-                                          spec.spatial_basis_function)
-            return h + psi @ lin0.w[k_s:] + lin0.b
         phi = spatial_basis_embed_kernel(coords, centers, bandwidths,
                                          spec.spatial_basis_function)
         if self.spatial_k_mask is not None:
@@ -237,10 +239,27 @@ class STInterp(nn.Module):
             if X is None:
                 raise ValueError(f"the model takes p={spec.p} covariates: "
                                  f"pass X (B, {spec.p})")
-            feats = torch.cat([X, phi, psi], dim=-1)
-        else:
-            feats = torch.cat([phi, psi], dim=-1)
-        return feats @ lin0.w + lin0.b
+            return torch.cat([X, phi, psi], dim=-1)
+        return torch.cat([phi, psi], dim=-1)
+
+    def first_layer(self, coords: torch.Tensor, t: torch.Tensor,
+                    X: Optional[torch.Tensor], fused: bool) -> torch.Tensor:
+        """The first layer's pre-norm output h1 (B, H1) on either route."""
+        spec = self.spec
+        lin0 = self.mlp.linear_0
+        if fused:
+            if spec.p > 0 or self.spatial_k_mask is not None:
+                raise ValueError("the fused first layer takes neither "
+                                 "covariates nor a column mask")
+            centers, bandwidths = self.spatial_params()
+            psi = temporal_basis_embed(t, self.temporal_centers,
+                                       self.temporal_bandwidths)
+            k_s = spec.k_spatial
+            h = fused_spatial_first_layer(coords, centers, bandwidths,
+                                          lin0.w[:k_s],
+                                          spec.spatial_basis_function)
+            return h + psi @ lin0.w[k_s:] + lin0.b
+        return self.features(coords, t, X) @ lin0.w + lin0.b
 
     def _dropout_masks(self, n: int, generator: Optional[torch.Generator],
                        device: torch.device) -> list:
@@ -297,14 +316,19 @@ class STInterp(nn.Module):
     def sparsity_penalty(self, penalty_type: str, lambda_l1: float,
                          lambda_group: float) -> Dict[str, torch.Tensor]:
         """First-layer sparsity penalties split by spatial/temporal rows
-        (after the p covariate rows)."""
-        w0 = self.mlp.linear_0.w
+        (after the p covariate rows). A model with no hidden layer has no
+        first layer to penalise: any penalty but 'none' raises, where JAX
+        fails on the missing `linear_0`."""
         if penalty_type == "none":
-            zero = w0.new_zeros(())
+            zero = next(self.mlp.parameters()).new_zeros(())
             return {"spatial_penalty": zero, "temporal_penalty": zero,
                     "total_penalty": zero}
         if penalty_type not in ("element", "group", "sparse_group"):
             raise ValueError(f"Unknown penalty_type: {penalty_type}")
+        if not self.spec.hidden_dims:
+            raise ValueError(f"sparsity penalty {penalty_type!r} needs a first "
+                             "hidden layer; this model has none")
+        w0 = self.mlp.linear_0.w
         p, k_s, k_t = self.spec.p, self.spec.k_spatial, self.spec.k_temporal
         sp = sparsity_block(w0[p:p + k_s], penalty_type, lambda_l1,
                             lambda_group)
@@ -376,8 +400,6 @@ class STInterpLanes(nn.Module):
                  spatial_bandwidths: np.ndarray,
                  spatial_k_mask: Optional[np.ndarray] = None):
         super().__init__()
-        if not spec.hidden_dims:
-            raise NotImplementedError("the port's first layer needs a hidden layer")
         self.spec = spec
         centers = torch.tensor(np.asarray(spatial_centers, np.float32))
         bws = torch.tensor(np.asarray(spatial_bandwidths, np.float32))
@@ -430,7 +452,9 @@ class STInterpLanes(nn.Module):
         """yhat: coords (M, B, 2), t (M, B, 1) -> (M, B, output_dim), lane
         i from lane i's weights. `X` (M, B, p) are the covariates of a model
         with p > 0. Dropout (train=True, dropout > 0) draws one
-        (M, B, sum(hidden)) uniform block from `generator` for all lanes."""
+        (M, B, sum(hidden)) uniform block from `generator` for all lanes; a
+        model with no hidden layer feeds [X | phi | psi] to the head and
+        draws nothing."""
         spec = self.spec
         M, B = coords.shape[0], coords.shape[1]
         if M != self.lanes or tuple(t.shape) != (M, B, 1):
@@ -438,10 +462,10 @@ class STInterpLanes(nn.Module):
                              f"{tuple(t.shape)}: expected ({self.lanes}, B, 2) "
                              f"/ ({self.lanes}, B, 1)")
         centers, bandwidths = self.spatial_params()
-        lin0 = self.mlp.linear_0
         k_s = spec.k_spatial
         psi = temporal_basis_embed(t, self.temporal_centers,
                                    self.temporal_bandwidths).reshape(M, B, -1)
+        lin0 = getattr(self.mlp, "linear_0", None)     # None: no hidden layer
         if spec.phi_route:
             # junk columns are zero inside the kernels, so neither their
             # weight rows nor the junk centers get a gradient (JAX
@@ -456,14 +480,15 @@ class STInterpLanes(nn.Module):
                 feats = torch.cat([X, phi, psi], dim=-1)
             else:
                 feats = torch.cat([phi, psi], dim=-1)
-            h = torch.baddbmm(lin0.b[:, None, :], feats, lin0.w)
+            h = (feats if lin0 is None
+                 else torch.baddbmm(lin0.b[:, None, :], feats, lin0.w))
         else:
             h = fused_spatial_first_layer(coords, centers, bandwidths,
                                           lin0.w[:, :k_s],
                                           spec.spatial_basis_function)
             h = h + torch.baddbmm(lin0.b[:, None, :], psi, lin0.w[:, k_s:])
 
-        use_dropout = train and spec.dropout > 0.0
+        use_dropout = train and spec.dropout > 0.0 and bool(spec.hidden_dims)
         if use_dropout:
             if generator is None:
                 raise ValueError("generator required for dropout in train mode")
@@ -505,13 +530,16 @@ class STInterpLanes(nn.Module):
 
     def sparsity_penalty(self, penalty_type: str, lambda_l1: float,
                          lambda_group: float) -> Dict[str, torch.Tensor]:
-        w0 = self.mlp.linear_0.w
         if penalty_type == "none":
-            zero = w0.new_zeros((self.lanes,))
+            zero = next(self.mlp.parameters()).new_zeros((self.lanes,))
             return {"spatial_penalty": zero, "temporal_penalty": zero,
                     "total_penalty": zero}
         if penalty_type not in ("element", "group", "sparse_group"):
             raise ValueError(f"Unknown penalty_type: {penalty_type}")
+        if not self.spec.hidden_dims:
+            raise ValueError(f"sparsity penalty {penalty_type!r} needs a first "
+                             "hidden layer; this model has none")
+        w0 = self.mlp.linear_0.w
         p, k_s, k_t = self.spec.p, self.spec.k_spatial, self.spec.k_temporal
         sp = sparsity_block(w0[:, p:p + k_s], penalty_type, lambda_l1,
                             lambda_group, lanes=True)

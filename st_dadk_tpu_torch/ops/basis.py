@@ -29,7 +29,7 @@ def wendland_c4(r: torch.Tensor) -> torch.Tensor:
 
 
 def gaussian_rbf(r: torch.Tensor) -> torch.Tensor:
-    return torch.exp(-0.5 * r * r)
+    return exp_rn(-0.5 * r * r)
 
 
 def triangular_basis(r: torch.Tensor) -> torch.Tensor:
@@ -55,8 +55,42 @@ def basis_matrix(coords: torch.Tensor, centers: torch.Tensor,
     inv_bw (M, k) give phi (M, N, k), each lane from its own operands."""
     dx = coords[..., 0:1] - centers[..., None, :, 0]
     dy = coords[..., 1:2] - centers[..., None, :, 1]
-    dist = torch.sqrt(torch.clamp(dx * dx + dy * dy, min=1e-24))
+    dist = sqrt_rn(torch.clamp(dx * dx + dy * dy, min=1e-24))
     return apply_basis(dist * inv_bw[..., None, :], basis_function)
+
+
+def _on_cpu32(x: torch.Tensor) -> bool:
+    return x.device.type == "cpu" and x.dtype == torch.float32
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of float32 `x`, as the card's
+    `torch.sqrt` and the kernels' `__fsqrt_rn` give it. On the CPU, torch
+    takes a float32 tensor's square root (and its `exp`) from MKL's vector
+    math in chunks on its OpenMP threads: up to 1 ulp off, and now and then
+    one thread's whole chunk comes from MKL's reduced-accuracy (VML_EP)
+    kernel of its AVX2/SSE4.2 code path, about 12 bits accurate (a relative
+    error up to 3.2e-4), although torch asks for VML_HA; the float64 call
+    can take the same fault (about 35 bits). There the root is taken in
+    float64 and refined by one Newton step, whose add and divide are exact
+    IEEE operations, then rounded once: the correctly rounded float32 root
+    whatever the vector-math call returned."""
+    if _on_cpu32(x):
+        x64 = x.double()
+        r = torch.sqrt(x64)
+        return torch.where(r > 0, 0.5 * (r + x64 / r), r).float()
+    return torch.sqrt(x)
+
+
+def exp_rn(x: torch.Tensor) -> torch.Tensor:
+    """exp of float32 `x`; on the CPU in float64 and rounded once, for the
+    reason `sqrt_rn` gives: correctly rounded, and within one float32 ulp
+    should the fault hit the float64 call (which has no exact refinement
+    without another vector-math call). The card's `torch.exp` is
+    unchanged."""
+    if _on_cpu32(x):
+        return torch.exp(x.double()).float()
+    return torch.exp(x)
 
 
 def spatial_basis_embed(coords: torch.Tensor, centers: torch.Tensor,
@@ -73,7 +107,7 @@ def temporal_basis_embed(t: torch.Tensor, centers: torch.Tensor,
     """psi(t): (N, k_t) Gaussian RBF embedding of normalised time."""
     t = t.reshape(-1, 1)
     diff = (t - centers[None, :]) / bandwidths[None, :]
-    return torch.exp(-0.5 * diff * diff)
+    return exp_rn(-0.5 * diff * diff)
 
 
 # ---------------------------------------------------------------------------

@@ -42,14 +42,15 @@ case of the same kernels. The plain versions broadcast over the lane axis.
 
 Each wrapper counts its calls that reach the card in `<wrapper>.launches`:
 one a call, however many device launches the call makes and however many
-lanes it serves. The counts are plain module-level integers; where two
+lanes it serves. It keeps the shapes they launched at in `<wrapper>.shapes`
+(`launch_shapes`). The counts are plain module-level integers; where two
 threads launch (the batch pipeline's finalize thread predicts while the main
 thread trains) they count both threads' launches together.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -256,6 +257,13 @@ def plain_bwd_points(coords, centers, inv_bw, w, g, basis_id: int
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _count(fn, lead: Tuple[int, ...], n: int, k: int, h: int,
+           basis_id: int) -> None:
+    """One launch of `fn`'s kernel, and the shape it launched at."""
+    fn.launches += 1
+    fn.shapes.add((lead, n, k, h, False, basis_id))
+
+
 def fused_first_layer_fwd(coords: torch.Tensor, centers: torch.Tensor,
                           inv_bw: torch.Tensor, w: torch.Tensor,
                           basis_id: int) -> torch.Tensor:
@@ -277,7 +285,7 @@ def fused_first_layer_fwd(coords: torch.Tensor, centers: torch.Tensor,
             w.data_ptr(), out.data_ptr(), n, k, h, basis_id,
             *fwd_tile(n, k, h), lanes, stream(coords))
     raise_on(rc, "fused_first_layer_fwd")
-    fused_first_layer_fwd.launches += 1
+    _count(fused_first_layer_fwd, lead, n, k, h, basis_id)
     return out
 
 
@@ -303,7 +311,7 @@ def fused_first_layer_bwd_w(coords: torch.Tensor, centers: torch.Tensor,
             g.data_ptr(), dw.data_ptr(), ws.data_ptr(), n, k, h, basis_id,
             slabs, lanes, stream(coords))
     raise_on(rc, "fused_first_layer_bwd_w")
-    fused_first_layer_bwd_w.launches += 1
+    _count(fused_first_layer_bwd_w, lead, n, k, h, basis_id)
     return dw
 
 
@@ -332,7 +340,7 @@ def fused_first_layer_bwd_centers(coords: torch.Tensor, centers: torch.Tensor,
             ws.data_ptr(), n, k, h, basis_id, ws.shape[-3], lanes,
             stream(coords))
     raise_on(rc, "fused_first_layer_bwd_centers")
-    fused_first_layer_bwd_centers.launches += 1
+    _count(fused_first_layer_bwd_centers, lead, n, k, h, basis_id)
     return dc, dib
 
 
@@ -356,23 +364,30 @@ def fused_first_layer_bwd_points(coords: torch.Tensor, centers: torch.Tensor,
             h, basis_id, *bwd_points_tile(n, k, h), bwd_points_slabs(n, k, h),
             stream(coords))
     raise_on(rc, "fused_first_layer_bwd_points")
-    fused_first_layer_bwd_points.launches += 1
+    _count(fused_first_layer_bwd_points, (), n, k, h, basis_id)
     return ds
 
 
 KERNEL_WRAPPERS = (fused_first_layer_fwd, fused_first_layer_bwd_w,
                    fused_first_layer_bwd_centers, fused_first_layer_bwd_points)
-for _fn in KERNEL_WRAPPERS:
-    _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
+        fn.launches, fn.shapes = 0, set()
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> Dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def launch_shapes() -> Dict[str, List[Tuple]]:
+    """Each kernel's distinct launch shapes since the last reset, as
+    (lane axis, N, k, H, masked, basis id)."""
+    return {fn.__name__: sorted(fn.shapes) for fn in KERNEL_WRAPPERS}
 
 
 # ---------------------------------------------------------------------------

@@ -100,7 +100,7 @@ def _is_number(v: Any) -> bool:
     return isinstance(v, (int, float)) and not isinstance(v, bool)
 
 
-def _write_records(records: List[Dict[str, Any]], path: Path) -> None:
+def write_records(records: List[Dict[str, Any]], path: Path) -> None:
     """`pd.DataFrame(records).to_csv(path, index=False)` without pandas:
     the columns in order of first appearance, a missing cell empty, and
     each column written as the data frame's dtype writes it (a number
@@ -181,12 +181,12 @@ def save_experiment_results(all_results: List[Optional[Dict[str, Any]]],
                 detail_records[key][metric] = value
 
     details = list(detail_records.values())
-    _write_records(summary_records, output_dir / "grid_search_summary.csv")
-    _write_records(details, output_dir / "grid_search_detail.csv")
+    write_records(summary_records, output_dir / "grid_search_summary.csv")
+    write_records(details, output_dir / "grid_search_detail.csv")
     with open(output_dir / "grid_search_configs.json", "w",
               encoding="utf-8") as f:
         json.dump(configs_dict, f, indent=2, ensure_ascii=False, default=str)
-    _write_records(config_records, output_dir / "grid_search_configs.csv")
+    write_records(config_records, output_dir / "grid_search_configs.csv")
     return summary_records, details
 
 

@@ -35,7 +35,11 @@ def test_port_imports_no_jax_yaml_pandas_or_reference():
     assert "st_dadk_tpu_torch.train.batch_engine" in res["modules"]
     for name in ("ops.kmeans_exact", "train.checkpoint", "viz.plots",
                  "utils.metrics", "utils.seed", "utils.covariance",
-                 "dataio.native"):
+                 "dataio.native", "dataio.windows", "dataio.competition",
+                 "models.forecaster", "models.legacy_basis",
+                 "cli.predict_submission", "cli.forecast_submission",
+                 "cli.score_families", "cli.analyze_table_4_4",
+                 "cli.analyze_grid_search", "cli.resume_grid_search"):
         assert f"st_dadk_tpu_torch.{name}" in res["modules"], name
     assert res["forbidden"] == []
 
@@ -72,7 +76,8 @@ def test_port_scripts_import_no_jax_package():
     run and the comparer) import neither jax, pandas nor the JAX package,
     and the port imports none of the scripts."""
     forbidden = {"jax", "jaxlib", "yaml", "pandas", "st_dadk_tpu"}
-    for name in ("port_accuracy_torch.py", "port_accuracy_compare.py"):
+    for name in ("port_accuracy_torch.py", "port_accuracy_compare.py",
+                 "port_accuracy_competition.py", "port_vml_probe.py"):
         mods = _imported_modules(REPO / "scripts" / name)
         assert not mods & forbidden, (name, mods & forbidden)
     assert "torch" not in _imported_modules(
