@@ -126,12 +126,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      column mask (the wrappers keep their launch shapes): the step, the
      validation and the prediction chunks of every fit, seeded inputs,
      the bars of phase 2.
-Each of phases 3-7, 11-13, 15 and 18-20 sets the launch counts to 0 just
-before it and reads them just after; it checks the fit's losses, centers
-and test metrics. The last line of standard output is one JSON object with
-"ok" and the device; the line before it lists the kernels, with the launches
-of phases 18-20 under "competition_launches" and, as "max_abs_err", the
-worst difference from the plain version in phases 2, 18-19 and 21.
+ 22. the bf16 trunk (`train_dtype: bf16`): the bench fit on the fused route,
+     12 epochs, held to phase 3's float32 fit by |d RMSE| < 0.15
+     (tests/test_train_loop.py:394), then the ragged lane of phase 4 in
+     bf16 on the phi route, held to phase 4 alike; ms a step of each
+     beside float32's, and the kernels' launches;
+ 23. the packed optimizer (`packed_optimizer: true`): the bench fit and
+     phase 6's 4-lane batch packed against phases 3 and 6, unpacked: loss
+     histories within LANE_EARLY_RTOL in epochs 1-3 and within phase 6's
+     drift rule after (the drift of the bench fit with W_s one ulp up),
+     scores likewise; device activities a step both ways (torch.profiler,
+     a 2-epoch fit and a 2-epoch 4-lane batch each);
+ 24. tail compaction: COMPACT_LANES lanes at patience 1 with a plateau
+     margin, compacted at a multiple of COMPACT_EVERY epochs against the
+     same batch uncompacted:
+     the batch must narrow (the compaction line is printed), every lane's
+     stop epoch must be equal both ways and its histories and scores hold
+     by the drift rule of phase 23.
+Phases 22-24 run before phase 21, whose shapes include theirs.
+Each of phases 3-7, 11-13, 15 and 18-20, 22-24 sets the launch counts to 0
+just before it and reads them just after; it checks the fit's losses,
+centers and test metrics. The last line of standard output is one JSON
+object with "ok" and the device; the line before it lists the kernels, with
+the launches of phases 18-20 under "competition_launches", those of phases
+22-24 under "option_launches" and, as "max_abs_err", the worst difference
+from the plain version in phases 2, 18-19 and 21.
 """
 from __future__ import annotations
 
@@ -290,6 +309,17 @@ SUBMIT_EPOCHS, FORECAST_EPOCHS = 12, 20
 FORECAST_BATCH = 4096
 SUBMIT_BATCH = 4096             # config_st_interp's batch_size
 LEGACY_PHI_N = 4096
+# phase 22: a bf16 fit against its float32 fit (tests/test_train_loop.py:394)
+BF16_RMSE_BAR = 0.15
+# phase 23: the short fits profiled for device activities a step
+PACKED_PROFILE_EPOCHS = 2
+# phase 24: lanes at patience 1 that stop once an epoch's validation loss
+# gains less than COMPACT_MIN_GAIN of the best (the EMA's validation loss
+# falls for many epochs, by 0.7-2.5 % an epoch in epochs 5-12 of the bench
+# fit on the stand-in field); compaction is tried every COMPACT_EVERY
+# epochs, within a cap of COMPACT_EPOCHS
+COMPACT_LANES, COMPACT_EVERY, COMPACT_EPOCHS = 8, 2, 40
+COMPACT_MIN_GAIN = 0.01
 # JAX's keys of nan_diagnostics.json (st_dadk_tpu/train/experiment.py:415)
 NAN_DIAG_KEYS = {"nan_epochs", "n_epochs_run", "train_loss_tail",
                  "val_loss_tail", "inputs", "params"}
@@ -806,13 +836,14 @@ def main(argv=None) -> int:
     lane_ms.update(basis_lane_kernel_phase(torch, sbk, BASIS_IDS,
                                            CALIBRATION_FACTORS, worst))
     launches = {nm: None for nm in KERNELS}
-    lane_launches, competition, competition_ms = {}, {}, {}
+    lane_launches, competition, competition_ms, options = {}, {}, {}, {}
     if not args.kernels_only:
         phases = Phases(torch, ffl, sbk)
         launches = phases.run()
         lane_launches = phases.lane_launches
         competition = phases.competition_launches
         competition_ms = phases.competition_times
+        options = phases.option_launches
         for nm, err in phases.held_err.items():
             worst[nm] = max(worst[nm], err)
 
@@ -839,7 +870,10 @@ def main(argv=None) -> int:
          "competition_launches": {run: counts[nm] for run, counts
                                   in competition.items()} or None,
          # device ms a launch at the step shapes of phases 18-19
-         "competition_ms": competition_ms.get(nm)}
+         "competition_ms": competition_ms.get(nm),
+         # launches in each run of phases 22-24 (the fit's options)
+         "option_launches": {run: counts[nm] for run, counts
+                             in options.items()} or None}
         for nm, (src, replaces) in KERNELS.items()]}
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(json.dumps(report))
@@ -857,6 +891,8 @@ class Phases:
         self.torch, self.ffl, self.sbk = torch, ffl, sbk
         self.lane_launches = {}
         self.competition_launches = {}
+        self.option_launches = {}
+        self.lanes_results = None
         self.competition_times = {}
         # kernel -> every launch shape of the counted runs; kernel -> the
         # worst max |d| of the checks at those shapes and in time_shape
@@ -910,6 +946,11 @@ class Phases:
                             ("19 (forecast)", self.forecast_phase),
                             ("20 (no hidden layer, analysis)",
                              self.no_hidden_phase),
+                            ("22 (bf16 trunk)",
+                             lambda: self.bf16_phase(bench, lane)),
+                            ("23 (packed optimizer)",
+                             lambda: self.packed_phase(bench)),
+                            ("24 (tail compaction)", self.compaction_phase),
                             ("21 (every launch shape)",
                              self.launch_shapes_phase)):
             t0 = time.time()
@@ -1002,6 +1043,7 @@ class Phases:
 
         out_dir = REPO / "build" / "chip_smoke_fit"
         cfg, res, counts, _ = self.fit("bench", out_dir)
+        self.bench_counts = counts
         fused = ("fused_first_layer_fwd", "fused_first_layer_bwd_w",
                  "fused_first_layer_bwd_centers")
         for nm in fused:
@@ -1137,6 +1179,7 @@ class Phases:
             cfg, out_dir, engine="vmap", device="cuda", verbose=True))
         wall = time.time() - t0
         print("launches: " + json.dumps(counts), flush=True)
+        self.lane_counts = counts
         check(summary is not None and summary["n_experiments"] == LANES,
               f"the summary holds {summary and summary['n_experiments']} "
               f"experiments, not {LANES}")
@@ -1175,6 +1218,7 @@ class Phases:
                   f"{res['test_rmse']!r}  test CRPS {res['test_crps']!r}  "
                   f"(valid RMSE {res['valid_rmse']!r} CRPS "
                   f"{res['valid_crps']!r})", flush=True)
+        self.lanes_results = results
         check(len({r["test_rmse"] for r in results}) == LANES,
               "lanes of different seeds gave equal scores")
         stats = json.loads((out_dir / "summary" /
@@ -2565,6 +2609,262 @@ class Phases:
         print(f"analysis: Table 4.4 rendered ({len(rows) - 1} scenarios x "
               f"{len(rows[0]) - 1} models), grid detailed summary "
               f"{len(detailed)} rows", flush=True)
+
+    # -- phases 22-24: the fit's arithmetic options ----------------------------
+    @staticmethod
+    def per_step_ms(res):
+        """ms a step of a single fit in epochs 2 onwards."""
+        st = res["stage_timings"]
+        per_epoch = res["n_steps"] // res["n_epochs_run"]
+        return 1e3 * ((st["train_steps_seconds"]
+                       - st["first_epoch_steps_seconds"])
+                      / (res["n_steps"] - per_epoch))
+
+    def bf16_phase(self, bench, lane):
+        """Phase 22: the bench fit and the ragged lane with the bf16 trunk,
+        each against its float32 fit of phases 3 and 4."""
+        for name, ref, out, over, kernels in (
+                ("bench bf16", bench, "chip_smoke_fit_bf16", {},
+                 ("fused_first_layer_fwd", "fused_first_layer_bwd_w",
+                  "fused_first_layer_bwd_centers")),
+                ("ragged lane bf16", lane, "chip_smoke_ragged_bf16",
+                 dict(k_spatial_centers=LANE_CENTERS,
+                      k_spatial_pad=LANE_PAD),
+                 ("spatial_basis_fwd", "spatial_basis_bwd_centers"))):
+            _, res, counts, _ = self.fit(name, REPO / "build" / out,
+                                         train_dtype="bf16", **over)
+            self.option_launches[name] = counts
+            expect_fwd = self.expected_fwd(res)
+            check(counts[kernels[0]] == expect_fwd,
+                  f"{name}: {kernels[0]} launches {counts[kernels[0]]} != "
+                  f"steps + validations + predict chunks = {expect_fwd}")
+            for nm in kernels[1:]:
+                check(counts[nm] == res["n_steps"], f"{name}: {nm} launches "
+                      f"{counts[nm]} != steps {res['n_steps']}")
+            for nm, c in counts.items():
+                if nm not in kernels:
+                    check(c == 0, f"{name}: {nm} launched {c} times")
+            f32 = ref[1]
+            for key in ("test_rmse", "valid_rmse"):
+                d = abs(res[key] - f32[key])
+                print(f"{name}: {key} {res[key]!r} against float32 "
+                      f"{f32[key]!r}, |d| {d:.3e} (bar {BF16_RMSE_BAR})",
+                      flush=True)
+                check(d < BF16_RMSE_BAR, f"{name}: {key} is {d:.3e} from "
+                      f"the float32 fit's (bar {BF16_RMSE_BAR})")
+            print(f"{name}: {self.per_step_ms(res):.3f} ms a step in epochs "
+                  f"2-{EPOCHS}, float32 {self.per_step_ms(f32):.3f}",
+                  flush=True)
+
+    def nudged_drift(self, bench):
+        """The drift rule's reference (phase 6): the bench fit with W_s one
+        ulp up, its loss histories' relative gap to phase 3's by epoch."""
+        import numpy as np
+
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.config import ExperimentConfig
+        from st_dadk_tpu_torch.train import loop
+        from st_dadk_tpu_torch.train.experiment import ExperimentSetup
+
+        if getattr(self, "_drift", None) is None:
+            cfg = ExperimentConfig.from_dict(bench_workload(
+                data_file=str(self.data_file), epochs=EPOCHS))
+            setup = ExperimentSetup(cfg, 1, "cuda")
+            with self.torch.no_grad():
+                w = setup.model.mlp.linear_0.w
+                w.copy_(self.torch.nextafter(w, self.torch.full_like(w, 10.0)))
+            nudged = loop.fit(cfg, setup.spec, setup.model, setup.train_ps,
+                              setup.valid_ps, seed=setup.experiment_seed)
+            hist = bench[1]["training_history"]
+            self._drift = {
+                key: np.abs(np.asarray(nudged.history[key])
+                            - np.asarray(hist[key])) / np.abs(hist[key])
+                for key in ("train_loss", "val_loss")}
+            print("drift of the bench fit with W_s one ulp up: " + "; ".join(
+                f"{k} " + " ".join(f"{g:.1e}" for g in v)
+                for k, v in self._drift.items()), flush=True)
+        return self._drift
+
+    def hold_by_drift(self, name, got, want, drift):
+        """Histories of `got` against `want` (results.json dicts): the
+        early bar in epochs 1-LANE_EARLY_EPOCHS, then LANE_DRIFT_FACTOR x
+        the running maximum of `drift`; scores at the same factor of its
+        largest value."""
+        import numpy as np
+
+        worst = 0.0
+        for key in ("train_loss", "val_loss"):
+            a = np.asarray(got["training_history"][key])
+            b = np.asarray(want["training_history"][key])
+            check(len(a) == len(b), f"{name}: {key} has {len(a)} epochs, "
+                  f"the reference {len(b)}")
+            gaps = np.abs(a - b) / np.abs(b)
+            # past the reference's epochs, its largest drift
+            d = np.maximum.accumulate(drift[key])
+            d = np.concatenate([d, np.full(max(len(gaps) - len(d), 0),
+                                           d[-1])])[:len(gaps)]
+            bar = np.maximum(LANE_EARLY_RTOL, LANE_DRIFT_FACTOR * d)
+            bar[:LANE_EARLY_EPOCHS] = LANE_EARLY_RTOL
+            over = np.maximum.accumulate(gaps) > bar
+            check(not over.any(), f"{name}: {key} is {gaps.max():.3e} from "
+                  f"the reference, past its bar from epoch "
+                  f"{int(np.argmax(over)) + 1}")
+            worst = max(worst, float(gaps.max()))
+        score_bar = max(LANE_SCORE_RTOL, LANE_DRIFT_FACTOR * max(
+            float(v.max()) for v in drift.values()))
+        for key in LANE_SCORES:
+            gap = abs(got[key] - want[key]) / abs(want[key])
+            check(gap <= score_bar, f"{name}: {key} {got[key]!r} is "
+                  f"{gap:.3e} from {want[key]!r} (bar {score_bar:.1e})")
+        return worst
+
+    def activities_per_step(self, packed, lanes):
+        """Device activities a step (validation included) of a
+        PACKED_PROFILE_EPOCHS-epoch bench fit, or of a batch of `lanes`
+        lanes, under torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.config import ExperimentConfig
+        from st_dadk_tpu_torch.models.st_interp import stack_lane_models
+        from st_dadk_tpu_torch.profile_fit import _device_profile
+        from st_dadk_tpu_torch.train import batch_engine as be
+        from st_dadk_tpu_torch.train import loop
+        from st_dadk_tpu_torch.train.experiment import ExperimentSetup
+
+        torch = self.torch
+        cfg = ExperimentConfig.from_dict(bench_workload(
+            data_file=str(self.data_file), epochs=PACKED_PROFILE_EPOCHS,
+            packed_optimizer=packed))
+        setups = [ExperimentSetup(cfg, i + 1, "cuda") for i in range(lanes)]
+        if lanes == 1:
+            s = setups[0]
+            run = lambda: loop.fit(cfg, s.spec, s.model, s.train_ps,
+                                   s.valid_ps, seed=s.experiment_seed)
+        else:
+            stacked = be._stack_lane_host(cfg, setups,
+                                          torch.device("cuda"))
+            model = stack_lane_models([s.model for s in setups])
+            run = lambda: loop.fit_lanes(
+                cfg, setups[0].spec, model, stacked["data"],
+                stacked["lr_steps"], stacked["lr_recorded"],
+                [s.experiment_seed for s in setups])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = run()
+            torch.cuda.synchronize()
+        steps = (res.n_steps if lanes == 1
+                 else int(res[0].timings["steps_per_epoch_batch"])
+                 * int(res[0].timings["epochs_run_batch"]))
+        d = _device_profile(prof, steps)
+        return d["activities"] / steps, d["device_ms"] / steps
+
+    def packed_phase(self, bench):
+        """Phase 23: the bench fit and phase 6's 4-lane batch with the
+        packed optimizer against the unpacked runs of phases 3 and 6."""
+        import shutil
+
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.train.runner import (load_all_results,
+                                                    run_multiple_experiments)
+
+        drift = self.nudged_drift(bench)
+        _, res, counts, _ = self.fit("bench packed",
+                                     REPO / "build" / "chip_smoke_fit_packed",
+                                     packed_optimizer=True)
+        self.option_launches["bench packed"] = counts
+        check(counts == self.bench_counts, f"bench packed: launches {counts}"
+              f" != the unpacked fit's {self.bench_counts}")
+        worst = self.hold_by_drift("bench packed", res, bench[1], drift)
+        print(f"bench packed against phase 3: loss histories within "
+              f"{worst:.3e} relative; test RMSE {res['test_rmse']!r} / "
+              f"{bench[1]['test_rmse']!r}; {self.per_step_ms(res):.3f} ms a "
+              f"step, unpacked {self.per_step_ms(bench[1]):.3f}", flush=True)
+
+        out = REPO / "build" / "chip_smoke_lanes_packed"
+        shutil.rmtree(out, ignore_errors=True)
+        cfg = bench_workload(data_file=str(self.data_file), epochs=EPOCHS,
+                             n_experiments=LANES, save_artifacts=True,
+                             packed_optimizer=True)
+        _, counts = self.counted(lambda: run_multiple_experiments(
+            cfg, out, engine="vmap", device="cuda"))
+        self.option_launches["4 lanes packed"] = counts
+        check(counts == self.lane_counts, f"4 lanes packed: launches "
+              f"{counts} != the unpacked batch's {self.lane_counts}")
+        packed = load_all_results(out / "experiments", LANES)
+        check(len(packed) == LANES, f"{len(packed)} of {LANES} packed lanes")
+        for i, (a, b) in enumerate(zip(packed, self.lanes_results)):
+            w = self.hold_by_drift(f"packed lane {i + 1}", a, b, drift)
+            print(f"packed lane {i + 1} against phase 6's: histories within "
+                  f"{w:.3e}; test RMSE {a['test_rmse']!r} / "
+                  f"{b['test_rmse']!r}", flush=True)
+        for lanes in (1, LANES):
+            (u, u_ms), (p, p_ms) = (self.activities_per_step(False, lanes),
+                                    self.activities_per_step(True, lanes))
+            print(f"{'bench fit' if lanes == 1 else f'{lanes} lanes'}: "
+                  f"device activities a step (validation included) unpacked "
+                  f"{u:.1f}, packed {p:.1f}; device ms a step {u_ms:.4f} / "
+                  f"{p_ms:.4f} (profiled, {PACKED_PROFILE_EPOCHS} epochs)",
+                  flush=True)
+            check(p < u, f"the packed step launches no fewer device "
+                  f"activities ({p:.1f} against {u:.1f})")
+
+    def compaction_phase(self):
+        """Phase 24: COMPACT_LANES lanes at patience 1, compacted against
+        the same batch uncompacted."""
+        import contextlib
+        import io
+        import shutil
+
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.train.runner import (load_all_results,
+                                                    run_multiple_experiments)
+
+        drift = self._drift
+        runs = {}
+        for compact in (False, True):
+            out = REPO / "build" / f"chip_smoke_compact_{int(compact)}"
+            shutil.rmtree(out, ignore_errors=True)
+            cfg = bench_workload(data_file=str(self.data_file),
+                                 epochs=COMPACT_EPOCHS, patience=1,
+                                 early_stop_min_rel_delta=COMPACT_MIN_GAIN,
+                                 n_experiments=COMPACT_LANES,
+                                 save_artifacts=False,
+                                 tail_compaction=compact,
+                                 compaction_epoch=COMPACT_EVERY)
+            log = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(log):
+                _, counts = self.counted(lambda: run_multiple_experiments(
+                    cfg, out, engine="vmap", device="cuda", verbose=True))
+            wall = time.time() - t0
+            lines = [ln for ln in log.getvalue().splitlines()
+                     if "tail compaction" in ln]
+            runs[compact] = (load_all_results(out / "experiments",
+                                              COMPACT_LANES), lines, wall)
+            self.option_launches["compaction" if compact
+                                 else "patience 1"] = counts
+            res = runs[compact][0]
+            print(f"{'compacted' if compact else 'full width'}: "
+                  f"{len(res)} lanes in {wall:.1f} s, stop epochs "
+                  f"{[r['n_epochs_run'] for r in res]}, fused forward "
+                  f"launches {counts['fused_first_layer_fwd']}", flush=True)
+            for ln in lines:
+                print(f"  {ln.strip()}", flush=True)
+        full, (comp, lines, _) = runs[False][0], runs[True]
+        check(len(full) == len(comp) == COMPACT_LANES,
+              f"{len(full)} / {len(comp)} of {COMPACT_LANES} lanes finished")
+        check(len(lines) == 1, f"the batch narrowed {len(lines)} times, "
+              f"not once")
+        check(not runs[False][1], "the uncompacted batch narrowed")
+        for i, (a, b) in enumerate(zip(comp, full)):
+            check(a["n_epochs_run"] == b["n_epochs_run"],
+                  f"compacted lane {i + 1} stopped at epoch "
+                  f"{a['n_epochs_run']}, uncompacted at {b['n_epochs_run']}")
+            w = self.hold_by_drift(f"compacted lane {i + 1}", a, b, drift)
+            print(f"compacted lane {i + 1}: histories within {w:.3e} of the "
+                  f"uncompacted lane's", flush=True)
 
     def saved_model(self, cfg, out_dir, device, pad=None):
         """The fit's saved params as a model on `device`; with `pad`, padded

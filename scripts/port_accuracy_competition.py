@@ -173,6 +173,8 @@ def compare(runs, out_path) -> str:
                     if r.get("pipeline", "submission") == pipe}
                for nm, (rows, _) in data.items()}
         names = [nm for nm in data if per[nm]]
+        if not names:           # paired runs only: submissions, no forecast
+            continue
         for m in ("rmse", "mae"):
             lines += ["", f"| {pipe} {m} by seed | "
                       + " | ".join(names) + " | persistence |",

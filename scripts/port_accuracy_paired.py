@@ -26,7 +26,11 @@ floor for a JAX/port gap). Unpaired in part: `--side jax --init_only
 [--cap N]` writes the inits (and the multipliers at capacity N) without a
 fit and with the config's dropout, and `--side torch --keep_dropout
 [--own_shuffle]` keeps the config's dropout (the port's own mask stream)
-and, with `--own_shuffle`, the port's own multipliers.
+and, with `--own_shuffle`, the port's own multipliers. `--dropout_stream N`
+(with `--keep_dropout`, JAX's multipliers handed across) seeds the port's
+fit generator with seed + N * DROPOUT_STREAM_STRIDE instead of the seed:
+with the multipliers handed across that generator draws only the dropout
+masks, so two runs that differ in N differ in their masks alone.
 `--compare` prints a markdown table: RMSE / MAE
 a seed and side, and for each side against the first the per-epoch
 validation loss gap (the first epoch past 1e-4, 1e-3 and 1e-2 relative).
@@ -51,6 +55,8 @@ sys.path.insert(0, str(REPO))
 FAMILY_STEM = REPO / "build" / "port_accuracy" / "competition_family" / "2a_8"
 CONFIG = REPO / "configs" / "config_st_interp.yaml"
 GAPS = (1e-4, 1e-3, 1e-2)
+# --dropout_stream N: the fit generator's seed moves by N times this
+DROPOUT_STREAM_STRIDE = 1_000_003
 
 
 def paired_config(config: Path, out_dir: Path, epochs=None) -> Path:
@@ -248,6 +254,9 @@ def run_torch(args) -> int:
             return from_jax_params(spec, params, consts, device=device)
 
         def fit_capture(*a, **kw):
+            if args.dropout_stream:
+                kw["seed"] = (int(kw["seed"])
+                              + DROPOUT_STREAM_STRIDE * args.dropout_stream)
             seen["result"] = patched["fit"](*a, **kw)
             return seen["result"]
 
@@ -285,7 +294,8 @@ def run_torch(args) -> int:
             check=True).stdout.strip().splitlines()[0]
     (out / "run_info.json").write_text(json.dumps({
         "hardware": card, "ulp": args.ulp, "keep_dropout": args.keep_dropout,
-        "own_shuffle": args.own_shuffle}))
+        "own_shuffle": args.own_shuffle,
+        "dropout_stream": args.dropout_stream}))
     return 0
 
 
@@ -372,6 +382,9 @@ def main(argv=None) -> int:
                     "dropout stream), not 0")
     ap.add_argument("--own_shuffle", action="store_true",
                     help="torch side: the port's own hash multipliers")
+    ap.add_argument("--dropout_stream", type=int, default=0,
+                    help="torch side, with --keep_dropout and JAX's "
+                    "multipliers: seed only the dropout masks otherwise")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--compare", nargs="+", default=None,
                     help="NAME=DIR of each side's --output_dir, JAX first")
@@ -382,6 +395,9 @@ def main(argv=None) -> int:
         return 0
     if args.side == "jax" and args.output_dir:
         return run_jax(args)
+    if args.dropout_stream and (not args.keep_dropout or args.own_shuffle):
+        ap.error("--dropout_stream needs --keep_dropout and JAX's "
+                 "multipliers (no --own_shuffle)")
     if args.side == "torch" and args.output_dir and args.init_dir:
         return run_torch(args)
     ap.error("--side jax --output_dir, --side torch --output_dir "

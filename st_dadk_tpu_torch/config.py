@@ -103,9 +103,21 @@ class ExperimentConfig:
     use_pallas_training: bool = False          # phi built on its own in training
     use_fused_training: bool = False           # fused basis->layer-1 in training
 
+    # -- arithmetic options of the fit (the JAX package's defaults) -------------
+    # trunk activation dtype: 'f32', 'bf16' (activations and their
+    # cotangents in bfloat16; params, LayerNorm statistics, the loss and the
+    # optimizer stay float32), or 'auto': float32 unless the model's size
+    # (models/st_interp.py AUTO_BF16_HIDDEN_SUM) or a batch's lane width
+    # (train/batch_engine.py AUTO_BF16_LANES) passes its trigger on the H100
+    train_dtype: str = "auto"
+    packed_optimizer: bool = False             # AdamW, EMA and clipping on one flat
+                                               # buffer a parameter group (train/packing.py)
+    tail_compaction: bool = False              # the lane engine narrows a batch to its
+                                               # active lanes once, at a multiple of
+    compaction_epoch: int = 100                # compaction_epoch epochs
+
     # -- port extras -------------------------------------------------------------
     data_root: Optional[str] = None            # prefix for relative data_file paths
-    train_dtype: str = "auto"                  # the port trains in float32 only
     k_spatial_pad: Optional[int] = None        # ragged-k lane: phi padded to this width
     save_plots: bool = True                    # the figures (viz/plots.py) at finalize
     save_artifacts: bool = True                # model/prediction/basis npz files
@@ -122,8 +134,7 @@ class ExperimentConfig:
     # 'final_stop_sync', 'packed_finalize_pull',
     # 'pipeline_blocking_finalize': a loop of `run_job_batch` is the port's
     # serial baseline; the JAX-only fields
-    # 'packed_optimizer',
-    # 'scan_unroll', 'tail_compaction', 'compaction_epoch', 'mesh_axis',
+    # 'scan_unroll', 'mesh_axis',
     # 'dropout_rng' (its RNG streams do not cross frameworks anyway) and the
     # CLI keys), and 'init_gmm_fused': JAX runs the resolutions'
     # GMM EMs as one loop with the same seeding keys and the same tol stop

@@ -32,9 +32,22 @@ for all lanes either way), and the other layers through `torch.baddbmm`. `stack_
 M `STInterp`s and `lane_params` gives lane i's weights back in the JAX
 layout, so weights cross lane by lane through `from_jax_params` /
 `to_jax_params`.
+
+`ModelSpec.compute_dtype = "bf16"` is the JAX package's bf16 trunk (its
+`trunk` and `_trunk_from_h1`): the activations flow in bfloat16, each
+Linear's w and b are cast at use, LayerNorm normalises a float32 upcast and
+applies its scale and bias in bfloat16, dropout divides by bf16(1 - p), and
+the head takes a float32 upcast and returns float32. Parameters stay
+float32, and so does every kernel: on the fused route the first layer's
+output h1 is float32 and the trunk casts it (JAX `forward_train_fused`); on
+the materialised-phi route phi comes back float32 and the features are cast
+before the first Linear, which then runs in bfloat16 (JAX `forward` ->
+`trunk`). The backward kernels receive float32 cotangents, the gradients
+of those casts.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -69,6 +82,13 @@ class ModelSpec:
     # a ragged-k lane (k_spatial_pad): padded during the fit and stripped for
     # evaluation, it never takes the fused kernels, whose phi has no mask
     padded_lane: bool = False
+    # the trunk's activation dtype, 'f32' or 'bf16' (module docstring);
+    # training, validation and predict all run the trunk in it, as in JAX
+    compute_dtype: str = "f32"
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bf16" else torch.float32
 
     @property
     def k_spatial(self) -> int:
@@ -100,6 +120,34 @@ class ModelSpec:
         return self.use_delta_reparameterization and self.output_dim > 1
 
 
+TRAIN_DTYPES = ("auto", "f32", "bf16")
+# train_dtype='auto' size trigger (JAX st_interp.py:96-106): 'auto' resolves
+# to the bf16 trunk once sum(hidden_dims) reaches this. Measured on an H100
+# 80GB HBM3 at 700 W (PERF.md section 5, the options; `profile_fit.py --lanes
+# ... --train_dtype f32,bf16 --hidden ...`, 12-epoch fits, paired ms a step
+# bf16 / f32): sum 640 (the bench's) wins 7 of 26 pairs over 1-128 lanes;
+# 1280 wins 3 of 9 pairs (M = 1 / 16 / 64); 2560 wins 9 of 16 (M = 1: 1 of 8,
+# 0.99-1.17; M = 16: 3 of 3, 0.93-0.96; M = 64: 5 of 5, 0.82-0.83, where the
+# device is busy 79 % of the step). So 'auto' flips at 2560, the smallest
+# size winning most pairs, as JAX's rule reads a lane batch's pairs. The
+# bf16 trunk's paired CRPS delta at the bench size is within 1 sigma_mean
+# (+0.96, 10 full-length seeds, `ab_paired.py`). The lane-width trigger is
+# batch_engine.AUTO_BF16_LANES.
+AUTO_BF16_HIDDEN_SUM: Optional[int] = 2560
+
+
+def resolve_train_dtype(cfg: ExperimentConfig) -> str:
+    """'f32' or 'bf16' for a config's `train_dtype` by the size trigger; an
+    explicit 'f32' or 'bf16' is kept, anything else raises ValueError."""
+    if cfg.train_dtype not in TRAIN_DTYPES:
+        raise ValueError(f"train_dtype must be one of {TRAIN_DTYPES}, got "
+                         f"{cfg.train_dtype!r}")
+    if cfg.train_dtype != "auto":
+        return cfg.train_dtype
+    return ("bf16" if AUTO_BF16_HIDDEN_SUM is not None
+            and sum(cfg.hidden_dims) >= AUTO_BF16_HIDDEN_SUM else "f32")
+
+
 def spec_from_config(cfg: ExperimentConfig) -> ModelSpec:
     """The model spec of a config. A ragged-k lane (`k_spatial_pad`) sees
     one padded resolution of k_spatial_pad centers, as in JAX; its real
@@ -108,10 +156,8 @@ def spec_from_config(cfg: ExperimentConfig) -> ModelSpec:
     with no hidden layer (no first layer to fuse phi into) and for
     `use_pallas_training` without `use_fused_training` (the order of JAX
     `forward` :388 and `_embed` :226), and the fused route otherwise.
-    Raises NotImplementedError for the bf16 trunk, which the port does not
-    carry."""
-    if cfg.train_dtype == "bf16":
-        raise NotImplementedError("the port trains in float32 only")
+    `train_dtype` resolves by `resolve_train_dtype` (JAX :136-141)."""
+    compute_dtype = resolve_train_dtype(cfg)
     ragged = cfg.k_spatial_pad is not None
     return ModelSpec(
         p=cfg.p_covariates,
@@ -128,6 +174,7 @@ def spec_from_config(cfg: ExperimentConfig) -> ModelSpec:
         phi_route=(ragged or cfg.p_covariates > 0 or not cfg.hidden_dims
                    or (cfg.use_pallas_training and not cfg.use_fused_training)),
         padded_lane=ragged,
+        compute_dtype=compute_dtype,
     )
 
 
@@ -217,7 +264,8 @@ class STInterp(nn.Module):
             if fused:
                 raise ValueError("a model with no hidden layer has no first "
                                  "layer to fuse")
-            return self.head(self.features(coords, t, X))
+            # JAX `trunk` casts the features even with no layer to run
+            return self.head(self.features(coords, t, X).to(self.spec.cdtype))
         h = self.first_layer(coords, t, X, fused)
         return self.head(self.trunk_from_h1(h, train, generator))
 
@@ -244,7 +292,9 @@ class STInterp(nn.Module):
 
     def first_layer(self, coords: torch.Tensor, t: torch.Tensor,
                     X: Optional[torch.Tensor], fused: bool) -> torch.Tensor:
-        """The first layer's pre-norm output h1 (B, H1) on either route."""
+        """The first layer's pre-norm output h1 (B, H1) on either route:
+        float32 on the fused route, the trunk's dtype on the other (module
+        docstring)."""
         spec = self.spec
         lin0 = self.mlp.linear_0
         if fused:
@@ -259,7 +309,9 @@ class STInterp(nn.Module):
                                           lin0.w[:k_s],
                                           spec.spatial_basis_function)
             return h + psi @ lin0.w[k_s:] + lin0.b
-        return self.features(coords, t, X) @ lin0.w + lin0.b
+        cd = spec.cdtype
+        return self.features(coords, t, X).to(cd) @ lin0.w.to(cd) \
+            + lin0.b.to(cd)
 
     def _dropout_masks(self, n: int, generator: Optional[torch.Generator],
                        device: torch.device) -> list:
@@ -276,26 +328,35 @@ class STInterp(nn.Module):
 
     def trunk_from_h1(self, h: torch.Tensor, train: bool,
                       generator: Optional[torch.Generator]) -> torch.Tensor:
-        """Hidden MLP given the first layer's pre-norm output."""
+        """Hidden MLP given the first layer's pre-norm output, in the spec's
+        dtype (JAX `_trunk_from_h1`)."""
         spec = self.spec
+        cd = spec.cdtype
+        h = h.to(cd)
         use_dropout = train and spec.dropout > 0.0
         masks = (self._dropout_masks(h.shape[0], generator, h.device)
                  if use_dropout else None)
         for i, hdim in enumerate(spec.hidden_dims):
             if i > 0:
                 lin = getattr(self.mlp, f"linear_{i}")
-                h = h @ lin.w + lin.b
+                h = h @ lin.w.to(cd) + lin.b.to(cd)
             if spec.layernorm:
                 ln = getattr(self.mlp, f"ln_{i}")
-                h = torch.nn.functional.layer_norm(h, (hdim,), ln.scale,
-                                                   ln.bias, eps=1e-5)
+                if cd == torch.float32:
+                    h = torch.nn.functional.layer_norm(h, (hdim,), ln.scale,
+                                                       ln.bias, eps=1e-5)
+                else:
+                    h = _layer_norm_lowp(h, hdim, ln.scale, ln.bias)
             h = torch.relu(h)
             if use_dropout:
-                h = torch.where(masks[i], h / (1.0 - spec.dropout),
+                h = torch.where(masks[i], h / _keep_divisor(spec),
                                 torch.zeros((), dtype=h.dtype, device=h.device))
         return h
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
+        """float32 predictions; a bf16 trunk's h is upcast first, as JAX's
+        h_bf16 @ w_f32 promotes (JAX `head` :371-377)."""
+        h = h.float()
         if self.spec.delta_head:
             beta = torch.cumsum(self.mlp.delta, dim=0)          # (Q, d+1)
             return beta[None, :, 0] + h @ beta[:, 1:].T
@@ -336,6 +397,28 @@ class STInterp(nn.Module):
                             lambda_group)
         return {"spatial_penalty": sp, "temporal_penalty": tp,
                 "total_penalty": sp + tp}
+
+
+def _layer_norm_lowp(h: torch.Tensor, hdim: int, scale: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm of a bf16 trunk (JAX `trunk`): statistics and the
+    normalisation on a float32 upcast, cast back, then scale and bias cast
+    to the activations' dtype. `scale` and `bias` are (h,) or, for lanes,
+    (M, 1, h)."""
+    hn = torch.nn.functional.layer_norm(h.float(), (hdim,), eps=1e-5)
+    return hn.to(h.dtype) * scale.to(h.dtype) + bias.to(h.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _keep_divisor(spec: ModelSpec):
+    """Dropout's divisor 1 - p in the trunk's dtype, as JAX divides by
+    jnp.asarray(1 - p, cd): bf16(0.9) is 0.8984375, where a Python float
+    would divide a bf16 tensor by a float32 0.9. float32 keeps the Python
+    float. A 0-dim CPU tensor enters a card's op as a scalar argument, with
+    no copy."""
+    if spec.cdtype == torch.float32:
+        return 1.0 - spec.dropout
+    return torch.tensor(1.0 - spec.dropout, dtype=spec.cdtype)
 
 
 def sparsity_block(wb: torch.Tensor, penalty_type: str, lambda_l1: float,
@@ -448,14 +531,21 @@ class STInterpLanes(nn.Module):
     def forward(self, coords: torch.Tensor, t: torch.Tensor,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                X: Optional[torch.Tensor] = None) -> torch.Tensor:
+                X: Optional[torch.Tensor] = None,
+                drop_rows: Optional[Tuple[int, torch.Tensor]] = None
+                ) -> torch.Tensor:
         """yhat: coords (M, B, 2), t (M, B, 1) -> (M, B, output_dim), lane
         i from lane i's weights. `X` (M, B, p) are the covariates of a model
         with p > 0. Dropout (train=True, dropout > 0) draws one
         (M, B, sum(hidden)) uniform block from `generator` for all lanes; a
         model with no hidden layer feeds [X | phi | psi] to the head and
-        draws nothing."""
+        draws nothing. With `drop_rows` = (M_full, rows), the lanes of a
+        narrowed batch (tail compaction), the draw is (M_full, B,
+        sum(hidden)) and lane i keeps row rows[i]: each lane's masks stay
+        those of the full-width batch. The trunk runs in the spec's dtype
+        (module docstring)."""
         spec = self.spec
+        cd = spec.cdtype
         M, B = coords.shape[0], coords.shape[1]
         if M != self.lanes or tuple(t.shape) != (M, B, 1):
             raise ValueError(f"coords {tuple(coords.shape)} / t "
@@ -480,36 +570,56 @@ class STInterpLanes(nn.Module):
                 feats = torch.cat([X, phi, psi], dim=-1)
             else:
                 feats = torch.cat([phi, psi], dim=-1)
-            h = (feats if lin0 is None
-                 else torch.baddbmm(lin0.b[:, None, :], feats, lin0.w))
+            if cd != torch.float32:
+                # JAX `forward` -> `trunk(features.astype(bf16))`: the first
+                # Linear in bf16, product and bias rounded one after the other
+                feats = feats.to(cd)
+                h = (feats if lin0 is None
+                     else torch.bmm(feats, lin0.w.to(cd))
+                     + lin0.b.to(cd)[:, None, :])
+            else:
+                h = (feats if lin0 is None
+                     else torch.baddbmm(lin0.b[:, None, :], feats, lin0.w))
         else:
             h = fused_spatial_first_layer(coords, centers, bandwidths,
                                           lin0.w[:, :k_s],
                                           spec.spatial_basis_function)
             h = h + torch.baddbmm(lin0.b[:, None, :], psi, lin0.w[:, k_s:])
+            h = h.to(cd)          # JAX `_trunk_from_h1`: float32 h1, then cast
 
         use_dropout = train and spec.dropout > 0.0 and bool(spec.hidden_dims)
         if use_dropout:
             if generator is None:
                 raise ValueError("generator required for dropout in train mode")
-            keep = torch.rand((M, B, int(sum(spec.hidden_dims))),
+            draw_m = M if drop_rows is None else int(drop_rows[0])
+            keep = torch.rand((draw_m, B, int(sum(spec.hidden_dims))),
                               generator=generator,
                               device=h.device) < (1.0 - spec.dropout)
+            if drop_rows is not None:
+                keep = keep[drop_rows[1]]
         off = 0
         for i, hdim in enumerate(spec.hidden_dims):
             if i > 0:
                 lin = getattr(self.mlp, f"linear_{i}")
-                h = torch.baddbmm(lin.b[:, None, :], h, lin.w)
+                if cd == torch.float32:
+                    h = torch.baddbmm(lin.b[:, None, :], h, lin.w)
+                else:
+                    h = torch.bmm(h, lin.w.to(cd)) + lin.b.to(cd)[:, None, :]
             if spec.layernorm:
                 ln = getattr(self.mlp, f"ln_{i}")
-                h = torch.nn.functional.layer_norm(h, (hdim,), eps=1e-5)
-                h = h * ln.scale[:, None, :] + ln.bias[:, None, :]
+                if cd == torch.float32:
+                    h = torch.nn.functional.layer_norm(h, (hdim,), eps=1e-5)
+                    h = h * ln.scale[:, None, :] + ln.bias[:, None, :]
+                else:
+                    h = _layer_norm_lowp(h, hdim, ln.scale[:, None, :],
+                                         ln.bias[:, None, :])
             h = torch.relu(h)
             if use_dropout:
                 h = torch.where(keep[..., off:off + hdim],
-                                h / (1.0 - spec.dropout),
+                                h / _keep_divisor(spec),
                                 torch.zeros((), dtype=h.dtype, device=h.device))
             off += hdim
+        h = h.float()             # the head in float32 (JAX `head`)
         if spec.delta_head:
             beta = torch.cumsum(self.mlp.delta, dim=1)          # (M, Q, d+1)
             return (beta[:, None, :, 0]
@@ -577,6 +687,23 @@ def stack_lane_models(models: Sequence[STInterp]) -> STInterpLanes:
         for name, p in lanes.named_parameters():
             p.copy_(torch.stack([d[name].detach() for d in per_lane]))
     return lanes
+
+
+def select_lanes(model: STInterpLanes, idx: torch.Tensor) -> STInterpLanes:
+    """Lanes `idx` (a device index tensor) of `model` as a model of
+    len(idx) lanes, on the same device: parameters and per-lane buffers
+    copied."""
+    host = lambda t: t.detach()[idx].cpu().numpy()
+    mask = model.spatial_k_mask
+    narrow = STInterpLanes(model.spec, host(model.spatial_centers_init),
+                           host(model.spatial_bandwidths_init),
+                           None if mask is None else host(mask))
+    narrow = narrow.to(model.spatial_centers_init.device)
+    with torch.no_grad():
+        for q, p in zip(narrow.parameters(), model.parameters()):
+            q.copy_(p[idx])
+            q.requires_grad_(p.requires_grad)
+    return narrow
 
 
 def lane_tree(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:

@@ -39,6 +39,21 @@ the width this sweep finds best. With `--ragged` the lanes alternate between
 the resolutions [25, 81] and [25, 81, 121], padded to 227 centers: ragged-k
 lanes on the materialised-phi route, whose single fit is the padded lane.
 
+    python3 -m st_dadk_tpu_torch.profile_fit --lanes 1,16,64,128 \
+        --train_dtype f32,bf16 [--packed] [--compaction] \
+        [--hidden 512,512,256] [--out build/profile_modes.json]
+
+The width sweep over the fit's arithmetic options instead: each mode (a
+trunk dtype of `--train_dtype`; `--packed`: `packed_optimizer` on the
+float32 trunk; `--compaction`: two modes at patience COMPACT_PATIENCE,
+'stop' without and 'compaction' with `tail_compaction` at epoch
+COMPACT_EPOCH) runs at every width from the same lanes and initial
+weights: a warm-up of each, then `REPEATS` rounds in which every mode fits
+once in turn, so that each round pairs the modes within a few seconds
+(ms a step and its ratio to the first mode, per round); then every mode is
+profiled at every width (device ms, device activities and busy share a
+step). `--hidden` sets the trunk's widths (the size trigger of `auto`).
+
     python3 -m st_dadk_tpu_torch.profile_fit --init 4,16,128 \
         [--out build/profile_init.json]
 
@@ -70,6 +85,9 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 EPOCHS = 12       # the fit chip_smoke.py runs: the basis trains from epoch 10
 REPEATS = 3
+# the compaction modes of the width sweep: lanes stop after this many epochs
+# without a validation gain, and the batch narrows at this epoch
+COMPACT_PATIENCE, COMPACT_EPOCH = 1, 4
 INIT_LANE_BY_LANE = 4
 INIT_METHODS = ("kmeans_balanced", "random_site", "gmm", "kmeans_exact")
 # a csrc kernel's demangled name: "(anonymous namespace)::bwd_w_kernel(...)",
@@ -147,10 +165,28 @@ def _card() -> str:
 RAGGED_GRID, RAGGED_PAD = ([25, 81], [25, 81, 121]), 227
 
 
-def lanes_sweep(widths, profile_width, out: Path, ragged: bool = False) -> int:
+def sweep_modes(train_dtypes: str, packed: bool, compaction: bool
+                ) -> dict:
+    """{mode: config overrides} of the width sweep (module docstring)."""
+    modes = {dt: {"train_dtype": dt} for dt in train_dtypes.split(",")}
+    if packed:
+        modes["packed"] = {"train_dtype": "f32", "packed_optimizer": True}
+    if compaction:
+        modes["stop"] = {"train_dtype": "f32", "patience": COMPACT_PATIENCE}
+        modes["compaction"] = dict(modes["stop"], tail_compaction=True,
+                                   compaction_epoch=COMPACT_EPOCH)
+    return modes
+
+
+def lanes_sweep(widths, profile_width, out: Path, ragged: bool = False,
+                modes=None, hidden=None, repeats=REPEATS) -> int:
     """The lane engine's width sweep (module docstring). With `ragged`
     the lanes alternate between the resolutions of RAGGED_GRID, padded to
-    RAGGED_PAD centers: the materialised-phi route's lane kernels."""
+    RAGGED_PAD centers: the materialised-phi route's lane kernels. With
+    `modes` ({name: config overrides}) every width runs every mode in
+    paired rounds and profiles each; `hidden` sets the trunk's widths."""
+    if modes is not None:
+        return modes_sweep(widths, out, ragged, modes, hidden, repeats)
     from torch.profiler import ProfilerActivity, profile
 
     from st_dadk_tpu_torch.bench_workload import bench_workload
@@ -289,6 +325,116 @@ def lanes_sweep(widths, profile_width, out: Path, ragged: bool = False) -> int:
     return 0
 
 
+def modes_sweep(widths, out: Path, ragged: bool, modes: dict,
+                hidden=None, repeats=REPEATS) -> int:
+    """The width sweep over the fit's arithmetic options (module
+    docstring)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from st_dadk_tpu_torch.bench_workload import bench_workload
+    from st_dadk_tpu_torch.config import ExperimentConfig
+    from st_dadk_tpu_torch.dataio.synthetic import bench_data_file
+    from st_dadk_tpu_torch.models.st_interp import (resolve_train_dtype,
+                                                    stack_lane_models)
+    from st_dadk_tpu_torch.train import batch_engine as be
+    from st_dadk_tpu_torch.train import loop
+
+    card = _card()
+    print(f"card: {card}", flush=True)
+    over = {} if hidden is None else {"hidden_dims": list(hidden)}
+    cfg = ExperimentConfig.from_dict(bench_workload(
+        data_file=str(bench_data_file()), epochs=EPOCHS,
+        n_experiments=max(widths), train_dtype="f32", **over))
+    lane_cfgs = [cfg.replace(k_spatial_centers=RAGGED_GRID[i % 2],
+                             k_spatial_pad=RAGGED_PAD) if ragged else cfg
+                 for i in range(max(widths))]
+    cfg = lane_cfgs[0]
+    t0 = time.perf_counter()
+    prep = be._prepare_job_batch(
+        [(c, i + 1, REPO / "build" / "profile_modes" / str(i + 1))
+         for i, c in enumerate(lane_cfgs)], device="cuda")
+    setups = prep["setups"]
+    be._init_lane_carries(cfg, setups)
+    torch.cuda.synchronize()
+    print(f"set up {len(setups)} lanes (hidden {list(cfg.hidden_dims)}) in "
+          f"{time.perf_counter() - t0:.1f} s; modes: {modes}", flush=True)
+
+    def lane_fit(m, name):
+        """One fit of the first m lanes in mode `name`: (wall s, ms a step
+        in epochs 2 onwards of those run, steps an epoch, epochs run)."""
+        cfg_m = cfg.replace(**modes[name])
+        spec = dataclasses.replace(setups[0].spec,
+                                   compute_dtype=resolve_train_dtype(cfg_m))
+        stacked = be._stack_lane_host(cfg_m, setups[:m], prep["device"])
+        model = stack_lane_models([s.model for s in setups[:m]])
+        model.spec = spec
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = loop.fit_lanes(cfg_m, spec, model, stacked["data"],
+                             stacked["lr_steps"], stacked["lr_recorded"],
+                             [s.experiment_seed for s in setups[:m]],
+                             verbose=name == "compaction")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tm = res[0].timings
+        B, ran = int(tm["steps_per_epoch_batch"]), int(tm["epochs_run_batch"])
+        later = 1e3 * ((tm["epochs_seconds"] - tm["first_epoch_seconds"])
+                       / (max(ran - 1, 1) * B))
+        return wall, later, B, ran, [r.n_epochs_run for r in res]
+
+    names = list(modes)
+    rows = []
+    for m in widths:
+        for name in names:
+            lane_fit(m, name)                                  # warm-up
+        rounds = [{name: lane_fit(m, name) for name in names}
+                  for _ in range(repeats)]
+        row = {"lanes": m, "modes": {}}
+        base = names[0]
+        for name in names:
+            ms = [r[name][1] for r in rounds]
+            ratio = [r[name][1] / r[base][1] for r in rounds]
+            row["modes"][name] = {
+                "ms_per_step": statistics.median(ms), "ms_per_step_runs": ms,
+                "ratio_to_" + base + "_runs": ratio,
+                "pairs_below_1": sum(x < 1.0 for x in ratio),
+                "fit_wall_s": statistics.median(r[name][0] for r in rounds),
+                "epochs_run": rounds[0][name][3],
+                "lane_stop_epochs": rounds[0][name][4]}
+            print(f"M={m:3d} {name:>10s}: {statistics.median(ms):8.3f} ms a "
+                  f"step (runs {', '.join(f'{x:.3f}' for x in ms)}; / {base} "
+                  f"{', '.join(f'{x:.4f}' for x in ratio)}), epochs run "
+                  f"{rounds[0][name][3]}", flush=True)
+        for name in names:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall, _, B, ran, _ = lane_fit(m, name)
+            steps = ran * B
+            d = _device_profile(prof, steps)
+            row["modes"][name]["profiled"] = {
+                "wall_s": wall,
+                "device_activities_per_step": d["activities"] / steps,
+                "device_ms_per_step": d["device_ms"] / steps,
+                "busy_share": d["busy_ms"] / (1e3 * wall),
+                "port_kernels_ms_per_step": d["ours"]}
+            p = row["modes"][name]["profiled"]
+            print(f"M={m:3d} {name:>10s} profiled: "
+                  f"{p['device_activities_per_step']:.1f} device activities "
+                  f"a step incl. validation, {p['device_ms_per_step']:.4f} ms "
+                  f"device time a step, busy share {p['busy_share']:.4f}",
+                  flush=True)
+        rows.append(row)
+    report = {"card": card, "epochs": EPOCHS, "hidden_dims":
+              list(cfg.hidden_dims), "ragged": ragged, "modes": modes,
+              "widths": rows}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    print(f"wrote {out}", flush=True)
+    return 0
+
+
 def init_sweep(widths, out: Path) -> int:
     """Seconds a lane of each init method, batched and lane by lane, peak
     memory a batch, and the balanced k-means' device activities (module
@@ -397,6 +543,19 @@ def main(argv=None) -> int:
     ap.add_argument("--init", default=None,
                     help="comma-separated lane widths: time the spatial "
                          "init methods instead of a fit")
+    ap.add_argument("--train_dtype", default="f32",
+                    help="comma-separated trunk dtypes (f32, bf16, auto); "
+                         "one: the fit's, several (with --lanes): modes")
+    ap.add_argument("--packed", action="store_true",
+                    help="packed_optimizer: a mode of its own with --lanes "
+                         "and another mode, else the fit's")
+    ap.add_argument("--compaction", action="store_true",
+                    help="with --lanes: the 'stop' and 'compaction' modes")
+    ap.add_argument("--repeats", type=int, default=REPEATS,
+                    help="with the modes of --lanes: paired rounds a width")
+    ap.add_argument("--hidden", default=None,
+                    help="comma-separated hidden widths (default: the "
+                         "bench's 256,256,128)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fit: no CUDA device", file=sys.stderr)
@@ -406,11 +565,21 @@ def main(argv=None) -> int:
     if args.init:
         return init_sweep([int(x) for x in args.init.split(",")],
                           args.out or REPO / "build" / "profile_init.json")
+    hidden = (None if args.hidden is None
+              else [int(x) for x in args.hidden.split(",")])
+    use_modes = (args.train_dtype != "f32" or args.packed or args.compaction
+                 or hidden is not None)
     if args.lanes:
         return lanes_sweep([int(x) for x in args.lanes.split(",")],
                            args.profile_lanes,
                            args.out or REPO / "build" / "profile_lanes.json",
-                           ragged=args.ragged)
+                           ragged=args.ragged, hidden=hidden,
+                           repeats=args.repeats,
+                           modes=(sweep_modes(args.train_dtype, args.packed,
+                                              args.compaction)
+                                  if use_modes else None))
+    if "," in args.train_dtype or args.compaction:
+        ap.error("several trunk dtypes and --compaction need --lanes")
     args.out = args.out or REPO / "build" / "profile_fit.json"
 
     from torch.profiler import ProfilerActivity, profile
@@ -424,7 +593,9 @@ def main(argv=None) -> int:
     card = _card()
     print(f"card: {card}", flush=True)
     cfg = ExperimentConfig.from_dict(bench_workload(
-        data_file=str(bench_data_file()), epochs=EPOCHS))
+        data_file=str(bench_data_file()), epochs=EPOCHS,
+        train_dtype=args.train_dtype, packed_optimizer=args.packed,
+        **({} if hidden is None else {"hidden_dims": hidden})))
     setup = ExperimentSetup(cfg, 1, "cuda")
     init_state = copy.deepcopy(setup.model.state_dict())
     seed = setup.experiment_seed

@@ -43,11 +43,15 @@ batch of several taus takes each lane's tau as lane data; then each
 experiment's aggregated `results.json` comes from the single path's reload
 (`aggregate_per_tau`).
 
+`train_dtype: auto` resolves a batch's trunk dtype by its lane width as
+well as by the model's size (`_apply_auto_train_dtype`, JAX :389-414, at
+`AUTO_BF16_LANES`); `tail_compaction` narrows a batch to its active lanes
+once (`loop.fit_lanes`, JAX :906-1030).
+
 Not carried, raising NotImplementedError where a caller asks for it: `mesh`
-arguments. Left out without a knob of its own: tail compaction, packed
-transfers, the bf16 flip past a lane count, the streaming pod path and the
-on-device metrics program; the knobs that select them stay accepted and
-ignored (`config.py`).
+arguments. Left out without a knob of its own: packed transfers, the
+streaming pod path and the on-device metrics program; the knobs that select
+them stay accepted and ignored (`config.py`).
 """
 from __future__ import annotations
 
@@ -87,6 +91,44 @@ Job = Tuple[ExperimentConfig, int, Path]   # (config, experiment id, output dir)
 # batch's dense predict at that width and records its peak memory. Override
 # per config with extra['lanes_per_device'].
 LANES_PER_DEVICE = 128
+
+# train_dtype='auto' resolves to the bf16 trunk once a batch runs wider than
+# this many lanes a device (JAX batch_engine.py:370-386), or never where it
+# is None, as here: at the bench model's size no width is followed by wider
+# ones that all win most of their pairs on an H100 80GB HBM3 at 700 W
+# (PERF.md section 5, the options; `profile_fit.py --lanes 1,16,64,128
+# --train_dtype f32,bf16`, paired ms a step bf16 / f32 below 1: M = 1 in 0
+# of 3 pairs, 16 in 2 of 3, 64 in 2 of 10, 128 in 3 of 10). bf16 adds a
+# cast to every Linear and LayerNorm of a step that the host bounds; wide
+# models take the size trigger (st_interp.AUTO_BF16_HIDDEN_SUM).
+AUTO_BF16_LANES: Optional[int] = None
+
+
+def _padded_lanes_per_device(M: int, n_dev: int,
+                             lane_width: Optional[int]) -> int:
+    """Lane width a device of a batch's program (JAX :389-398): the JAX
+    engine pads a tail batch to the stream's width; the port runs a tail
+    batch at its own width (`lane_width` None) on one device."""
+    M_pad = M + ((-M) % n_dev)
+    if (lane_width is not None and M_pad < lane_width
+            and lane_width % n_dev == 0):
+        M_pad = lane_width
+    return M_pad // n_dev
+
+
+def _apply_auto_train_dtype(cfg: ExperimentConfig,
+                            setups: Sequence[ExperimentSetup],
+                            lanes_per_device: int) -> None:
+    """Resolve train_dtype='auto' for one batch (JAX :401-414): every
+    lane's spec takes the bf16 trunk when the batch runs wider than
+    AUTO_BF16_LANES lanes a device. An explicit 'f32' or 'bf16' is never
+    overridden. The models are built from the specs after this."""
+    if (cfg.train_dtype != "auto" or AUTO_BF16_LANES is None
+            or lanes_per_device <= AUTO_BF16_LANES):
+        return
+    for s in setups:
+        if s.spec.compute_dtype != "bf16":
+            s.spec = dataclasses.replace(s.spec, compute_dtype="bf16")
 
 
 def run_experiment_batch(cfg: ExperimentConfig, exp_ids: List[int],
@@ -229,7 +271,7 @@ def _refuse_mesh(mesh: Any) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "a mesh of devices needs the parallel package on "
-            "torch.distributed (ROADMAP Queue 1 item 7)")
+            "torch.distributed (ROADMAP Queue 1 item 1)")
 
 
 def run_job_batches(batches: Sequence[Sequence[Job]],
@@ -320,6 +362,8 @@ def _prepare_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
     shapes = {(s.T, s.S) for s in setups}
     if len(shapes) != 1:
         raise ValueError(f"run_job_batch: dataset shapes differ: {shapes}")
+    _apply_auto_train_dtype(cfg, setups,
+                            _padded_lanes_per_device(len(setups), 1, None))
     stacked = _stack_lane_host(cfg, setups, torch.device("cpu"))
     return dict(cfg=cfg, setups=setups, stacked=stacked, device=dev,
                 t_prep=time.time() - t_start)

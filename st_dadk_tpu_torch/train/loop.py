@@ -42,6 +42,13 @@ one draw, so a lane's dropout stream differs from its sequential fit's: a
 lane and its single fit agree closely only at dropout 0 under
 `shuffle: none`, and statistically otherwise.
 
+`packed_optimizer: true` runs the optimizer step, the EMA and the best-EMA
+copy on one flat buffer a parameter group (`train/packing.py`), in `fit`
+and `fit_lanes`: the parameters and their gradients are views into the
+buffers, and the results are bitwise the per-leaf step's but for the clip's
+norm, which sums in another order. `tail_compaction: true` narrows a lane
+batch once to its active lanes (`fit_lanes`, JAX batch_engine.py:906-1030).
+
 `regression_type: quantile` is one model of one tau (`current_quantile`)
 trained on the check loss, which also drives validation and early
 stopping. Lanes of one tau take it as a float, as the single fit does;
@@ -65,7 +72,7 @@ from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.dataio.arrays import PointSet, pad_pointset
 from st_dadk_tpu_torch.models.st_interp import (ModelSpec, STInterp,
                                                 STInterpLanes, lane_tree,
-                                                load_jax_params,
+                                                load_jax_params, select_lanes,
                                                 to_jax_params)
 from st_dadk_tpu_torch.ops.losses import (mse_loss, mse_loss_lanes,
                                           multi_quantile_loss,
@@ -81,6 +88,7 @@ from st_dadk_tpu_torch.train.optimizer import (AdamW, AdamWLanes,
                                                clip_by_global_norm_lanes_,
                                                ema_update, ema_update_lanes,
                                                gradient_damping)
+from st_dadk_tpu_torch.train.packing import PackSpec
 
 
 @dataclass(frozen=True)
@@ -236,21 +244,97 @@ def loss_from_preds(spec: LoopSpec, model: STInterp, preds: torch.Tensor,
     return loss
 
 
-def _transform_grads(spec: LoopSpec, model: STInterp) -> None:
-    """In place on `.grad`: damping on centers, then per-group clipping."""
-    m = spec.model
-    if m.spatial_learnable and spec.gradient_damping:
+def _damp_centers(spec: LoopSpec, model: STInterp | STInterpLanes,
+                  packed: bool) -> None:
+    """Center-gradient damping, in place: a packed fit's centers gradient
+    is a view of its group's buffer, which must keep it."""
+    if spec.model.spatial_learnable and spec.gradient_damping:
         c = model.basis.centers
-        c.grad = gradient_damping(c.grad, c, model.spatial_centers_init,
-                                  spec.damping_threshold, spec.damping_strength)
-    if spec.grad_clip > 0:
-        mlp = [p.grad for p in model.mlp.parameters()]
-        if m.spatial_learnable:
-            clip_by_global_norm_([p.grad for p in model.basis.parameters()],
-                                 spec.grad_clip * 0.1)
-            clip_by_global_norm_(mlp, spec.grad_clip)
+        damped = gradient_damping(c.grad, c, model.spatial_centers_init,
+                                  spec.damping_threshold,
+                                  spec.damping_strength)
+        if packed:
+            c.grad.copy_(damped)
         else:
-            clip_by_global_norm_(mlp, spec.grad_clip)
+            c.grad = damped
+
+
+def _param_groups(model: STInterp | STInterpLanes
+                  ) -> Dict[str, List[torch.Tensor]]:
+    """The optimizer's groups of an unpacked fit: its parameters."""
+    groups = {"mlp": list(model.mlp.parameters())}
+    if model.spec.spatial_learnable:
+        groups["basis"] = list(model.basis.parameters())
+    return groups
+
+
+def _transform_grads(spec: LoopSpec, model: STInterp,
+                     groups: Optional[Dict[str, List[torch.Tensor]]] = None,
+                     packed: bool = False) -> None:
+    """In place on `.grad`: damping on centers, then per-group clipping of
+    the optimizer's `groups` (default: the parameters; a packed fit's two
+    buffers)."""
+    groups = _param_groups(model) if groups is None else groups
+    _damp_centers(spec, model, packed)
+    if spec.grad_clip > 0:
+        if "basis" in groups:
+            clip_by_global_norm_([p.grad for p in groups["basis"]],
+                                 spec.grad_clip * 0.1)
+        clip_by_global_norm_([p.grad for p in groups["mlp"]], spec.grad_clip)
+
+
+def _optimizer_tensors(model: STInterp | STInterpLanes,
+                       ema_model: STInterp | STInterpLanes, packed: bool
+                       ) -> Tuple[Dict[str, List[torch.Tensor]],
+                                  List[torch.Tensor], List[torch.Tensor],
+                                  Optional[PackSpec]]:
+    """(the optimizer's groups, the tensors it updates, the EMA tensors in
+    the same order, the packing or None). Unpacked: the parameters. Packed
+    (`train/packing.py`): each group's flat buffer, whose `.grad` is the
+    group's gradient buffer; the parameters of `model` and `ema_model`
+    become views into them."""
+    for p in ema_model.parameters():
+        p.requires_grad_(False)
+    if packed:
+        layout = PackSpec.for_model(model)
+        bufs = layout.attach(model)
+        ema = layout.attach(ema_model, with_grads=False)
+        return ({g: [bufs[g]] for g in layout.groups},
+                [bufs[g] for g in layout.groups],
+                [ema[g] for g in layout.groups], layout)
+    return (_param_groups(model), list(model.parameters()),
+            list(ema_model.parameters()), None)
+
+
+def _zero_grads(tensors: Sequence[torch.Tensor],
+                layout: Optional[PackSpec]) -> None:
+    """Reset the gradients before a backward: unpacked, to None; packed,
+    the gradient buffers to 0 in place (module docstring)."""
+    for t in tensors:
+        if layout is None:
+            t.grad = None
+        else:
+            t.grad.zero_()
+
+
+def _check_grad_views(model: torch.nn.Module, tensors: Sequence[torch.Tensor],
+                      layout: Optional[PackSpec]) -> None:
+    """After a packed fit's first backward: every parameter's gradient is
+    still a view of its group's gradient buffer."""
+    if layout is not None and not layout.grads_are_views(
+            model, dict(zip(layout.groups, (t.grad for t in tensors)))):
+        raise RuntimeError("a parameter's gradient left the packed "
+                           "gradient buffer")
+
+
+def _leaves(layout: Optional[PackSpec], tensors: Sequence[torch.Tensor]
+            ) -> List[torch.Tensor]:
+    """Per-parameter tensors (in the model's parameter order) of tensors
+    parallel to the optimizer's: themselves unpacked, views of the group
+    buffers packed."""
+    if layout is None:
+        return list(tensors)
+    return list(layout.views(dict(zip(layout.groups, tensors))).values())
 
 
 # ---------------------------------------------------------------------------
@@ -465,17 +549,19 @@ def load_fit_checkpoint(path) -> Tuple[Dict[str, Any], int, list]:
 
 
 def _fit_carry(model: STInterp, opt: AdamW, ema_model: STInterp,
+               moments: Tuple[List[torch.Tensor], List[torch.Tensor]],
                best_ema: Sequence[torch.Tensor], book: Dict[str, Any],
                gen: torch.Generator) -> Dict[str, Any]:
-    """The single fit's loop state as a JAX-layout carry of numpy arrays."""
+    """The single fit's loop state as a JAX-layout carry of numpy arrays;
+    `moments` and `best_ema` hold a tensor a parameter (`_leaves`), so a
+    packed fit's checkpoint has the structured layout too."""
     names = [n for n, _ in model.named_parameters()]
     host = lambda ts: lane_tree({n: t.detach().cpu().numpy().copy()
                                  for n, t in zip(names, ts)})
     params = [p for _, p in model.named_parameters()]
     return {
         "params": host(params),
-        "opt_state": {"m": host([opt.m[id(p)] for p in params]),
-                      "v": host([opt.v[id(p)] for p in params]),
+        "opt_state": {"m": host(moments[0]), "v": host(moments[1]),
                       "step": np.asarray(opt.step_count, np.int32)},
         "ema": to_jax_params(ema_model),
         "best_ema": host(best_ema),
@@ -492,19 +578,22 @@ def _fit_carry(model: STInterp, opt: AdamW, ema_model: STInterp,
 
 
 def _restore_fit_carry(carry: Dict[str, Any], model: STInterp, opt: AdamW,
-                       ema_model: STInterp, best_ema: Sequence[torch.Tensor],
+                       ema_model: STInterp,
+                       moments: Tuple[List[torch.Tensor], List[torch.Tensor]],
+                       best_ema: Sequence[torch.Tensor],
                        gen: torch.Generator) -> Dict[str, Any]:
-    """Load `carry` into the fit's objects in place; its early-stop
-    bookkeeping as a dict."""
+    """Load `carry` into the fit's objects in place (through the views of
+    a packed fit); its early-stop bookkeeping as a dict."""
     load_jax_params(model, carry["params"])
     load_jax_params(ema_model, carry["ema"])
     m, v = _flatten_tree(carry["opt_state"]["m"]), \
         _flatten_tree(carry["opt_state"]["v"])
     best = _flatten_tree(carry["best_ema"])
     with torch.no_grad():
-        for (name, p), dst in zip(model.named_parameters(), best_ema):
-            opt.m[id(p)].copy_(torch.as_tensor(m[name]))
-            opt.v[id(p)].copy_(torch.as_tensor(v[name]))
+        for (name, _), dm, dv, dst in zip(model.named_parameters(),
+                                          moments[0], moments[1], best_ema):
+            dm.copy_(torch.as_tensor(m[name]))
+            dv.copy_(torch.as_tensor(v[name]))
             dst.copy_(torch.as_tensor(best[name]))
     opt.step_count = int(carry["opt_state"]["step"])
     gen.set_state(torch.as_tensor(carry["generator_state"], dtype=torch.uint8))
@@ -529,7 +618,8 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
     `epochs_chunk` epochs, at an early stop and at the session's end;
     `resume=True` continues from it, bit for bit the uninterrupted fit on
     the same device. `session_epochs` caps the epochs this call runs (JAX
-    loop.py:1192-1290)."""
+    loop.py:1192-1290). A checkpoint has the structured layout whether
+    the fit is packed or not, so either resumes the other."""
     from st_dadk_tpu_torch.train.checkpoint import (checkpoint_exists,
                                                     load_checkpoint,
                                                     save_checkpoint)
@@ -542,16 +632,14 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
     lr_mlp, lr_basis, lr_recorded = build_lr_tables(cfg, B)
     gen = torch.Generator(device=device).manual_seed(int(seed))
 
-    params = list(model.parameters())
-    groups = {"mlp": list(model.mlp.parameters())}
-    if spec_model.spatial_learnable:
-        groups["basis"] = list(model.basis.parameters())
-    opt = AdamW(groups, spec.weight_decay)
     ema_model = copy.deepcopy(model)
-    ema = list(ema_model.parameters())
+    groups, params, ema, layout = _optimizer_tensors(
+        model, ema_model, bool(cfg.packed_optimizer))
+    opt = AdamW(groups, spec.weight_decay)
     best_ema = [p.detach().clone() for p in ema]
-    for p in ema:
-        p.requires_grad_(False)
+    moments = (_leaves(layout, [opt.m[id(p)] for p in params]),
+               _leaves(layout, [opt.v[id(p)] for p in params]))
+    best_leaves = _leaves(layout, best_ema)
 
     book = {"best_val": math.inf, "sig_best": math.inf, "has_best": False,
             "patience_ctr": 0, "stopped": False, "stop_epoch": 0}
@@ -563,8 +651,8 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
     if checkpoint_path is not None and checkpoint_exists(checkpoint_path) \
             and resume:
         carry, epochs_done, hists = load_checkpoint(checkpoint_path)
-        book = _restore_fit_carry(carry, model, opt, ema_model, best_ema,
-                                  gen)
+        book = _restore_fit_carry(carry, model, opt, ema_model, moments,
+                                  best_leaves, gen)
         for h in hists:
             for k in hist:
                 hist[k] = [float(x) for x in h.get(k, [])]
@@ -587,8 +675,8 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
                         if centers_history else np.zeros((0, 0, 2),
                                                          np.float32))
         save_checkpoint(checkpoint_path,
-                        _fit_carry(model, opt, ema_model, best_ema, book,
-                                   gen), epochs_done, [h])
+                        _fit_carry(model, opt, ema_model, moments,
+                                   best_leaves, book, gen), epochs_done, [h])
 
     t_steps = t_val = t_first = t_first_epoch = 0.0
     cap = data.tr_coords.shape[0]
@@ -605,13 +693,14 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
         loss_sum, nan_epoch = 0.0, False
         for b in range(B):
             xb = batches[b]
-            for p in params:
-                p.grad = None
+            _zero_grads(params, layout)
             loss = training_loss(spec, model, xb[:, 0:2], xb[:, 2:3],
                                  xb[:, 3:4], xb[:, 4], train=True,
                                  generator=gen)
             loss.backward()
-            _transform_grads(spec, model)
+            if epoch == session_start and b == 0:
+                _check_grad_views(model, params, layout)
+            _transform_grads(spec, model, groups, layout is not None)
             s = epoch * B + b
             opt.step({"mlp": float(lr_mlp[s]), "basis": float(lr_basis[s])})
             ema_update(ema, params, data.ema_decay)
@@ -854,19 +943,16 @@ def lane_losses_from_preds(spec: LoopSpec, model: STInterpLanes,
     return loss
 
 
-def _transform_grads_lanes(spec: LoopSpec, model: STInterpLanes) -> None:
+def _transform_grads_lanes(spec: LoopSpec, model: STInterpLanes,
+                           groups: Dict[str, List[torch.Tensor]],
+                           packed: bool = False) -> None:
     """`_transform_grads` with each lane's own clipping norms."""
-    m = spec.model
-    if m.spatial_learnable and spec.gradient_damping:
-        c = model.basis.centers
-        c.grad = gradient_damping(c.grad, c, model.spatial_centers_init,
-                                  spec.damping_threshold, spec.damping_strength)
+    _damp_centers(spec, model, packed)
     if spec.grad_clip > 0:
-        if m.spatial_learnable:
-            clip_by_global_norm_lanes_(
-                [p.grad for p in model.basis.parameters()],
-                spec.grad_clip * 0.1)
-        clip_by_global_norm_lanes_([p.grad for p in model.mlp.parameters()],
+        if "basis" in groups:
+            clip_by_global_norm_lanes_([p.grad for p in groups["basis"]],
+                                       spec.grad_clip * 0.1)
+        clip_by_global_norm_lanes_([p.grad for p in groups["mlp"]],
                                    spec.grad_clip)
 
 
@@ -898,6 +984,54 @@ def _validate_lanes(spec: LoopSpec, ema: STInterpLanes, data: LaneData,
             torch.sqrt(se / torch.clamp(cnt, min=1.0)))
 
 
+class _LaneRun(NamedTuple):
+    """The state of a lane fit that has a lane dimension and is not
+    bookkeeping: the model and its EMA copy, the optimizer, the tensors it
+    updates, the EMA and best-EMA tensors in the same order, the packing
+    (None unpacked)."""
+    model: STInterpLanes
+    ema_model: STInterpLanes
+    opt: AdamWLanes
+    groups: Dict[str, List[torch.Tensor]]
+    params: List[torch.Tensor]
+    ema: List[torch.Tensor]
+    best: List[torch.Tensor]
+    layout: Optional[PackSpec]
+
+
+def _lane_run(model: STInterpLanes, ema_model: STInterpLanes, packed: bool,
+              weight_decay: float,
+              best: Optional[Sequence[torch.Tensor]] = None,
+              opt: Optional[AdamWLanes] = None,
+              idx: Optional[torch.Tensor] = None) -> _LaneRun:
+    """A fresh lane run of `model`, or, with `opt` and `idx`, the run of
+    lanes `idx` of another (tail compaction): `model` and `ema_model` are
+    then the narrowed models, `best` and the optimizer's state are
+    gathered."""
+    groups, params, ema, layout = _optimizer_tensors(model, ema_model, packed)
+    if opt is None:
+        opt = AdamWLanes(groups, weight_decay)
+        best = [p.detach().clone() for p in ema]
+    else:
+        opt = opt.narrowed(groups, idx)
+        best = [b[idx] for b in best]
+    return _LaneRun(model, ema_model, opt, groups, params, ema, best, layout)
+
+
+def _compaction_width(stopped: np.ndarray) -> Optional[np.ndarray]:
+    """The lanes of a narrowed batch (JAX batch_engine.py:946-965, one
+    device), or None where the batch does not narrow: the active lanes,
+    padded with distinct stopped ones to the next multiple of
+    q = max(M // 4, 4) lanes; it narrows only to a width below M."""
+    M = stopped.shape[0]
+    act = np.flatnonzero(~stopped)
+    q = max(M // 4, 4)
+    W = -(-max(len(act), 1) // q) * q
+    if len(act) == 0 or W >= M:
+        return None
+    return np.concatenate([act, np.flatnonzero(stopped)[:W - len(act)]])
+
+
 def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
               model: STInterpLanes, data: LaneData, lr_steps: np.ndarray,
               lr_recorded: Sequence[np.ndarray], seeds: Sequence[int],
@@ -921,7 +1055,18 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
     validation and bookkeeping; the card is waited for once an epoch).
     `taus[i]` is lane i's tau of a quantile fit (default: the config's):
     one tau for all lanes is a float of the loss, as in the single fit;
-    several become lane data (JAX batch_engine.py:808-836)."""
+    several become lane data (JAX batch_engine.py:808-836).
+
+    `packed_optimizer` runs the step on two flat group buffers
+    (`train/packing.py`). `tail_compaction` (JAX batch_engine.py:906-1030)
+    tries at each multiple of `compaction_epoch` below `epochs`, until it
+    narrows once, to gather the active lanes, padded with stopped ones
+    (`_compaction_width`), into a narrower batch: their parameters,
+    optimizer state, EMA and best EMA, stop book, LR tables, data, shuffle
+    generators and index rows. The dropout draw stays full-width and each
+    lane takes its own row, so every lane's masks, and so its results, are
+    those of the full-width run. After the last epoch the narrow state is
+    scattered back into the full batch, whose stopped lanes were frozen."""
     device = data.packed_tr.device
     M, cap = data.packed_tr.shape[0], data.packed_tr.shape[1]
     bs, B = data.batch_size, data.B_shared
@@ -944,33 +1089,30 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
             tau_lanes = torch.tensor([float(q) for q in taus], **f32)
     lr_t = torch.as_tensor(np.ascontiguousarray(
         np.transpose(lr_steps, (1, 2, 0, 3)), np.float32), device=device)
-    n_batches = torch.tensor(data.n_batches, dtype=torch.int32, device=device)
-    n_batches_f = torch.clamp(n_batches.to(torch.float32), min=1.0)
-    in_lane = (torch.arange(B, device=device)[:, None]
-               < n_batches[None, :])                              # (B, M)
-    decay = torch.tensor(data.ema_decay, **f32)
-    one_minus_decay = torch.tensor([np.float32(1.0 - d)
-                                    for d in data.ema_decay], **f32)
-
-    params = list(model.parameters())
-    groups = {"mlp": list(model.mlp.parameters())}
-    if spec_model.spatial_learnable:
-        groups["basis"] = list(model.basis.parameters())
-    else:
+    if not spec_model.spatial_learnable:
         lr_t = lr_t[..., :1]
-    opt = AdamWLanes(groups, spec.weight_decay)
-    ema_model = copy.deepcopy(model)
-    ema = list(ema_model.parameters())
-    for p in ema:
-        p.requires_grad_(False)
-    best_ema = [p.detach().clone() for p in ema]
-
+    n_batches = torch.tensor(data.n_batches, dtype=torch.int32, device=device)
     inf = torch.full((M,), math.inf, **f32)
-    best_val, sig_best = inf.clone(), inf.clone()
-    has_best = torch.zeros((M,), dtype=torch.bool, device=device)
-    stopped = has_best.clone()
-    patience_ctr = torch.zeros((M,), dtype=torch.int32, device=device)
-    stop_epoch = patience_ctr.clone()
+    # every per-lane tensor of the loop, lane dimension first (the in_lane
+    # mask (M, B) is transposed at use): tail compaction gathers them all
+    book = dict(
+        n_batches_f=torch.clamp(n_batches.to(torch.float32), min=1.0),
+        in_lane=(torch.arange(B, device=device)[None, :]
+                 < n_batches[:, None]),                           # (M, B)
+        decay=torch.tensor(data.ema_decay, **f32),
+        one_minus_decay=torch.tensor([np.float32(1.0 - d)
+                                      for d in data.ema_decay], **f32),
+        best_val=inf.clone(), sig_best=inf.clone(),
+        has_best=torch.zeros((M,), dtype=torch.bool, device=device),
+        stopped=torch.zeros((M,), dtype=torch.bool, device=device),
+        patience_ctr=torch.zeros((M,), dtype=torch.int32, device=device),
+        stop_epoch=torch.zeros((M,), dtype=torch.int32, device=device),
+        idx=(torch.arange(B * bs, device=device) % cap).repeat(M, 1))
+    if tau_lanes is not None:
+        book["tau"] = tau_lanes
+    packed = bool(cfg.packed_optimizer)
+    run = _lane_run(model, copy.deepcopy(model), packed, spec.weight_decay)
+    full = run
     nan = torch.full((M,), math.nan, **f32)
     hist = {k: torch.full((E, M), math.nan, **f32)
             for k in ("train_loss", "val_loss", "val_rmse", "center_shift")}
@@ -980,22 +1122,31 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
     lane_gens = [torch.Generator(device=device).manual_seed(int(sd))
                  for sd in seeds]
     drop_gen = torch.Generator(device=device).manual_seed(int(seeds[0]))
-    idx = (torch.arange(B * bs, device=device) % cap).repeat(M, 1)  # (M, B bs)
-    lane_ar = torch.arange(M, device=device)[:, None]
+    compact = (bool(cfg.tail_compaction)
+               and 0 < int(cfg.compaction_epoch) < E and M >= 2)
+    # the narrowed batch: lanes of the full batch (device and host), or
+    # None at full width
+    lane_idx, lane_idx_h = None, None
+    lane_data = data
+    views_checked = False
 
     def epoch_batches() -> Tuple[torch.Tensor, ...]:
         """The epoch's minibatches, step-major and contiguous: coords
-        (B, M, bs, 2), t and y (B, M, bs, 1), w (B, M, bs)."""
-        order = idx
+        (B, W, bs, 2), t and y (B, W, bs, 1), w (B, W, bs)."""
+        order = book["idx"]
+        W = order.shape[0]
         if hashed:                    # cap == B * bs: every lane is uniform
             order = hash_permutation_any(torch.stack(
                 [hash_multipliers(cap, g, device) for g in lane_gens]), cap)
         elif spec.shuffle != "none":
-            shuffle_lane_indices_(idx, data.n_batches, bs, lane_gens)
-        packed = data.packed_tr[lane_ar, order].reshape(M, B, bs, 5)
-        packed = packed.transpose(0, 1)
-        return (packed[..., 0:2].contiguous(), packed[..., 2:3].contiguous(),
-                packed[..., 3:4].contiguous(), packed[..., 4].contiguous())
+            shuffle_lane_indices_(book["idx"], lane_data.n_batches, bs,
+                                  lane_gens)
+        lane_ar = torch.arange(W, device=device)[:, None]
+        packed_b = lane_data.packed_tr[lane_ar, order].reshape(W, B, bs, 5)
+        packed_b = packed_b.transpose(0, 1)
+        return (packed_b[..., 0:2].contiguous(),
+                packed_b[..., 2:3].contiguous(),
+                packed_b[..., 3:4].contiguous(), packed_b[..., 4].contiguous())
 
     t_first = 0.0
     epochs_done = 0
@@ -1003,36 +1154,74 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
     t_loop = time.perf_counter()
     for epoch in range(E):
         t0 = time.perf_counter()
+        if (compact and lane_idx is None and epoch > 0
+                and epoch % int(cfg.compaction_epoch) == 0):
+            sel = _compaction_width(book["stopped"].cpu().numpy())
+            if sel is not None:
+                full_book, lane_idx_h = book, sel
+                lane_idx = torch.as_tensor(sel, device=device)
+                run = _lane_run(select_lanes(run.model, lane_idx),
+                                select_lanes(run.ema_model, lane_idx),
+                                packed, spec.weight_decay, run.best, run.opt,
+                                lane_idx)
+                book = {k: v[lane_idx] for k, v in book.items()}
+                lr_t = lr_t[:, :, lane_idx]
+                lane_data = data._replace(
+                    n_batches=tuple(data.n_batches[i] for i in sel),
+                    ema_decay=tuple(data.ema_decay[i] for i in sel),
+                    **{f: getattr(data, f)[lane_idx] for f in
+                       ("packed_tr", "va_coords", "va_t", "va_y", "va_w")})
+                lane_gens = [lane_gens[i] for i in sel]
+                views_checked = False
+                if verbose:
+                    print(f"[batch] tail compaction {M}->{len(sel)} lanes at "
+                          f"epoch {epoch} "
+                          f"({int((~book['stopped']).sum())} active)",
+                          flush=True)
+        Wn = run.model.lanes
+        drop_rows = None if lane_idx is None else (M, lane_idx)
         coords_e, t_e, y_e, w_e = epoch_batches()
+        stopped = book["stopped"]
         alive = ~stopped
+        in_lane = book["in_lane"].t()
         nan_epoch = torch.zeros_like(stopped)
-        loss_sum = torch.zeros((M,), **f32)
+        loss_sum = torch.zeros((Wn,), **f32)
         for b in range(B):
-            for p in params:
-                p.grad = None
-            preds = model(coords_e[b], t_e[b], train=True, generator=drop_gen)
-            loss = lane_losses_from_preds(spec, model, preds, y_e[b], w_e[b],
-                                          train=True, taus=tau_lanes)
+            _zero_grads(run.params, run.layout)
+            preds = run.model(coords_e[b], t_e[b], train=True,
+                              generator=drop_gen, drop_rows=drop_rows)
+            loss = lane_losses_from_preds(spec, run.model, preds, y_e[b],
+                                          w_e[b], train=True,
+                                          taus=book.get("tau"))
             # lanes share no parameter: the sum's gradient is each lane's own
             loss.sum().backward()
-            _transform_grads_lanes(spec, model)
+            if not views_checked:
+                _check_grad_views(run.model, run.params, run.layout)
+                views_checked = True
+            _transform_grads_lanes(spec, run.model, run.groups,
+                                   run.layout is not None)
             executes = in_lane[b] & ~nan_epoch & alive
-            opt.step(lr_t[epoch, b], executes)
-            ema_update_lanes(ema, params, decay, one_minus_decay, executes)
+            run.opt.step(lr_t[epoch, b], executes)
+            ema_update_lanes(run.ema, run.params, book["decay"],
+                             book["one_minus_decay"], executes)
             with torch.no_grad():
                 loss_d = loss.detach()
                 loss_sum = loss_sum + torch.where(executes, loss_d,
                                                   torch.zeros_like(loss_d))
                 nan_epoch = nan_epoch | (executes & ~torch.isfinite(loss_d))
         with torch.no_grad():
-            train_loss = torch.where(nan_epoch, nan, loss_sum / n_batches_f)
+            nan_w = nan if lane_idx is None else nan[:Wn]
+            train_loss = torch.where(nan_epoch, nan_w,
+                                     loss_sum / book["n_batches_f"])
             if spec.ablate_validate:
                 val_loss, val_rmse = train_loss, torch.zeros_like(train_loss)
             else:
-                val_loss, val_rmse = _validate_lanes(spec, ema_model, data,
-                                                     tau_lanes)
+                val_loss, val_rmse = _validate_lanes(
+                    spec, run.ema_model, lane_data, book.get("tau"))
 
             # JAX _epoch_bookkeeping, a lane each
+            best_val, sig_best = book["best_val"], book["sig_best"]
+            patience_ctr = book["patience_ctr"]
             finite = torch.isfinite(val_loss)
             improved = finite & (val_loss < best_val) & alive
             sig_thresh = torch.where(
@@ -1042,34 +1231,43 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
             ctr = torch.where(sig_improved, torch.zeros_like(patience_ctr),
                               patience_ctr + 1)
             stop_now = (ctr >= spec.patience) & alive
-            best_val = torch.where(improved, val_loss, best_val)
-            has_best = has_best | improved
-            sig_best = torch.where(sig_improved & alive, val_loss, sig_best)
-            patience_ctr = torch.where(alive, ctr, patience_ctr)
-            stop_epoch = torch.where(stop_now,
-                                     torch.full_like(stop_epoch, epoch + 1),
-                                     stop_epoch)
-            stopped = stopped | stop_now
-            for dst, src in zip(best_ema, ema):
+            book["best_val"] = torch.where(improved, val_loss, best_val)
+            book["has_best"] = book["has_best"] | improved
+            book["sig_best"] = torch.where(sig_improved & alive, val_loss,
+                                           sig_best)
+            book["patience_ctr"] = torch.where(alive, ctr, patience_ctr)
+            book["stop_epoch"] = torch.where(
+                stop_now, torch.full_like(book["stop_epoch"], epoch + 1),
+                book["stop_epoch"])
+            book["stopped"] = stopped | stop_now
+            for dst, src in zip(run.best, run.ema):
                 dst.copy_(torch.where(
-                    improved.reshape(M, *([1] * (dst.dim() - 1))), src, dst))
-            hist["train_loss"][epoch] = torch.where(alive, train_loss, nan)
-            hist["val_loss"][epoch] = torch.where(alive, val_loss, nan)
-            hist["val_rmse"][epoch] = torch.where(alive, val_rmse, nan)
+                    improved.reshape(Wn, *([1] * (dst.dim() - 1))), src, dst))
+            cols = slice(None) if lane_idx is None else lane_idx
+            hist["train_loss"][epoch, cols] = torch.where(alive, train_loss,
+                                                          nan_w)
+            hist["val_loss"][epoch, cols] = torch.where(alive, val_loss, nan_w)
+            hist["val_rmse"][epoch, cols] = torch.where(alive, val_rmse, nan_w)
             if spec.record_centers:
-                hist["center_shift"][epoch] = torch.amax(torch.abs(
-                    model.basis.centers - model.spatial_centers_init),
-                    dim=(1, 2))
+                centers = run.model.basis.centers
+                hist["center_shift"][epoch, cols] = torch.amax(torch.abs(
+                    centers - run.model.spatial_centers_init), dim=(1, 2))
                 if (epoch + 1) % CENTERS_EVERY == 0:
-                    centers_history.append(
-                        (epoch + 1, model.basis.centers.cpu().numpy()))
+                    c = centers.cpu().numpy()
+                    if lane_idx_h is not None:
+                        # the narrowed lanes over the full batch's frozen
+                        # rows: a stopped lane's rows after its stop epoch
+                        # are cut below
+                        c, c[lane_idx_h] = (
+                            full.model.basis.centers.cpu().numpy(), c)
+                    centers_history.append((epoch + 1, c))
             epochs_done = epoch + 1
-            all_stopped = bool(stopped.all())     # the epoch's one host read
+            all_stopped = bool(book["stopped"].all())  # the epoch's host read
         if epoch == 0:
             t_first = time.perf_counter() - t0
         if verbose and (epoch % 25 == 0 or all_stopped or epoch == E - 1):
             print(f"  epoch {epoch + 1:4d} lanes stopped "
-                  f"{int(stopped.sum())}/{M}  val "
+                  f"{int(book['stopped'].sum())}/{Wn}  val "
                   f"{np.array2string(val_loss.cpu().numpy(), precision=5)}",
                   flush=True)
         if all_stopped:
@@ -1077,16 +1275,32 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
     t_epochs = time.perf_counter() - t_loop
 
     with torch.no_grad():
+        if lane_idx is not None:
+            # the narrow state back into the full batch, for finalize and
+            # the caller's model
+            for dst_l, src_l in ((full.params, run.params),
+                                 (full.ema, run.ema), (full.best, run.best)):
+                for dst, src in zip(dst_l, src_l):
+                    dst[lane_idx] = src
+            full.opt.step_count[lane_idx] = run.opt.step_count
+            narrow_book, book = book, full_book
+            for k in ("best_val", "has_best", "stopped", "stop_epoch"):
+                book[k][lane_idx] = narrow_book[k]
+        has_best = book["has_best"]
+        best_named = dict(zip(
+            [n for n, _ in model.named_parameters()],
+            _leaves(full.layout, full.best)))
         serving = {name: torch.where(
-            has_best.reshape(M, *([1] * (b.dim() - 1))), b, e).cpu().numpy()
-            for (name, e), b in zip(ema_model.named_parameters(), best_ema)}
+            has_best.reshape(M, *([1] * (e.dim() - 1))), best_named[name],
+            e).cpu().numpy()
+            for name, e in full.ema_model.named_parameters()}
         final = {name: e.cpu().numpy()
-                 for name, e in ema_model.named_parameters()}
+                 for name, e in full.ema_model.named_parameters()}
     hist_h = {k: v.cpu().numpy().astype(np.float64) for k, v in hist.items()}
-    stopped_h = stopped.cpu().numpy()
-    stop_epoch_h = stop_epoch.cpu().numpy()
-    best_val_h = best_val.cpu().numpy()
-    steps_h = opt.step_count.cpu().numpy()
+    stopped_h = book["stopped"].cpu().numpy()
+    stop_epoch_h = book["stop_epoch"].cpu().numpy()
+    best_val_h = book["best_val"].cpu().numpy()
+    steps_h = full.opt.step_count.cpu().numpy()
     results = []
     for i in range(M):
         n_run = int(stop_epoch_h[i]) if stopped_h[i] else epochs_done

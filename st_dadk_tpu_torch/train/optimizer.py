@@ -204,6 +204,21 @@ class AdamWLanes:
                 p.copy_(torch.where(ex, p_new, p))
         self.step_count += executes.to(torch.int32)
 
+    def narrowed(self, groups: Dict[str, Iterable[torch.Tensor]],
+                 idx: torch.Tensor) -> "AdamWLanes":
+        """This optimizer's state of lanes `idx` for `groups`, the same
+        tensors as this one's, of len(idx) lanes (tail compaction)."""
+        new = AdamWLanes.__new__(AdamWLanes)
+        new.groups = {g: list(ps) for g, ps in groups.items()}
+        new.weight_decay = self.weight_decay
+        new.b1, new.b2, new.eps = self.b1, self.b2, self.eps
+        new.step_count = self.step_count[idx]
+        old = [p for ps in self.groups.values() for p in ps]
+        cur = [p for ps in new.groups.values() for p in ps]
+        new.m = {id(q): self.m[id(p)][idx] for p, q in zip(old, cur)}
+        new.v = {id(q): self.v[id(p)][idx] for p, q in zip(old, cur)}
+        return new
+
 
 @torch.no_grad()
 def ema_update_lanes(ema: Sequence[torch.Tensor],

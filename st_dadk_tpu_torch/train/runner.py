@@ -148,14 +148,14 @@ def run_multiple_experiments(
     engine='vmap' runs all repeats as lanes of one batched program
     (`train.batch_engine.run_experiment_batch`). engine='dp' (one fit
     data-parallel over several cards) is not ported: it needs the parallel
-    package on `torch.distributed` (ROADMAP Queue 1 item 7)."""
+    package on `torch.distributed` (ROADMAP Queue 1 item 1)."""
     if engine not in ENGINES:
         raise ValueError(f"Unknown engine {engine!r}: expected "
                          "'sequential', 'vmap' or 'dp'")
     if engine == "dp":
         raise NotImplementedError(
             "engine='dp' needs the parallel package on torch.distributed "
-            "(ROADMAP Queue 1 item 7)")
+            "(ROADMAP Queue 1 item 1)")
     cfg = (config if isinstance(config, ExperimentConfig)
            else ExperimentConfig.from_dict(config))
     n_experiments = int(cfg.n_experiments)

@@ -61,6 +61,12 @@ def test_competition_compare_takes_a_paired_run(tmp_path):
     assert "| mean | 1.1 | 1.5 | |" in sub
     assert "paired" not in fc.split("sigma_mean =")[0]
     assert "- `paired`: 2 seeds on card" in text
+    # paired runs alone (the mask-stream table): no forecast table
+    other = _run(tmp_path / "other", [_row(1, 1.0), _row(2, 1.4)],
+                 {"hardware": "card"})
+    text = comp.compare([f"paired={paired}", f"other={other}"], None)
+    assert "forecast" not in text
+    assert "| mean | 1.5 | 1.2 | |" in text
 
 
 def test_paired_config_and_init_round_trip(tmp_path):
@@ -113,3 +119,43 @@ def test_vml_probe_runs_a_process_a_variant(tmp_path, capsys):
     assert [n for _, n in calls["f32_sqrt"].values()] == [1, 1]
     assert calls["warm_sqrt"]["f32_sqrt_after_warm"][1] == 1
     assert "wrong in" in capsys.readouterr().out
+
+
+def test_paired_dropout_stream_moves_only_the_fit_seed(tmp_path,
+                                                       monkeypatch):
+    """`--dropout_stream N` hands the port's fit seed + N * stride (with
+    JAX's multipliers handed across, the fit's generator then draws only
+    the dropout masks), and is refused without `--keep_dropout` or with
+    the port's own multipliers."""
+    import types
+
+    from st_dadk_tpu_torch.cli import predict_submission as cli
+
+    paired = _script("port_accuracy_paired")
+    for bad in ([], ["--keep_dropout", "--own_shuffle"]):
+        with pytest.raises(SystemExit):
+            paired.main(["--side", "torch", "--output_dir", str(tmp_path),
+                         "--init_dir", str(tmp_path), "--device", "cpu",
+                         "--dropout_stream", "1", *bad])
+    np.savez(tmp_path / "init_7.npz", centers=np.zeros((2, 2), np.float32),
+             bw=np.ones(2, np.float32), cap=8,
+             multipliers=np.zeros((3, 4), np.int32),
+             **{"params/mlp/w": np.zeros(2, np.float32),
+                "consts/c": np.zeros(2, np.float32)})
+    seeds = []
+    result = types.SimpleNamespace(history={"val_loss": [1.0]},
+                                   n_epochs_run=1)
+    monkeypatch.setattr(cli, "fit", lambda *a, seed, **kw:
+                        seeds.append(seed) or result)
+    monkeypatch.setattr(cli, "main", lambda argv: cli.fit(
+        seed=int(argv[argv.index("--seed") + 1])))
+    monkeypatch.setattr(paired, "write_row", lambda *a, **kw: None)
+    for stream in (0, 2):
+        assert paired.main(["--side", "torch", "--output_dir",
+                            str(tmp_path / f"s{stream}"), "--init_dir",
+                            str(tmp_path), "--seeds", "7", "--device", "cpu",
+                            "--keep_dropout", "--dropout_stream",
+                            str(stream)]) == 0
+    assert seeds == [7, 7 + 2 * paired.DROPOUT_STREAM_STRIDE]
+    info = json.loads((tmp_path / "s2" / "run_info.json").read_text())
+    assert info["dropout_stream"] == 2 and info["keep_dropout"]

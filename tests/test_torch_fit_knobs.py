@@ -101,7 +101,11 @@ def test_accepted_knob_sets_up(toy_csv, knob, value):
     validation knobs that keep the JAX default fit."""
     cfg = _cfg(toy_csv, spatial_init_method="gmm", **{knob: value})
     setup = texp.ExperimentSetup(cfg, 1, "cpu")
-    assert setup.model is not None and cfg.extra[knob] == value
+    # `packed_optimizer` is a field since the port carries it
+    # (tests/test_torch_packing.py); the others stay in `extra`
+    got = (cfg.packed_optimizer if knob == "packed_optimizer"
+           else cfg.extra[knob])
+    assert setup.model is not None and got == value
 
 
 def test_init_gmm_fused_gives_the_jax_sequential_numbers():

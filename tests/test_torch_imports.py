@@ -39,7 +39,8 @@ def test_port_imports_no_jax_yaml_pandas_or_reference():
                  "models.forecaster", "models.legacy_basis",
                  "cli.predict_submission", "cli.forecast_submission",
                  "cli.score_families", "cli.analyze_table_4_4",
-                 "cli.analyze_grid_search", "cli.resume_grid_search"):
+                 "cli.analyze_grid_search", "cli.resume_grid_search",
+                 "train.packing", "ab_paired"):
         assert f"st_dadk_tpu_torch.{name}" in res["modules"], name
     assert res["forbidden"] == []
 

@@ -128,13 +128,16 @@ def test_training_loss_and_transformed_grads_match_jax():
                                    atol=GRAD_ATOL, err_msg=name)
 
 
-@pytest.mark.parametrize("override,entry", [(dict(train_dtype="bf16"), "spec"),
+@pytest.mark.parametrize("override,entry", [(dict(train_dtype="fp16"), "spec"),
                                             (dict(p_covariates=2), "fit")])
 def test_unported_configs_raise(override, entry, tmp_path):
-    """The bf16 trunk has no spec; a fit with covariates is refused, since
+    """A trunk dtype that is neither 'auto', 'f32' nor 'bf16' has no spec
+    (JAX would train it in float32 without a word; the bf16 trunk itself
+    is tests/test_torch_bf16.py's); a fit with covariates is refused, since
     the JAX fit feeds none (its model takes X: test_torch_ragged_k.py)."""
     cfg = ExperimentConfig.from_dict(override)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if entry == "spec"
+                       else NotImplementedError):
         if entry == "spec":
             tm.spec_from_config(cfg)
         else:

@@ -200,7 +200,7 @@ def test_engines_refused(toy_csv, tmp_path):
     cfg = _cfg(toy_csv)
     with pytest.raises(ValueError, match="Unknown engine"):
         trunner.run_multiple_experiments(cfg, tmp_path, engine="pmap")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         trunner.run_multiple_experiments(cfg, tmp_path, engine="dp")
     assert not (tmp_path / "experiments").exists()
 
