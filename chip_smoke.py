@@ -143,13 +143,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the batch must narrow (the compaction line is printed), every lane's
      stop epoch must be equal both ways and its histories and scores hold
      by the drift rule of phase 23.
-Phases 22-24 run before phase 21, whose shapes include theirs.
-Each of phases 3-7, 11-13, 15 and 18-20, 22-24 sets the launch counts to 0
-just before it and reads them just after; it checks the fit's losses,
-centers and test metrics. The last line of standard output is one JSON
+ 25. several ranks, data-parallel: the bench fit through
+     `run_multiple_experiments(engine="dp")` in a one-rank nccl group, its
+     history, scores and launches bitwise phase 3's; then in RANKS gloo
+     ranks on the one card (nccl refuses two ranks on one device; gloo
+     takes the CUDA tensors), held to phase 3 by the drift rule against
+     the bench fit with its minibatch rows reversed (the same change of
+     summation order on one rank), its params bitwise equal across ranks;
+ 26. `fit_tp` in RANKS gloo ranks, the 227 centers split 114 a rank (one
+     pad row): histories by the drift rule of phase 23, the pad rows exactly
+     0 and the pad centers exactly their initial values, the fused kernels'
+     launches at k = 114;
+ 27. `cli/train_st_interp.py --engine vmap` in RANKS processes, RANK_LANES
+     seeds at dropout 0 under shuffle 'none': each process writes its lanes
+     only and the primary alone the summary; each lane against the same
+     seed's lane of one process's batch, bitwise or by the drift rule
+     (printed which);
+ 28. phase 17's resume through a checkpoint directory
+     (torch.distributed.checkpoint), bitwise the straight fit.
+Phases 25 (ii)-27 run in one launch of RANKS child processes (spawned; each
+loads the libraries built here), whose launch counts and shapes come back.
+Phases 22-28 run before phase 21, whose shapes include theirs.
+Each of phases 3-7, 11-13, 15, 18-20 and 22-27 (in each child rank) sets the
+launch counts to 0 just before it and reads them just after; it checks the
+fit's losses, centers and test metrics. The last line of standard output is one JSON
 object with "ok" and the device; the line before it lists the kernels, with
 the launches of phases 18-20 under "competition_launches", those of phases
-22-24 under "option_launches" and, as "max_abs_err", the worst difference
+22-24 under "option_launches", those of phases 25-27 by rank under
+"parallel_launches" and, as "max_abs_err", the worst difference
 from the plain version in phases 2, 18-19 and 21.
 """
 from __future__ import annotations
@@ -321,6 +342,13 @@ PACKED_PROFILE_EPOCHS = 2
 COMPACT_LANES, COMPACT_EVERY, COMPACT_EPOCHS = 8, 2, 40
 COMPACT_MIN_GAIN = 0.01
 # JAX's keys of nan_diagnostics.json (st_dadk_tpu/train/experiment.py:415)
+# phases 25-27: ranks of one group on the one card (gloo; nccl refuses two
+# ranks on one device), the lanes of the lane CLI, the seconds a group's
+# init or collective and the whole launch may take, and the bench
+# workload's 227 centers split over the ranks (228, 114 a rank)
+RANKS, RANK_LANES = 2, 4
+RANK_TIMEOUT, RANK_JOIN_TIMEOUT = 60.0, 300.0
+TP_K_LOCAL = 114
 NAN_DIAG_KEYS = {"nan_epochs", "n_epochs_run", "train_loss_tail",
                  "val_loss_tail", "inputs", "params"}
 # bars: (rtol, atol) of each kernel against its plain version
@@ -837,6 +865,7 @@ def main(argv=None) -> int:
                                            CALIBRATION_FACTORS, worst))
     launches = {nm: None for nm in KERNELS}
     lane_launches, competition, competition_ms, options = {}, {}, {}, {}
+    parallel = {}
     if not args.kernels_only:
         phases = Phases(torch, ffl, sbk)
         launches = phases.run()
@@ -844,6 +873,7 @@ def main(argv=None) -> int:
         competition = phases.competition_launches
         competition_ms = phases.competition_times
         options = phases.option_launches
+        parallel = phases.parallel_launches
         for nm, err in phases.held_err.items():
             worst[nm] = max(worst[nm], err)
 
@@ -873,7 +903,11 @@ def main(argv=None) -> int:
          "competition_ms": competition_ms.get(nm),
          # launches in each run of phases 22-24 (the fit's options)
          "option_launches": {run: counts[nm] for run, counts
-                             in options.items()} or None}
+                             in options.items()} or None,
+         # launches in each rank's runs of phases 25-27 (dp, fit_tp, lanes
+         # across processes; the shapes are in phase 26's lines)
+         "parallel_launches": {run: counts[nm] for run, counts
+                               in parallel.items()} or None}
         for nm, (src, replaces) in KERNELS.items()]}
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(json.dumps(report))
@@ -892,6 +926,7 @@ class Phases:
         self.lane_launches = {}
         self.competition_launches = {}
         self.option_launches = {}
+        self.parallel_launches = {}
         self.lanes_results = None
         self.competition_times = {}
         # kernel -> every launch shape of the counted runs; kernel -> the
@@ -951,6 +986,13 @@ class Phases:
                             ("23 (packed optimizer)",
                              lambda: self.packed_phase(bench)),
                             ("24 (tail compaction)", self.compaction_phase),
+                            ("25 (dp)", lambda: self.dp_phase(bench)),
+                            ("26 (tensor parallel)",
+                             lambda: self.tp_phase(bench)),
+                            ("27 (lanes across processes)",
+                             lambda: self.ranks_lanes_phase(bench)),
+                            ("28 (checkpoint directory)",
+                             self.checkpoint_dir_phase),
                             ("21 (every launch shape)",
                              self.launch_shapes_phase)):
             t0 = time.time()
@@ -2323,6 +2365,7 @@ class Phases:
               f"{resumed.history['train_loss'][-1]!r}); "
               f"{time.time() - t0:.1f} s", flush=True)
         check(same, "the resumed bench fit differs from the straight one")
+        self.resume_straight = straight
 
         out = REPO / "build" / "chip_smoke_nan"
         shutil.rmtree(out, ignore_errors=True)
@@ -2367,6 +2410,234 @@ class Phases:
             self.family = write_competition_family(self.data_file,
                                                    REPO / COMPETITION_DIR)
         return self.family
+
+    # -- phases 25-28: several ranks (parallel/), the checkpoint directory --
+
+    def two_ranks(self):
+        """Phases 25 (ii)-27's work in one launch of RANKS gloo ranks on the
+        card (`_rank_runs`), run once; each rank's runs come back with
+        their launch counts and shapes, which join phase 21's list."""
+        if getattr(self, "_ranks", None) is None:
+            from st_dadk_tpu_torch.bench_workload import bench_workload
+            from st_dadk_tpu_torch.config import write_yaml
+            from st_dadk_tpu_torch.parallel.launch import run_ranks
+            import shutil
+            root = REPO / "build" / "chip_smoke_ranks"
+            shutil.rmtree(root, ignore_errors=True)
+            root.mkdir(parents=True)
+            write_yaml(dict(bench_workload(
+                data_file=str(self.data_file), epochs=EPOCHS,
+                n_experiments=RANK_LANES, dropout=0.0, shuffle="none",
+                device="cuda", save_plots=False, save_artifacts=True),
+                tag="ranks"),
+                root / "lanes.yaml")
+            t0 = time.time()
+            self._ranks = run_ranks(_rank_runs, RANKS,
+                                    (str(self.data_file), str(root)),
+                                    backend="gloo", device="cuda",
+                                    timeout=RANK_TIMEOUT,
+                                    join_timeout=RANK_JOIN_TIMEOUT)
+            print(f"{RANKS} gloo ranks on the card (one child process a "
+                  f"rank): {time.time() - t0:.1f} s, child start included",
+                  flush=True)
+            for r, runs in enumerate(self._ranks):
+                for run, got in runs.items():
+                    if "counts" in got:
+                        self.parallel_launches[f"{run} rank {r}"] = \
+                            got["counts"]
+                        for nm, keys in got["shapes"].items():
+                            self.launched.setdefault(nm, set()).update(
+                                tuple(k) for k in keys)
+        return self._ranks
+
+    def dp_phase(self, bench):
+        """Phase 25: (i) the bench fit through run_multiple_experiments(
+        engine='dp') in a one-rank nccl group, bitwise phase 3; (ii) the same
+        over RANKS gloo ranks on the card, held to phase 3 by the drift
+        rule, its params bitwise equal across the ranks. The split sums
+        every step's gradients over the points in another order, which a
+        one-ulp start (phase 6's reference) underestimates where the fit
+        turns chaotic (epoch 5 of the bench schedule); the reference here is
+        the bench fit with its minibatch rows reversed (`reordered_drift`),
+        the same change of summation order on one rank."""
+        import numpy as np
+
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.parallel import multihost as mh
+        from st_dadk_tpu_torch.parallel.launch import free_port
+        from st_dadk_tpu_torch.train.runner import run_multiple_experiments
+        import shutil
+
+        out = REPO / "build" / "chip_smoke_dp1"
+        shutil.rmtree(out, ignore_errors=True)
+        cfg = bench_workload(data_file=str(self.data_file), epochs=EPOCHS,
+                             save_artifacts=True, n_experiments=1)
+        mh.maybe_initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                                        backend="nccl", device="cuda:0",
+                                        timeout=RANK_TIMEOUT)
+        try:
+            check(self.torch.distributed.get_backend() == "nccl",
+                  "phase 25: the one-rank group is not nccl")
+            _, counts = self.counted(lambda: run_multiple_experiments(
+                cfg, out, engine="dp"))
+        finally:
+            mh.shutdown()
+        got = json.loads((out / "experiments" / "1" / "results.json")
+                         .read_text())
+        want = json.loads((bench[2] / "results.json").read_text())
+        same = got["training_history"] == want["training_history"] and all(
+            got[k] == want[k] for k in LANE_SCORES)
+        print(f"dp, one nccl rank: test RMSE {got['test_rmse']!r} / phase 3 "
+              f"{want['test_rmse']!r}; history and scores bitwise {same}; "
+              f"launches {json.dumps({k: v for k, v in counts.items() if v})}",
+              flush=True)
+        check(same, "phase 25: the one-rank dp fit differs from phase 3")
+        check(counts == self.bench_counts, f"phase 25: launches {counts} != "
+              f"phase 3's {self.bench_counts}")
+        self.parallel_launches["dp 1 rank"] = counts
+
+        ranks = self.two_ranks()
+        res = json.loads((REPO / "build" / "chip_smoke_ranks" / "dp" /
+                          "experiments" / "1" / "results.json").read_text())
+        worst = self.hold_by_drift("dp over 2 ranks", res, want,
+                                   self.reordered_drift(bench))
+        p0, p1 = (r["dp"]["params"] for r in ranks)
+        equal = p0.keys() == p1.keys() and all(
+            np.array_equal(p0[k], p1[k]) for k in p0)
+        ms = {nm: 1e3 * r["stage_timings"]["train_steps_seconds"]
+              / r["n_steps"] for nm, r in (("dp", res), ("phase 3", want))}
+        print(f"dp, {RANKS} gloo ranks: test RMSE {res['test_rmse']!r}; loss "
+              f"histories within {worst:.1e} of phase 3 (drift rule); params "
+              f"bitwise equal across ranks {equal}; ms a step "
+              f"{ms['dp']:.3f} (phase 3 {ms['phase 3']:.3f}); launches a rank "
+              + json.dumps([{k: v for k, v in r["dp"]["counts"].items() if v}
+                            for r in ranks])
+              + " at N = " + str(sorted({k[1] for r in ranks for k in
+                                         r["dp"]["shapes"][
+                                             "fused_first_layer_bwd_w"]})),
+              flush=True)
+        check(equal, "phase 25: the ranks' params differ")
+        for r in ranks:
+            check(r["dp"]["counts"]["fused_first_layer_bwd_w"]
+                  == res["n_steps"], "phase 25: dW launches != steps")
+
+    def tp_phase(self, bench):
+        """Phase 26: fit_tp over RANKS gloo ranks on the bench workload, the
+        basis axis split (227 -> 228 centers, 114 a rank): histories held to
+        phase 3's fit by the drift rule, the pad rows exactly 0 and the pad
+        centers exactly their initial values at the end."""
+        ranks = self.two_ranks()
+        want = json.loads((bench[2] / "results.json").read_text())
+        for r, runs in enumerate(ranks):
+            tp = runs["tp"]
+            self.hold_by_drift(f"fit_tp rank {r}", tp, want,
+                               self.nudged_drift(bench), scores=False)
+            ks = sorted({k[2] for k in tp["shapes"]["fused_first_layer_fwd"]})
+            print(f"fit_tp rank {r}: {tp['n_epochs_run']} epochs, final train "
+                  f"loss {tp['training_history']['train_loss'][-1]!r} (phase "
+                  f"3 {want['training_history']['train_loss'][-1]!r}); fused "
+                  f"launches {json.dumps({k: v for k, v in tp['counts'].items() if v})}"
+                  f" at k = {ks}; pad rows {tp['pad_rows']}: inert "
+                  f"{tp['pads_inert']}", flush=True)
+            check(ks == [TP_K_LOCAL], f"phase 26: the shard launched at k = "
+                  f"{ks}, not {TP_K_LOCAL}")
+            check(tp["pads_inert"], f"phase 26: rank {r}'s pad rows moved")
+        check(sum(r["tp"]["pad_rows"] for r in ranks) == 1,
+              "phase 26: 227 centers over 2 ranks leave one pad row")
+
+    def ranks_lanes_phase(self, bench):
+        """Phase 27: cli/train_st_interp --engine vmap in RANKS processes on
+        the card, RANK_LANES seeds at dropout 0 under shuffle 'none': each
+        process writes its lanes only, the primary alone the summary, and
+        each lane against the same seed's lane of a single-process batch,
+        bitwise or else by the drift rule."""
+        import shutil
+
+        from st_dadk_tpu_torch.config import ExperimentConfig
+        from st_dadk_tpu_torch.train.runner import run_multiple_experiments
+
+        ranks = self.two_ranks()
+        root = REPO / "build" / "chip_smoke_ranks"
+        per = RANK_LANES // RANKS
+        for r, runs in enumerate(ranks):
+            want = list(range(r * per + 1, (r + 1) * per + 1))
+            print(f"lanes rank {r}: wrote experiments "
+                  f"{runs['lanes']['written']}, summary "
+                  f"{runs['lanes']['summary']}; launches "
+                  f"{json.dumps({k: v for k, v in runs['lanes']['counts'].items() if v})}",
+                  flush=True)
+            check(runs["lanes"]["written"] == want,
+                  f"phase 27: rank {r} wrote {runs['lanes']['written']}, not "
+                  f"{want}")
+            check(runs["lanes"]["summary"] == (r == 0),
+                  f"phase 27: rank {r} summary {runs['lanes']['summary']}")
+        check((root / "lanes" / "summary" / "summary_statistics.json")
+              .exists(), "phase 27: no summary")
+        single = root / "single"
+        shutil.rmtree(single, ignore_errors=True)
+        cfg = ExperimentConfig.from_yaml(root / "lanes.yaml")
+        run_multiple_experiments(cfg, single, engine="vmap", device="cuda")
+        import numpy as np
+
+        bitwise = same_params = True
+        for i in range(1, RANK_LANES + 1):
+            a_dir = root / "lanes" / "experiments" / str(i)
+            b_dir = single / "experiments" / str(i)
+            a = json.loads((a_dir / "results.json").read_text())
+            b = json.loads((b_dir / "results.json").read_text())
+            same = a["training_history"] == b["training_history"] and all(
+                a[k] == b[k] for k in LANE_SCORES)
+            bitwise = bitwise and same
+            pa, pb = (np.load(d / "model_final.npz") for d in (a_dir, b_dir))
+            same_params = same_params and pa.files == pb.files and all(
+                np.array_equal(pa[k], pb[k]) for k in pa.files)
+            if not same:
+                self.hold_by_drift(f"lane {i} across processes", a, b,
+                                   self.nudged_drift(bench))
+        print(f"lanes across {RANKS} processes against one process's batch "
+              f"of {RANK_LANES}: histories and scores "
+              + ("bitwise" if bitwise else "by the drift rule (not bitwise)")
+              + f"; final params bitwise {same_params}", flush=True)
+
+    def checkpoint_dir_phase(self):
+        """Phase 28: phase 17's resume through a checkpoint directory
+        (torch.distributed.checkpoint): RESUME_AT epochs into it, then a
+        resume, bitwise phase 17's straight fit."""
+        import shutil
+
+        import numpy as np
+
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.config import ExperimentConfig
+        from st_dadk_tpu_torch.train import experiment as texp
+        from st_dadk_tpu_torch.train import loop as tl
+
+        cfg = ExperimentConfig.from_dict(bench_workload(
+            data_file=str(self.data_file), epochs=RESUME_EPOCHS))
+
+        def run(**kw):
+            s = texp.ExperimentSetup(cfg, 1, "cuda")
+            return tl.fit(cfg, s.spec, s.model, s.train_ps, s.valid_ps,
+                          seed=s.experiment_seed, epochs_chunk=RESUME_AT,
+                          **kw)
+
+        ckpt = REPO / "build" / "chip_smoke_resume_dir"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        part = run(checkpoint_path=ckpt, session_epochs=RESUME_AT)
+        check((ckpt / "state" / ".metadata").is_file(),
+              "phase 28: no checkpoint directory written")
+        resumed = run(checkpoint_path=ckpt, resume=True)
+        straight = self.resume_straight
+        same = part.n_epochs_run == RESUME_AT and all(
+            np.array_equal(straight.history[k], resumed.history[k])
+            for k in ("train_loss", "val_loss", "val_rmse"))
+        flat = texp._flatten_params
+        for tree in ("params", "final_ema"):
+            a, b = flat(getattr(straight, tree)), flat(getattr(resumed, tree))
+            same = same and all(np.array_equal(a[k], b[k]) for k in a)
+        print(f"checkpoint directory: {RESUME_AT} epochs + resume against "
+              f"{RESUME_EPOCHS} straight: bitwise {same}", flush=True)
+        check(same, "phase 28: the fit resumed from a directory differs")
 
     def hold(self, nm, kern, plain, where):
         """One call of kernel `nm` against its plain version at BARS[nm]:
@@ -2685,11 +2956,50 @@ class Phases:
                 for k, v in self._drift.items()), flush=True)
         return self._drift
 
-    def hold_by_drift(self, name, got, want, drift):
+    def reordered_drift(self, bench):
+        """Phase 25's reference: the bench fit with every minibatch's rows,
+        and its dropout block's rows with them, in reverse order. The same
+        arithmetic on the same pairs of point and mask, with every sum over
+        the points in another order, which is what the data-parallel split
+        changes in every step; its loss histories' relative gap to phase
+        3's by epoch."""
+        import numpy as np
+
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.config import ExperimentConfig
+        from st_dadk_tpu_torch.models.st_interp import STInterp
+        from st_dadk_tpu_torch.train import loop
+        from st_dadk_tpu_torch.train.experiment import ExperimentSetup
+
+        if getattr(self, "_reordered", None) is None:
+            cfg = ExperimentConfig.from_dict(bench_workload(
+                data_file=str(self.data_file), epochs=EPOCHS))
+            setup = ExperimentSetup(cfg, 1, "cuda")
+            indices, keep = loop.epoch_batch_indices, STInterp.draw_dropout_keep
+            loop.epoch_batch_indices = lambda *a: indices(*a).flip(1)
+            STInterp.draw_dropout_keep = lambda m, *a: keep(m, *a).flip(0)
+            try:
+                rev = loop.fit(cfg, setup.spec, setup.model, setup.train_ps,
+                               setup.valid_ps, seed=setup.experiment_seed)
+            finally:
+                loop.epoch_batch_indices = indices
+                STInterp.draw_dropout_keep = keep
+            hist = bench[1]["training_history"]
+            self._reordered = {
+                key: np.abs(np.asarray(rev.history[key])
+                            - np.asarray(hist[key])) / np.abs(hist[key])
+                for key in ("train_loss", "val_loss")}
+            print("drift of the bench fit with its minibatch rows reversed: "
+                  + "; ".join(f"{k} " + " ".join(f"{g:.1e}" for g in v)
+                              for k, v in self._reordered.items()),
+                  flush=True)
+        return self._reordered
+
+    def hold_by_drift(self, name, got, want, drift, scores=True):
         """Histories of `got` against `want` (results.json dicts): the
         early bar in epochs 1-LANE_EARLY_EPOCHS, then LANE_DRIFT_FACTOR x
-        the running maximum of `drift`; scores at the same factor of its
-        largest value."""
+        the running maximum of `drift`; with `scores`, the scores at the
+        same factor of its largest value."""
         import numpy as np
 
         worst = 0.0
@@ -2705,6 +3015,9 @@ class Phases:
                                            d[-1])])[:len(gaps)]
             bar = np.maximum(LANE_EARLY_RTOL, LANE_DRIFT_FACTOR * d)
             bar[:LANE_EARLY_EPOCHS] = LANE_EARLY_RTOL
+            print(f"  {name}, {key}, relative gap by epoch: "
+                  + " ".join(f"{g:.1e}" for g in gaps) + "; bar: "
+                  + " ".join(f"{g:.1e}" for g in bar), flush=True)
             over = np.maximum.accumulate(gaps) > bar
             check(not over.any(), f"{name}: {key} is {gaps.max():.3e} from "
                   f"the reference, past its bar from epoch "
@@ -2712,7 +3025,7 @@ class Phases:
             worst = max(worst, float(gaps.max()))
         score_bar = max(LANE_SCORE_RTOL, LANE_DRIFT_FACTOR * max(
             float(v.max()) for v in drift.values()))
-        for key in LANE_SCORES:
+        for key in LANE_SCORES if scores else ():
             gap = abs(got[key] - want[key]) / abs(want[key])
             check(gap <= score_bar, f"{name}: {key} {got[key]!r} is "
                   f"{gap:.3e} from {want[key]!r} (bar {score_bar:.1e})")
@@ -2949,6 +3262,79 @@ class Phases:
             check(counts[kern] == 1, f"{kern} launched {counts[kern]} times, "
                   f"not once, for one spatial gradient")
             launches[kern] = counts[kern]
+
+
+def _rank_runs(rank, data_file, root):
+    """Phases 25 (ii)-27 on one gloo rank of the card (`Phases.two_ranks`):
+    the bench fit data-parallel, fit_tp, and the lane CLI; each run with
+    the kernels' launch counts and shapes, reset just before it."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from st_dadk_tpu_torch.bench_workload import bench_workload
+    from st_dadk_tpu_torch.cli import train_st_interp as cli
+    from st_dadk_tpu_torch.config import ExperimentConfig
+    from st_dadk_tpu_torch.models.st_interp import model_consts, to_jax_params
+    from st_dadk_tpu_torch.ops import fused_first_layer as ffl
+    from st_dadk_tpu_torch.ops import spatial_basis_kernels as sbk
+    from st_dadk_tpu_torch.parallel.multihost import local_device
+    from st_dadk_tpu_torch.parallel.tensor_parallel import fit_tp
+    from st_dadk_tpu_torch.train import batch_engine, experiment
+    from st_dadk_tpu_torch.train.runner import run_multiple_experiments
+
+    def counted(fn):
+        ffl.reset_launch_counts()
+        sbk.reset_launch_counts()
+        torch.cuda.synchronize()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, {"counts": {**ffl.launch_counts(), **sbk.launch_counts()},
+                     "shapes": {**ffl.launch_shapes(), **sbk.launch_shapes()}}
+
+    out, seen, written = {}, {}, []
+    for mod in (batch_engine, experiment):
+        orig = mod.finalize_experiment
+
+        def record(cfg_, setup, result, *a, _orig=orig, **kw):
+            seen["params"] = experiment._flatten_params(result.params)
+            if kw.get("write_artifacts", True):
+                written.append(setup.experiment_id)
+            return _orig(cfg_, setup, result, *a, **kw)
+        mod.finalize_experiment = record
+
+    bench = bench_workload(data_file=data_file, epochs=EPOCHS,
+                           save_artifacts=True, n_experiments=1)
+    _, out["dp"] = counted(lambda: run_multiple_experiments(
+        bench, f"{root}/dp", engine="dp"))
+    out["dp"]["params"] = seen["params"]
+
+    cfg = ExperimentConfig.from_dict(bench)
+    setup = experiment.ExperimentSetup(cfg, 1, local_device())
+    state = {}
+    res, out["tp"] = counted(lambda: fit_tp(
+        cfg, setup.spec, to_jax_params(setup.model),
+        model_consts(setup.model), setup.train_ps, setup.valid_ps,
+        seed=setup.experiment_seed, state_out=state))
+    model = state["model"]
+    pad = ~model.row_valid
+    pads = {n: p.detach()[pad].cpu() for n, p in model.sharded().items()}
+    out["tp"].update(
+        training_history={k: v.tolist() for k, v in res.history.items()},
+        n_epochs_run=res.n_epochs_run, pad_rows=int(pad.sum()),
+        pads_inert=bool((pads["mlp.w0_spatial"] == 0).all()
+                        and (pads["basis.centers"] == 0.5).all()
+                        and (pads["basis.log_bandwidths"] == 0).all()
+                        and np.isfinite(res.best_val)))
+
+    written.clear()
+    summary, out["lanes"] = counted(lambda: cli.main(
+        ["--config", f"{root}/lanes.yaml", "--engine", "vmap",
+         "--output_dir", f"{root}/lanes"]))
+    out["lanes"].update(written=sorted(set(written)),
+                        summary=summary is not None)
+    return out
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ share of rows dropped, test t = 91..100 at every site, the solutions).
     python3 scripts/port_accuracy_competition.py --side torch \
         --output_dir build/port_accuracy/competition_torch [--n 3]
     JAX_PLATFORMS=cpu python scripts/port_accuracy_competition.py \
-        --side jax --output_dir build/port_accuracy/competition_jax [--n 3]
+        --side jax --output_dir build/port_accuracy/competition_jax [--n 3] \
+        [--dropout_rng threefry] [--pipelines submission]
     python scripts/port_accuracy_competition.py \
         --compare jax=DIR torch=DIR --out results/port_accuracy/competition/table.md
 
@@ -82,7 +83,15 @@ def run_side(args) -> int:
     paths = family()
     out = args.output_dir
     out.mkdir(parents=True, exist_ok=True)
-    config = str(REPO / "configs" / "config_st_interp.yaml")
+    config = REPO / "configs" / "config_st_interp.yaml"
+    if args.dropout_rng:
+        if args.side != "jax":
+            raise SystemExit("--dropout_rng names a JAX dropout generator")
+        # the repo's config with one key added, beside the scores
+        text = config.read_text().rstrip("\n")
+        config = out / "config.yaml"
+        config.write_text(f"{text}\ndropout_rng: {args.dropout_rng}\n")
+    config = str(config)
     card = "CPU host"
     if args.side == "torch":
         import torch
@@ -106,7 +115,7 @@ def run_side(args) -> int:
     done = {(r["pipeline"], r["seed"]) for r in rows}
     for i in range(args.n):
         seed = args.base_seed + i
-        for pipe in PIPELINES:
+        for pipe in args.pipelines:
             if (pipe, seed) in done:
                 continue
             sub = out / f"{pipe}_{seed}.csv"
@@ -146,6 +155,8 @@ def run_side(args) -> int:
             print(json.dumps(row), flush=True)
             (out / "scores.json").write_text(json.dumps(rows, indent=1))
     info = {"side": args.side, "n": args.n, "hardware": card,
+            "pipelines": list(args.pipelines),
+            "dropout_rng": args.dropout_rng or "config default",
             "wall_seconds": wall_before + time.time() - t_all,
             "family": str(paths["stem"].relative_to(REPO))}
     (out / "run_info.json").write_text(json.dumps(info, indent=1))
@@ -230,6 +241,12 @@ def main(argv=None) -> int:
     ap.add_argument("--forecast_epochs", type=int, default=None,
                     help="cut the forecaster's 300 epochs")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--pipelines", nargs="+", choices=PIPELINES,
+                    default=list(PIPELINES))
+    ap.add_argument("--dropout_rng", choices=["rbg", "threefry"],
+                    default=None,
+                    help="JAX side: run on a copy of the config with this "
+                    "dropout_rng (the config's default is rbg)")
     ap.add_argument("--skip_existing", action="store_true",
                     help="keep --output_dir's scores and run only the "
                     "seeds it lacks (wall seconds add up)")

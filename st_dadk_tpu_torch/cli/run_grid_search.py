@@ -16,12 +16,13 @@ from __future__ import annotations
 
 import argparse
 import json
-from datetime import datetime
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 from st_dadk_tpu_torch.cli.analyze_grid_search import analyze
 from st_dadk_tpu_torch.config import ExperimentConfig
+from st_dadk_tpu_torch.parallel.multihost import (
+    is_primary, maybe_initialize_distributed, shared_timestamp)
 from st_dadk_tpu_torch.sweep.grid import (generate_config_combinations,
                                           run_grid_search)
 
@@ -77,9 +78,10 @@ def main(argv: Optional[List[str]] = None
         base_config["n_experiments"] = args.n_experiments
     param_grid = json.loads(args.param_grid) if args.param_grid else PARAM_GRID
 
+    maybe_initialize_distributed()
     if args.output_dir is None:
         args.output_dir = (f"results/"
-                           f"{datetime.now().strftime('%Y%m%d_%H%M%S')}"
+                           f"{shared_timestamp().strftime('%Y%m%d_%H%M%S')}"
                            f"_grid_search")
     output_dir = Path(args.output_dir)
 
@@ -101,6 +103,8 @@ def main(argv: Optional[List[str]] = None
     results = run_grid_search(base_config, param_grid, output_dir,
                               filter_fn=config_filter, engine=args.engine,
                               skip_existing=args.skip_existing)
+    if not is_primary():     # the primary writes and analyses the grid
+        return results
     n_ok = sum(1 for r in results if r["status"] == "success")
     print(f"\nGRID SEARCH COMPLETE: {n_ok}/{len(results)} configs succeeded")
     print(f"Results: {output_dir}")

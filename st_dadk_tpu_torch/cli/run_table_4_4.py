@@ -19,13 +19,14 @@ from __future__ import annotations
 
 import argparse
 import json
-from datetime import datetime
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from st_dadk_tpu_torch.config import ExperimentConfig, write_yaml
+from st_dadk_tpu_torch.parallel.multihost import (
+    is_primary, maybe_initialize_distributed, shared_timestamp)
 from st_dadk_tpu_torch.train.runner import (load_all_results,
                                             run_multiple_experiments)
 from st_dadk_tpu_torch.utils.io import save_json
@@ -132,14 +133,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     with the output directory under '_output_dir'."""
     args = build_parser().parse_args(argv)
     overrides = json.loads(args.overrides)
+    maybe_initialize_distributed()
+    primary = is_primary()
     out = Path(args.output_dir or
-               f"results/{datetime.now().strftime('%Y%m%d_%H%M%S')}"
+               f"results/{shared_timestamp().strftime('%Y%m%d_%H%M%S')}"
                f"_table_4_4")
     out.mkdir(parents=True, exist_ok=True)
 
     if args.delta_penalty_mode == "eq310":
         print(f"[WARNING] {EQ310_WARNING}")
-        (out / "QUARANTINE_eq310.txt").write_text(EQ310_WARNING + "\n")
+        if primary:
+            (out / "QUARANTINE_eq310.txt").write_text(EQ310_WARNING + "\n")
 
     configs = create_table_4_4_configs(args.config, args.da_stdk_init_method,
                                        args.non_crossing_lambda,
@@ -151,12 +155,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         cfg["n_experiments"] = args.n_experiments
         cdir = out / cfg["tag"]
         cdir.mkdir(parents=True, exist_ok=True)
-        write_yaml(cfg, cdir / "config.yaml")
+        if primary:
+            write_yaml(cfg, cdir / "config.yaml")
         print(f"\n=== {scenario_name} / {model_name} "
               f"({args.n_experiments} repeats) ===", flush=True)
         run_multiple_experiments(ExperimentConfig.from_dict(cfg), cdir,
                                  skip_existing=args.skip_existing,
                                  engine=args.engine)
+        if not primary:      # the primary summarises every process's fits
+            continue
         results = load_all_results(cdir / "experiments", args.n_experiments)
         crps = [r["test_crps"] for r in results if "test_crps" in r]
         entry = {"scenario": scenario_name, "model": model_name,
@@ -169,6 +176,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
               f"+/- {entry['test_crps_std']:.4f}" if crps else
               "  (no results)", flush=True)
 
+    if not primary:
+        return {"_output_dir": str(out)}
     scenario_summaries["_protocol"] = {
         "delta_penalty_mode": args.delta_penalty_mode,
         "quarantined": args.delta_penalty_mode == "eq310",

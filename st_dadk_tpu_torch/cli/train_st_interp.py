@@ -8,17 +8,31 @@
 Output tree: results/<YYYYMMDD>/<HHMMSS>_<tag>/{config.yaml, experiments/<i>/,
 summary/}, the timestamp in local time. `--parallel` means `--engine vmap`
 (all repeats as lanes of one batched program on the card); `--n_jobs` is
-accepted and ignored. `--engine dp` raises, as the runner does. The fits run
-on the config's `device` (`tpu` and `gpu` mean the card).
+accepted and ignored. The fits run on the config's `device` (`tpu` and
+`gpu` mean the card).
+
+Several processes (`parallel/multihost.py`): the CLI joins a process group
+when torchrun's (or JAX's) environment names one, and every process takes
+one output tree from the primary's clock:
+
+    torchrun --nproc_per_node N -m st_dadk_tpu_torch.cli.train_st_interp \
+        --config C --engine dp          # each fit data-parallel over N cards
+    torchrun --nproc_per_node N -m st_dadk_tpu_torch.cli.train_st_interp \
+        --config C --engine vmap        # each process trains its lanes
+
+Rank r runs on card LOCAL_RANK (modulo the cards it sees) over nccl, which
+wants a card a rank; a config with `device: cpu` runs over gloo. The flags
+are the JAX script's.
 """
 from __future__ import annotations
 
 import argparse
-from datetime import datetime
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-from st_dadk_tpu_torch.config import load_config
+from st_dadk_tpu_torch.config import load_config, resolve_device
+from st_dadk_tpu_torch.parallel.multihost import (
+    is_primary, maybe_initialize_distributed, shared_timestamp)
 from st_dadk_tpu_torch.train.runner import run_multiple_experiments
 
 
@@ -37,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["sequential", "vmap", "dp"],
                         help="experiment dispatch engine: sequential fits, "
                              "all repeats as lanes of one batched program, "
-                             "or per-fit data parallelism (not ported)")
+                             "or per-fit data parallelism over every "
+                             "process of the group")
     parser.add_argument("--start_exp_id", type=int, default=None)
     parser.add_argument("--end_exp_id", type=int, default=None)
     parser.add_argument("--skip-existing", action="store_true")
@@ -54,15 +69,18 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
         "base_seed": args.base_seed,
     })
     engine = args.engine or ("vmap" if args.parallel else "sequential")
+    # one process a card under torchrun; a no-op for a single process
+    maybe_initialize_distributed(device=resolve_device(cfg.device).type)
 
-    now = datetime.now()
+    now = shared_timestamp()
     if args.output_dir:
         base_output_dir = Path(args.output_dir)
     else:
         base_output_dir = (Path("results") / now.strftime("%Y%m%d")
                            / f"{now.strftime('%H%M%S')}_{cfg.tag}")
     base_output_dir.mkdir(parents=True, exist_ok=True)
-    cfg.to_yaml(base_output_dir / "config.yaml")
+    if is_primary():
+        cfg.to_yaml(base_output_dir / "config.yaml")
 
     print("=" * 70)
     print("MULTIPLE EXPERIMENT RUNNER (CUDA)")

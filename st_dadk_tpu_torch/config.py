@@ -115,6 +115,9 @@ class ExperimentConfig:
     tail_compaction: bool = False              # the lane engine narrows a batch to its
                                                # active lanes once, at a multiple of
     compaction_epoch: int = 100                # compaction_epoch epochs
+    # the rank mesh's lane axis of the lane engine across processes
+    # (train/batch_engine.py, parallel/mesh.py)
+    mesh_axis: str = "exp"
 
     # -- port extras -------------------------------------------------------------
     data_root: Optional[str] = None            # prefix for relative data_file paths
@@ -134,7 +137,7 @@ class ExperimentConfig:
     # 'final_stop_sync', 'packed_finalize_pull',
     # 'pipeline_blocking_finalize': a loop of `run_job_batch` is the port's
     # serial baseline; the JAX-only fields
-    # 'scan_unroll', 'mesh_axis',
+    # 'scan_unroll',
     # 'dropout_rng' (its RNG streams do not cross frameworks anyway) and the
     # CLI keys), and 'init_gmm_fused': JAX runs the resolutions'
     # GMM EMs as one loop with the same seeding keys and the same tol stop

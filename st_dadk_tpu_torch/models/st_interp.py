@@ -252,11 +252,14 @@ class STInterp(nn.Module):
     def forward(self, coords: torch.Tensor, t: torch.Tensor,
                 X: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                fused: Optional[bool] = None) -> torch.Tensor:
+                fused: Optional[bool] = None,
+                dropout_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """yhat(s, t): (B, output_dim). `X` (B, p) are the covariates of a
         model with p > 0. `fused` picks the first layer's route (default:
         the spec's). Dropout (train=True, dropout > 0) draws one
-        (B, sum(hidden)) uniform block from `generator`; a model with no
+        (B, sum(hidden)) uniform block from `generator` (`draw_dropout_keep`),
+        or takes its keep mask `dropout_keep` where the caller drew it (a
+        data-parallel rank's rows of the minibatch's block); a model with no
         hidden layer feeds the features to the head and draws nothing."""
         if fused is None:
             fused = not self.spec.phi_route
@@ -267,7 +270,8 @@ class STInterp(nn.Module):
             # JAX `trunk` casts the features even with no layer to run
             return self.head(self.features(coords, t, X).to(self.spec.cdtype))
         h = self.first_layer(coords, t, X, fused)
-        return self.head(self.trunk_from_h1(h, train, generator))
+        return self.head(self.trunk_from_h1(h, train, generator,
+                                            dropout_keep))
 
     def features(self, coords: torch.Tensor, t: torch.Tensor,
                  X: Optional[torch.Tensor]) -> torch.Tensor:
@@ -313,13 +317,21 @@ class STInterp(nn.Module):
         return self.features(coords, t, X).to(cd) @ lin0.w.to(cd) \
             + lin0.b.to(cd)
 
-    def _dropout_masks(self, n: int, generator: Optional[torch.Generator],
-                       device: torch.device) -> list:
+    def draw_dropout_keep(self, n: int, generator: Optional[torch.Generator],
+                          device: torch.device) -> torch.Tensor:
+        """The (n, sum(hidden)) keep mask of one training forward."""
         if generator is None:
             raise ValueError("generator required for dropout in train mode")
         total = int(sum(self.spec.hidden_dims))
-        keep = torch.rand((n, total), generator=generator,
+        return torch.rand((n, total), generator=generator,
                           device=device) < (1.0 - self.spec.dropout)
+
+    def _dropout_masks(self, n: int, generator: Optional[torch.Generator],
+                       device: torch.device) -> list:
+        return self._split_keep(self.draw_dropout_keep(n, generator, device))
+
+    def _split_keep(self, keep: torch.Tensor) -> list:
+        """A keep mask's columns, a hidden layer each."""
         masks, off = [], 0
         for hdim in self.spec.hidden_dims:
             masks.append(keep[:, off:off + hdim])
@@ -327,15 +339,20 @@ class STInterp(nn.Module):
         return masks
 
     def trunk_from_h1(self, h: torch.Tensor, train: bool,
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
+                      generator: Optional[torch.Generator],
+                      dropout_keep: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
         """Hidden MLP given the first layer's pre-norm output, in the spec's
         dtype (JAX `_trunk_from_h1`)."""
         spec = self.spec
         cd = spec.cdtype
         h = h.to(cd)
         use_dropout = train and spec.dropout > 0.0
-        masks = (self._dropout_masks(h.shape[0], generator, h.device)
-                 if use_dropout else None)
+        masks = None
+        if use_dropout:
+            masks = (self._dropout_masks(h.shape[0], generator, h.device)
+                     if dropout_keep is None
+                     else self._split_keep(dropout_keep))
         for i, hdim in enumerate(spec.hidden_dims):
             if i > 0:
                 lin = getattr(self.mlp, f"linear_{i}")
@@ -770,10 +787,20 @@ def _flat(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
 
 def from_jax_params(spec: ModelSpec, params: Dict[str, Any],
                     consts: Dict[str, Any],
-                    device: torch.device | str = "cuda") -> STInterp:
+                    device: torch.device | str = "cuda",
+                    tp: Optional[Tuple[int, int]] = None) -> STInterp:
     """An STInterp holding a JAX (params, consts) pair's values on `device`
     (the card unless the caller names the CPU); a padded lane's
-    `spatial_k_mask` in consts becomes the model's mask."""
+    `spatial_k_mask` in consts becomes the model's mask. With `tp` = (rank,
+    n), the pair is in the JAX tensor-parallel layout (`to_tp_params`'s
+    output as numpy) and the result is rank's
+    `parallel.tensor_parallel.TPModel` of an n-rank group (`from_tp_params`
+    goes back)."""
+    if tp is not None:
+        from st_dadk_tpu_torch.parallel.data_parallel import DPGroup
+        from st_dadk_tpu_torch.parallel.tensor_parallel import tp_model
+        return tp_model(spec, params, consts,
+                        DPGroup(tp[0], tp[1], torch.device(device)))
     mask = consts.get("spatial_k_mask")
     model = STInterp(spec, np.asarray(consts["spatial_centers_init"]),
                      np.asarray(consts["spatial_bandwidths_init"]),

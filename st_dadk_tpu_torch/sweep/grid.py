@@ -12,8 +12,11 @@ Engine 'vmap' buckets the configs by `stacking_key` and dataset shape, and
 every bucket's configs x repeats run as lanes through `run_lane_jobs`;
 configs that differ only in `k_spatial_centers` get one `k_spatial_pad`
 and run as ragged lanes. 'sequential' runs the configs one after the other
-through the runner. One card and one process: there are no barriers
-between processes, and this process writes everything.
+through the runner. With a process group joined (`parallel/multihost.py`,
+JAX `:208`, `:286-288`) every process runs its own lanes (or its stripe of
+fits) and writes their artifacts; after a barrier only the primary writes
+the config files, aggregates and writes the summaries, and the other
+processes return an empty list.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from st_dadk_tpu_torch.config import ExperimentConfig, write_yaml
+from st_dadk_tpu_torch.parallel.multihost import is_primary, sync_processes
 from st_dadk_tpu_torch.train.runner import (aggregate_results,
                                             load_all_results,
                                             run_multiple_experiments)
@@ -210,7 +214,8 @@ def run_grid_search(
     for config in configs:
         config_dir = output_dir / config["tag"]
         config_dir.mkdir(parents=True, exist_ok=True)
-        write_yaml(config, config_dir / "config.yaml")
+        if is_primary():
+            write_yaml(config, config_dir / "config.yaml")
 
     if engine == "vmap":
         all_results = _run_grid_stacked(configs, output_dir,
@@ -231,6 +236,8 @@ def run_grid_search(
                 traceback.print_exc()
                 all_results.append({"config": config, "summary": None,
                                     "status": "failed", "error": str(e)})
+    if not is_primary():
+        return []
     save_experiment_results(all_results, output_dir)
     return all_results
 
@@ -313,6 +320,10 @@ def _run_grid_stacked(configs: List[Dict[str, Any]], output_dir: Path,
             for i in members:
                 failed[i] = str(e)
 
+    # every process wrote its own lanes; the primary aggregates them all
+    sync_processes("st_dadk_grid_aggregate")
+    if not is_primary():
+        return []
     for i in per_tau:
         if i in failed:
             continue

@@ -48,10 +48,22 @@ well as by the model's size (`_apply_auto_train_dtype`, JAX :389-414, at
 `AUTO_BF16_LANES`); `tail_compaction` narrows a batch to its active lanes
 once (`loop.fit_lanes`, JAX :906-1030).
 
-Not carried, raising NotImplementedError where a caller asks for it: `mesh`
-arguments. Left out without a knob of its own: packed transfers, the
-streaming pod path and the on-device metrics program; the knobs that select
-them stay accepted and ignored (`config.py`).
+Lanes across processes (JAX :229-234, :493-505, :573-680, :884-891): with
+a process group joined, or a `mesh` (`parallel/mesh.py`) given, each
+process takes its `process_lane_slice` of the batch's lane axis (padded to a
+multiple of the mesh's lane axis, in the job list's own order, before any
+`skip_existing` filter, so every process computes the same split), sets up
+and trains only those lanes on its own device, and writes only their
+artifacts; a pad row is no lane, since no program is shared across
+processes. The stream of batches runs serially (no pipeline threads), as in
+JAX. The caller (the runner, the grid) aggregates on the primary after a
+barrier. A lane's dropout masks come from its batch's generator
+(`loop.fit_lanes`), so a lane held by another process draws other masks
+than in a single-process batch; at dropout 0 with `shuffle: none` it is the
+same lane. Lanes nested over an 'exp' x 'data' mesh raise
+NotImplementedError (ROADMAP Queue 1). Left out without a knob of its own:
+packed transfers, the streaming pod path and the on-device metrics program;
+the knobs that select them stay accepted and ignored (`config.py`).
 """
 from __future__ import annotations
 
@@ -72,6 +84,11 @@ from st_dadk_tpu_torch.models.st_interp import (STInterpLanes,
                                                 stack_lane_models)
 from st_dadk_tpu_torch.ops.init_centers import (DATA_ADAPTIVE_INIT_METHODS,
                                                 init_spatial_centers_batch)
+from st_dadk_tpu_torch.parallel.multihost import (experiment_mesh_auto,
+                                                  is_primary, local_device,
+                                                  process_info,
+                                                  process_lane_slice,
+                                                  sync_processes)
 from st_dadk_tpu_torch.train.experiment import (ExperimentSetup,
                                                 finalize_experiment,
                                                 init_knobs,
@@ -145,6 +162,10 @@ def run_experiment_batch(cfg: ExperimentConfig, exp_ids: List[int],
         jobs = expand_per_tau_jobs(cfg, exp_ids, experiments_dir)
         run_lane_jobs(jobs, cfg, skip_existing=skip_existing,
                       verbose=verbose, device=device, mesh=mesh)
+        # a tau lane may live on another process: the primary aggregates
+        sync_processes("st_dadk_per_tau")
+        if not is_primary():
+            return []
         return aggregate_per_tau(cfg, exp_ids, experiments_dir,
                                  skip_existing=skip_existing,
                                  verbose=verbose)
@@ -257,8 +278,11 @@ def run_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
                   mesh: Any = None) -> List[Dict[str, Any]]:
     """Run (config, experiment id, output dir) jobs as lanes of ONE program.
     All configs must share a `stacking_key`; data files and observation
-    designs may differ a lane as long as dataset shapes match."""
-    _refuse_mesh(mesh)
+    designs may differ a lane as long as dataset shapes match. With several
+    processes, or a `mesh`, this process runs its own lanes only (module
+    docstring)."""
+    if jobs:
+        jobs = owned_jobs(jobs, mesh, jobs[0][0].mesh_axis)
     prep = _prepare_job_batch(jobs, skip_existing=skip_existing,
                               device=device)
     if prep is None:
@@ -267,11 +291,33 @@ def run_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
     return _finalize_job_batch(state)
 
 
-def _refuse_mesh(mesh: Any) -> None:
-    if mesh is not None:
+def owned_lane_slice(n_lanes: int, mesh: Any, axis: str = "exp") -> slice:
+    """The lanes [lo, hi) of a batch of `n_lanes` that this process owns:
+    all of them for one process and no mesh; else its
+    `process_lane_slice` of the lane axis padded to a multiple of the
+    mesh's `axis` (default mesh: every rank on `axis`, grouped by host),
+    cut at the real lanes. A mesh with another axis of more than one rank
+    (lanes nested over exp x data) raises."""
+    pc, _ = process_info()
+    if pc == 1 and mesh is None:
+        return slice(0, n_lanes)
+    mesh = mesh if mesh is not None else experiment_mesh_auto(axis)
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh {mesh.shape} has no lane axis {axis!r}")
+    nested = {a: n for a, n in mesh.shape.items() if a != axis and n > 1}
+    if nested:
         raise NotImplementedError(
-            "a mesh of devices needs the parallel package on "
-            "torch.distributed (ROADMAP Queue 1 item 1)")
+            f"lanes nested over {axis!r} x {sorted(nested)} (a data-parallel "
+            "fit a lane) are not ported (ROADMAP Queue 1)")
+    size = mesh.shape[axis]
+    sl = process_lane_slice(n_lanes + (-n_lanes) % size, mesh, axis)
+    return slice(min(sl.start, n_lanes), min(sl.stop, n_lanes))
+
+
+def owned_jobs(jobs: Sequence[Job], mesh: Any, axis: str = "exp"
+               ) -> List[Job]:
+    """This process's jobs of a batch (`owned_lane_slice`)."""
+    return list(jobs)[owned_lane_slice(len(jobs), mesh, axis)]
 
 
 def run_job_batches(batches: Sequence[Sequence[Job]],
@@ -289,9 +335,16 @@ def run_job_batches(batches: Sequence[Sequence[Job]],
     loop of `run_job_batch` over the batches. An exception on either thread
     is raised here. The results equal, bit for bit, those of the same
     batches through `run_job_batch` one after another: the threads share no
-    random stream and no op of one batch reads another's tensors."""
-    _refuse_mesh(mesh)
+    random stream and no op of one batch reads another's tensors. With
+    several processes or a mesh the batches run one after another on this
+    thread (JAX :493-505)."""
     results: List[Dict[str, Any]] = []
+    if process_info()[0] > 1 or mesh is not None:
+        for jobs in batches:
+            results.extend(run_job_batch(jobs, skip_existing=skip_existing,
+                                         verbose=verbose, device=device,
+                                         mesh=mesh))
+        return results
     it = iter(batches)
     with ThreadPoolExecutor(max_workers=1) as prep_ex, \
             ThreadPoolExecutor(max_workers=1) as fin_ex:
@@ -352,7 +405,7 @@ def _prepare_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
     if cfg.p_covariates > 0:
         raise NotImplementedError(
             "p_covariates > 0: the fit feeds no covariates")
-    dev = resolve_device(device or cfg.device)
+    dev = resolve_device(device or local_device() or cfg.device)
     setups = []
     for cfg_i, exp_id, out_dir in todo:
         s = ExperimentSetup(cfg_i, exp_id, dev, verbose=False,

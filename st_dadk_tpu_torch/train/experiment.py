@@ -52,6 +52,7 @@ from st_dadk_tpu_torch.models.st_interp import (ModelSpec, STInterp,
                                                 to_jax_params)
 from st_dadk_tpu_torch.ops.init_centers import (DATA_ADAPTIVE_INIT_METHODS,
                                                 init_spatial_centers)
+from st_dadk_tpu_torch.parallel.data_parallel import DPGroup
 from st_dadk_tpu_torch.ops.losses import (check_loss_np, compute_crps,
                                           compute_crps_multi_quantile)
 from st_dadk_tpu_torch.train.loop import (FitResult, adaptive_batch_size, fit,
@@ -233,8 +234,10 @@ def run_single_experiment(config: ExperimentConfig | Dict[str, Any],
                           device: Optional[torch.device | str] = None,
                           verbose: bool = True,
                           write_artifacts: bool = True,
-                          skip_existing: bool = False) -> Dict[str, Any]:
-    """One experiment end to end on `device` (default: the config's). A
+                          skip_existing: bool = False,
+                          dp: Optional[DPGroup] = None) -> Dict[str, Any]:
+    """One experiment end to end on `device` (default: the config's; with
+    `dp`, the data-parallel fit over its ranks on the rank's device). A
     multi-quantile or mean fit, or a quantile fit of one level (its tau the
     first level unless `current_quantile` names one), is one fit; a
     quantile fit of several levels is one fit a level in `quantile_<q>/`,
@@ -258,12 +261,18 @@ def run_single_experiment(config: ExperimentConfig | Dict[str, Any],
     output_dir.mkdir(parents=True, exist_ok=True)
     if cfg.regression_type == "quantile" and len(cfg.quantile_levels) > 1:
         return _run_per_tau(cfg, experiment_id, output_dir, device, verbose,
-                            write_artifacts, skip_existing)
+                            write_artifacts, skip_existing, dp)
     if cfg.regression_type == "quantile" and cfg.current_quantile is None:
         cfg = cfg.replace(current_quantile=float(cfg.quantile_levels[0]))
     return _run_one_fit(cfg, experiment_id, output_dir,
-                        resolve_device(device or cfg.device), verbose,
-                        write_artifacts)
+                        _fit_device(cfg, device, dp), verbose,
+                        write_artifacts, dp)
+
+
+def _fit_device(cfg: ExperimentConfig, device, dp: Optional[DPGroup]
+                ) -> torch.device:
+    return dp.device if dp is not None else resolve_device(device
+                                                           or cfg.device)
 
 
 def _split_predictions(pred: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -279,8 +288,8 @@ def _split_predictions(pred: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 def _run_per_tau(cfg: ExperimentConfig, experiment_id: int, output_dir: Path,
                  device: Optional[torch.device | str], verbose: bool,
-                 write_artifacts: bool, skip_existing: bool
-                 ) -> Dict[str, Any]:
+                 write_artifacts: bool, skip_existing: bool,
+                 dp: Optional[DPGroup] = None) -> Dict[str, Any]:
     """One model a quantile level in `quantile_<q>/` (a level already on
     disk with its predictions.npz is reloaded under `skip_existing`), then
     the JAX package's aggregated results (experiment.py:159-224): CRPS over
@@ -301,8 +310,8 @@ def _run_per_tau(cfg: ExperimentConfig, experiment_id: int, output_dir: Path,
             continue
         q_cfg = cfg.replace(regression_type="quantile", current_quantile=q)
         r = _run_one_fit(q_cfg, experiment_id, q_dir,
-                         resolve_device(device or cfg.device), verbose,
-                         write_artifacts)
+                         _fit_device(cfg, device, dp), verbose,
+                         write_artifacts, dp)
         quantile_preds[q] = r.pop("_split_predictions")
         quantile_results[q] = r
 
@@ -365,7 +374,8 @@ def _run_per_tau(cfg: ExperimentConfig, experiment_id: int, output_dir: Path,
 
 def _run_one_fit(cfg: ExperimentConfig, experiment_id: int, output_dir: Path,
                  device: torch.device, verbose: bool,
-                 write_artifacts: bool) -> Dict[str, Any]:
+                 write_artifacts: bool,
+                 dp: Optional[DPGroup] = None) -> Dict[str, Any]:
     start = time.time()
     setup = ExperimentSetup(cfg, experiment_id, device, verbose)
     t_setup = time.time() - start
@@ -376,7 +386,7 @@ def _run_one_fit(cfg: ExperimentConfig, experiment_id: int, output_dir: Path,
               f"{setup.valid_ps.n_real}/{setup.test_ps.n_real}", flush=True)
     t0 = time.time()
     result = fit(cfg, setup.spec, setup.model, setup.train_ps, setup.valid_ps,
-                 seed=setup.experiment_seed, verbose=verbose)
+                 seed=setup.experiment_seed, verbose=verbose, dp=dp)
     t_train = time.time() - t0
     return finalize_experiment(
         cfg, setup, result, output_dir, time.time() - start, verbose=verbose,

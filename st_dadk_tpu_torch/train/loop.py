@@ -82,6 +82,11 @@ from st_dadk_tpu_torch.ops.losses import (mse_loss, mse_loss_lanes,
                                           p_nc_delta_penalty,
                                           p_nc_delta_penalty_lanes,
                                           quantile_loss, quantile_loss_lanes)
+from st_dadk_tpu_torch.parallel.data_parallel import (DPGroup,
+                                                      block_wsum_total,
+                                                      loss_share,
+                                                      sync_gradients_,
+                                                      validation_sums)
 from st_dadk_tpu_torch.train.optimizer import (AdamW, AdamWLanes,
                                                build_lr_tables,
                                                clip_by_global_norm_,
@@ -195,10 +200,13 @@ class TrainData(NamedTuple):
 
 def training_loss(spec: LoopSpec, model: STInterp, coords: torch.Tensor,
                   t: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
-                  train: bool, generator: Optional[torch.Generator]
+                  train: bool, generator: Optional[torch.Generator],
+                  dropout_keep: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
-    """Composite objective: main loss plus the enabled penalties."""
-    preds = model(coords, t, train=train, generator=generator)
+    """Composite objective: main loss plus the enabled penalties
+    (`dropout_keep`: a keep mask drawn by the caller, `STInterp.forward`)."""
+    preds = model(coords, t, train=train, generator=generator,
+                  dropout_keep=dropout_keep)
     return loss_from_preds(spec, model, preds, y, w, train)
 
 
@@ -342,31 +350,44 @@ def _leaves(layout: Optional[PackSpec], tensors: Sequence[torch.Tensor]
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def _validate(spec: LoopSpec, ema: STInterp, data: TrainData
-              ) -> Tuple[float, float]:
+def _validate(spec: LoopSpec, ema: STInterp, data: TrainData,
+              dp: Optional[DPGroup] = None) -> Tuple[float, float]:
     """(val_loss, val_rmse): the mean of per-chunk mean losses over chunks
-    holding real points, and the RMSE of the median-quantile predictions."""
+    holding real points, and the RMSE of the median-quantile predictions.
+    With `dp`, each rank evaluates its rows of every chunk, weighs its
+    chunk loss by its share of the chunk's weight, and one all_reduce
+    completes the sums (JAX's sharded `_validate`, loop.py:318-357); rank
+    0's result is broadcast, so every rank reads the same stop flag."""
     C = spec.val_chunk
     losses, valid, se, cnt = [], [], [], []
     for i in range(spec.n_val_chunks):
         sl = slice(i * C, (i + 1) * C)
         ck, tk, yk, wk = (data.va_coords[sl], data.va_t[sl], data.va_y[sl],
                           data.va_w[sl])
+        n_real = torch.sum(wk)
+        if dp is not None:
+            rows = dp.rows(wk.shape[0])
+            ck, tk, yk, wk = ck[rows], tk[rows], yk[rows], wk[rows]
         preds = ema(ck, tk, train=False)
         loss = loss_from_preds(spec, ema, preds, yk, wk, train=False)
+        if dp is not None:
+            loss = loss * (torch.sum(wk) / torch.clamp(n_real, min=1e-12))
         if spec.regression_type == "multi-quantile":
             mid = len(spec.quantile_levels) // 2
             preds = preds[:, mid:mid + 1]
-        n_real = torch.sum(wk)
         has_real = (n_real > 0).float()
         losses.append(loss * has_real)
         valid.append(has_real)
         se.append(torch.sum((preds - yk) ** 2 * wk[:, None]))
         cnt.append(n_real)
-    val_loss = torch.stack(losses).sum() / torch.clamp(torch.stack(valid).sum(),
-                                                       min=1.0)
-    val_rmse = torch.sqrt(torch.stack(se).sum()
+    losses, se = torch.stack(losses), torch.stack(se)
+    if dp is not None:
+        losses, se = validation_sums(dp, (losses, se))
+    val_loss = losses.sum() / torch.clamp(torch.stack(valid).sum(), min=1.0)
+    val_rmse = torch.sqrt(se.sum()
                           / torch.clamp(torch.stack(cnt).sum(), min=1.0))
+    if dp is not None:
+        val_loss, val_rmse = dp.broadcast_(torch.stack([val_loss, val_rmse]))
     return float(val_loss), float(val_rmse)
 
 
@@ -609,7 +630,8 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
         train_ps: PointSet, valid_ps: PointSet, seed: int,
         verbose: bool = False, epochs_chunk: int = 50,
         checkpoint_path: Optional[str | Path] = None, resume: bool = False,
-        session_epochs: Optional[int] = None) -> FitResult:
+        session_epochs: Optional[int] = None,
+        dp: Optional[DPGroup] = None) -> FitResult:
     """Train `model` in place; return the serving params and history.
 
     The device is the model's; shuffle and dropout draw from one generator
@@ -619,7 +641,16 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
     `resume=True` continues from it, bit for bit the uninterrupted fit on
     the same device. `session_epochs` caps the epochs this call runs (JAX
     loop.py:1192-1290). A checkpoint has the structured layout whether
-    the fit is packed or not, so either resumes the other."""
+    the fit is packed or not, so either resumes the other.
+
+    With `dp` (`parallel.data_parallel.DPGroup`), the fit runs data-parallel
+    over the group's ranks (JAX `fit(mesh=..., dp_axis='data')`): rank 0's
+    initial model goes to every rank; every rank draws the epoch's shuffle
+    and each minibatch's whole dropout block from the same generator and
+    takes its own rows of both; its loss share and the gradient sum follow
+    `parallel/data_parallel.py`; validation sums its ranks' shares; only
+    rank 0 writes checkpoints. On one rank the fit is the single fit bit
+    for bit."""
     from st_dadk_tpu_torch.train.checkpoint import (checkpoint_exists,
                                                     load_checkpoint,
                                                     save_checkpoint)
@@ -632,6 +663,9 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
     lr_mlp, lr_basis, lr_recorded = build_lr_tables(cfg, B)
     gen = torch.Generator(device=device).manual_seed(int(seed))
 
+    if dp is not None:
+        dp.broadcast_module_(model)
+    use_dropout = spec_model.dropout > 0.0 and bool(spec_model.hidden_dims)
     ema_model = copy.deepcopy(model)
     groups, params, ema, layout = _optimizer_tensors(
         model, ema_model, bool(cfg.packed_optimizer))
@@ -647,7 +681,7 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
                                     "val_rmse": [], "center_shift": []}
     centers_history: List[Tuple[int, np.ndarray]] = []
     epochs_done = 0
-    # checkpoint_exists refuses a directory (Orbax) path before any epoch
+    # a directory path is a DCP checkpoint (train/checkpoint.py)
     if checkpoint_path is not None and checkpoint_exists(checkpoint_path) \
             and resume:
         carry, epochs_done, hists = load_checkpoint(checkpoint_path)
@@ -692,19 +726,33 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
         batches = packed_tr[idx]                               # (B, bs, 5)
         loss_sum, nan_epoch = 0.0, False
         for b in range(B):
-            xb = batches[b]
+            xb, keep = batches[b], None
+            if dp is not None:
+                # the whole minibatch's masks, then this rank's rows
+                if use_dropout:
+                    keep = model.draw_dropout_keep(batch_size, gen, device)
+                rows = dp.rows(batch_size)
+                share = loss_share(xb[rows, 4], block_wsum_total(
+                    xb[:, 4], dp.world), dp.world)
+                xb = xb[rows]
+                keep = keep[rows] if keep is not None else None
             _zero_grads(params, layout)
             loss = training_loss(spec, model, xb[:, 0:2], xb[:, 2:3],
                                  xb[:, 3:4], xb[:, 4], train=True,
-                                 generator=gen)
+                                 generator=gen, dropout_keep=keep)
+            if dp is not None:
+                loss = loss * share
             loss.backward()
             if epoch == session_start and b == 0:
                 _check_grad_views(model, params, layout)
+            if dp is not None:
+                lv = sync_gradients_(dp, params, loss)
             _transform_grads(spec, model, groups, layout is not None)
             s = epoch * B + b
             opt.step({"mlp": float(lr_mlp[s]), "basis": float(lr_basis[s])})
             ema_update(ema, params, data.ema_decay)
-            lv = float(loss.detach())
+            if dp is None:
+                lv = float(loss.detach())
             loss_sum += lv
             if not math.isfinite(lv):
                 nan_epoch = True
@@ -714,7 +762,7 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
         if spec.ablate_validate:
             val_loss, val_rmse = train_loss, 0.0
         else:
-            val_loss, val_rmse = _validate(spec, ema_model, data)
+            val_loss, val_rmse = _validate(spec, ema_model, data, dp)
         t_steps += t1 - t0
         t_val += time.perf_counter() - t1
         if epoch == session_start:
@@ -756,7 +804,7 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
             book["stopped"], book["stop_epoch"] = True, epoch + 1
             if verbose:
                 print(f"Early stopping at epoch {epoch + 1}")
-        if checkpoint_path is not None and (
+        if checkpoint_path is not None and (dp is None or dp.primary) and (
                 (epochs_done - session_start) % chunk == 0
                 or epochs_done == session_limit or book["stopped"]):
             save()

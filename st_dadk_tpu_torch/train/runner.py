@@ -14,8 +14,13 @@ disk. The filesystem contract is the JAX package's:
 pandas): same columns, same order. The two summary figures
 (`averaged_spatial_mse.png`, `observation_density.png`) are drawn from the
 experiments' predictions.npz inside one try, as there: a figure never
-fails the run. Left out: the multi-host barriers and process striping (one
-card, one process), and `engine="dp"`.
+fails the run.
+
+With a process group joined (`parallel/multihost.py`), as in JAX
+(`runner.py:138-199`): `engine="dp"` runs each fit data-parallel over
+every rank and only the primary writes; the sequential engine stripes its
+fits over the processes; the lane engine splits each batch's lanes over
+them. After a barrier only the primary aggregates; the others return None.
 """
 from __future__ import annotations
 
@@ -29,6 +34,10 @@ import numpy as np
 import torch
 
 from st_dadk_tpu_torch.config import ExperimentConfig, resolve_device
+from st_dadk_tpu_torch.parallel.data_parallel import DPGroup
+from st_dadk_tpu_torch.parallel.multihost import (is_primary, local_device,
+                                                  process_info,
+                                                  sync_processes)
 from st_dadk_tpu_torch.train.experiment import run_single_experiment
 from st_dadk_tpu_torch.utils.io import save_json
 
@@ -146,22 +155,20 @@ def run_multiple_experiments(
     engine='sequential' runs the fits one after the other; a fit that fails
     writes `error.txt` into its directory and the run goes on.
     engine='vmap' runs all repeats as lanes of one batched program
-    (`train.batch_engine.run_experiment_batch`). engine='dp' (one fit
-    data-parallel over several cards) is not ported: it needs the parallel
-    package on `torch.distributed` (ROADMAP Queue 1 item 1)."""
+    (`train.batch_engine.run_experiment_batch`). engine='dp' runs the fits
+    one after the other, each data-parallel over every rank of the joined
+    group (one rank and no collective without a group), on the rank's
+    device (`multihost.local_device`) unless `device` names one."""
     if engine not in ENGINES:
         raise ValueError(f"Unknown engine {engine!r}: expected "
                          "'sequential', 'vmap' or 'dp'")
-    if engine == "dp":
-        raise NotImplementedError(
-            "engine='dp' needs the parallel package on torch.distributed "
-            "(ROADMAP Queue 1 item 1)")
     cfg = (config if isinstance(config, ExperimentConfig)
            else ExperimentConfig.from_dict(config))
     n_experiments = int(cfg.n_experiments)
     start_id = start_exp_id or 1
     end_id = end_exp_id or n_experiments
-    device = resolve_device(device or cfg.device)
+    device = resolve_device(device or local_device() or cfg.device)
+    pc, pid = process_info()
 
     output_dir = Path(output_dir)
     experiments_dir = output_dir / "experiments"
@@ -173,19 +180,30 @@ def run_multiple_experiments(
                              experiments_dir, skip_existing=skip_existing,
                              verbose=verbose, device=device)
     else:
+        dp = DPGroup.default(device) if engine == "dp" else None
+        write = dp is None or dp.primary
         for i in range(start_id, end_id + 1):
+            if dp is None and pc > 1 and (i - start_id) % pc != pid:
+                continue     # sequential fits stripe over the processes
             exp_dir = experiments_dir / str(i)
             exp_dir.mkdir(parents=True, exist_ok=True)
             try:
                 run_single_experiment(cfg, i, exp_dir, device=device,
                                       verbose=verbose,
-                                      skip_existing=skip_existing)
+                                      skip_existing=skip_existing, dp=dp,
+                                      write_artifacts=write)
             except Exception as e:   # the run goes on; the failure is on disk
                 print(f"[FAILED] Experiment {i}: {e}")
-                with open(exp_dir / "error.txt", "w", encoding="utf-8") as f:
-                    f.write(f"Experiment {i} FAILED\nError: {e}\n\n")
-                    f.write(traceback.format_exc())
+                if write:
+                    with open(exp_dir / "error.txt", "w",
+                              encoding="utf-8") as f:
+                        f.write(f"Experiment {i} FAILED\nError: {e}\n\n")
+                        f.write(traceback.format_exc())
 
+    # every process's writes land before the primary reads them back
+    sync_processes("st_dadk_aggregate")
+    if not is_primary():
+        return None
     all_results = load_all_results(experiments_dir, n_experiments)
     if all_results:
         return aggregate_results(all_results, output_dir / "summary")

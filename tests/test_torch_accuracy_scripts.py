@@ -69,6 +69,27 @@ def test_competition_compare_takes_a_paired_run(tmp_path):
     assert "| mean | 1.5 | 1.2 | |" in text
 
 
+def test_competition_dropout_rng_runs_a_config_copy(tmp_path, monkeypatch):
+    """--dropout_rng: the JAX side runs on the repo's config with that one
+    key added, written beside the scores; --pipelines picks the pipelines;
+    the torch side refuses the flag."""
+    comp = _script("port_accuracy_competition")
+    monkeypatch.setattr(comp, "family", lambda: {"stem": REPO / "build"})
+    out = tmp_path / "arm"
+    assert comp.main(["--side", "jax", "--output_dir", str(out), "--n", "0",
+                      "--dropout_rng", "threefry", "--pipelines",
+                      "submission"]) == 0
+    base = (REPO / "configs" / "config_st_interp.yaml").read_text()
+    text = (out / "config.yaml").read_text()
+    assert text == base.rstrip("\n") + "\ndropout_rng: threefry\n"
+    info = json.loads((out / "run_info.json").read_text())
+    assert info["pipelines"] == ["submission"]
+    assert info["dropout_rng"] == "threefry"
+    with pytest.raises(SystemExit, match="JAX"):
+        comp.main(["--side", "torch", "--output_dir", str(out), "--n", "0",
+                   "--dropout_rng", "threefry", "--device", "cpu"])
+
+
 def test_paired_config_and_init_round_trip(tmp_path):
     paired = _script("port_accuracy_paired")
     cfg = tmp_path / "c.yaml"

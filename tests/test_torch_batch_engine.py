@@ -299,9 +299,21 @@ def test_what_the_engine_refuses(toy_csv, tmp_path, case):
                                      tmp_path)
         return
     else:
-        with pytest.raises(NotImplementedError, match="mesh"):
+        # a rank mesh runs now (one process: it owns every lane; lanes
+        # across processes: tests/test_torch_multiprocess_cluster.py); what
+        # stays refused is lanes nested over exp x data
+        from st_dadk_tpu_torch.parallel.mesh import make_mesh
+        from st_dadk_tpu_torch.parallel.multihost import RankDevice
+        nested = make_mesh({"exp": 1, "data": 2},
+                           [RankDevice(0, 0), RankDevice(1, 1)])
+        with pytest.raises(NotImplementedError, match="nested"):
             tbe.run_experiment_batch(_cfg(toy_csv), [1, 2], tmp_path,
-                                     mesh=object())
+                                     mesh=nested)
+        assert not any(tmp_path.glob("*/results.json"))
+        res = tbe.run_experiment_batch(_cfg(toy_csv, epochs=2), [1, 2],
+                                       tmp_path, mesh=make_mesh())
+        assert [r["experiment_id"] for r in res] == [1, 2]
+        return
     assert not any(tmp_path.glob("*/results.json"))
 
 

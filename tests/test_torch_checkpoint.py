@@ -2,8 +2,9 @@
 loop.fit with `checkpoint_path`): the npz cases of tests/test_checkpoint.py
 (an interrupted and resumed fit is the uninterrupted one bit for bit, a
 session budget that is not a chunk multiple, a budget of 0, a resume after
-the end), the file's layout against the JAX package's, and the Orbax
-directory path, which the port refuses."""
+the end), the file's layout against the JAX package's, and a directory
+that JAX's Orbax wrote, which the port refuses (its own directories:
+tests/test_torch_checkpoint_dir.py)."""
 import numpy as np
 import pytest
 import torch
@@ -149,13 +150,31 @@ def test_checkpoint_layout_is_the_jax_packages(tmp_path):
 
 
 def test_orbax_directory_path_is_refused(tmp_path):
+    """A directory path is the port's own checkpoint directory now; what it
+    refuses, with the reason, is a directory that JAX's Orbax wrote, as a
+    load and as a resume (before any epoch runs)."""
+    import jax
+
+    from st_dadk_tpu.config import ExperimentConfig as JaxConfig
+    from st_dadk_tpu.models.st_interp import init_model as jax_init
+    from st_dadk_tpu.models.st_interp import spec_from_config as jax_spec
+    from st_dadk_tpu.train.checkpoint import save_checkpoint as jax_save
+    from st_dadk_tpu.train.loop import init_carry
+
     cfg = _cfg(2)
-    for path in (tmp_path / "orbax_ckpt", tmp_path / "ck.ckpt"):
-        assert tck.is_orbax_path(path)
-        with pytest.raises(NotImplementedError, match="Orbax"):
-            _fit(cfg, checkpoint_path=path)
-        with pytest.raises(NotImplementedError, match="Orbax"):
-            tck.load_checkpoint(path)
-        assert not path.exists()
+    params, _ = jax_init(jax.random.PRNGKey(3),
+                         jax_spec(JaxConfig.from_dict(cfg.to_dict())))
+    orbax = tmp_path / "orbax_ckpt"
+    jax_save(orbax, init_carry(params, jax.random.PRNGKey(3)), 2, [])
+    assert tck.is_orbax_path(orbax) and tck.checkpoint_exists(orbax)
+    with pytest.raises(ValueError, match="Orbax"):
+        tck.load_checkpoint(orbax)
+    with pytest.raises(ValueError, match="Orbax"):
+        _fit(cfg, checkpoint_path=orbax, resume=True)
+    own = tmp_path / "ck.ckpt"
+    assert tck.is_orbax_path(own) and not tck.checkpoint_exists(own)
+    _fit(cfg, checkpoint_path=own)
+    assert (own / "state" / ".metadata").is_file()
+    assert tck.load_checkpoint(own)[1] == 2
     assert not tck.is_orbax_path(tmp_path / "ck.npz")
     assert not tck.checkpoint_exists(tmp_path / "ck.npz")

@@ -154,9 +154,12 @@ def test_train_st_interp_runs_and_writes_its_tree(toy, tmp_path, monkeypatch):
     _check_run_tree(run, 1)
     r = json.loads((run / "experiments" / "1" / "results.json").read_text())
     assert r["experiment_seed"] == 7
-    with pytest.raises(NotImplementedError, match="dp"):
-        cli_train.main(["--config", str(toy / "tiny.yaml"), "--engine", "dp",
-                        "--output_dir", str(tmp_path / "dp")])
+    # --engine dp runs (one process: each fit data-parallel over one rank)
+    summary = cli_train.main(["--config", str(toy / "tiny.yaml"), "--engine",
+                              "dp", "--n_experiments", "1", "--output_dir",
+                              str(tmp_path / "dp")])
+    assert summary["n_experiments"] == 1
+    _check_run_tree(tmp_path / "dp", 1)
 
 
 def test_run_grid_search_runs_and_dry_runs(toy, tmp_path, capsys):

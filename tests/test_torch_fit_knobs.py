@@ -94,6 +94,7 @@ def test_unported_knob_raises_at_setup(toy_csv, tmp_path, knob, value):
                                         ("remat", True),
                                         ("pregather", False),
                                         ("packed_optimizer", True),
+                                        ("mesh_axis", "lanes"),
                                         ("init_em_dtype", "float32"),
                                         ("ablate_validate", False)])
 def test_accepted_knob_sets_up(toy_csv, knob, value):
@@ -101,10 +102,12 @@ def test_accepted_knob_sets_up(toy_csv, knob, value):
     validation knobs that keep the JAX default fit."""
     cfg = _cfg(toy_csv, spatial_init_method="gmm", **{knob: value})
     setup = texp.ExperimentSetup(cfg, 1, "cpu")
-    # `packed_optimizer` is a field since the port carries it
-    # (tests/test_torch_packing.py); the others stay in `extra`
-    got = (cfg.packed_optimizer if knob == "packed_optimizer"
-           else cfg.extra[knob])
+    # `packed_optimizer` and `mesh_axis` are fields since the port reads
+    # them (tests/test_torch_packing.py, test_torch_multihost.py); the
+    # others stay in `extra`
+    field = knob in ("packed_optimizer", "mesh_axis")
+    got = getattr(cfg, knob) if field else cfg.extra[knob]
+    assert (knob in cfg.extra) != field
     assert setup.model is not None and got == value
 
 

@@ -40,7 +40,10 @@ def test_port_imports_no_jax_yaml_pandas_or_reference():
                  "cli.predict_submission", "cli.forecast_submission",
                  "cli.score_families", "cli.analyze_table_4_4",
                  "cli.analyze_grid_search", "cli.resume_grid_search",
-                 "train.packing", "ab_paired"):
+                 "train.packing", "ab_paired", "parallel",
+                 "parallel.mesh", "parallel.multihost",
+                 "parallel.data_parallel", "parallel.tensor_parallel",
+                 "parallel.launch"):
         assert f"st_dadk_tpu_torch.{name}" in res["modules"], name
     assert res["forbidden"] == []
 

@@ -197,12 +197,21 @@ def test_failed_sequential_fit_writes_error_and_the_run_goes_on(
 
 
 def test_engines_refused(toy_csv, tmp_path):
-    cfg = _cfg(toy_csv)
+    """An unknown engine raises before anything is written. engine='dp'
+    runs now: with no process group a fit is data-parallel over one rank,
+    the sequential fit bit for bit (two ranks:
+    tests/test_torch_data_parallel.py)."""
+    cfg = _cfg(toy_csv, n_experiments=2, dropout=0.1)
     with pytest.raises(ValueError, match="Unknown engine"):
         trunner.run_multiple_experiments(cfg, tmp_path, engine="pmap")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        trunner.run_multiple_experiments(cfg, tmp_path, engine="dp")
     assert not (tmp_path / "experiments").exists()
+    dp = trunner.run_multiple_experiments(cfg, tmp_path / "dp", engine="dp",
+                                          device="cpu")
+    seq = trunner.run_multiple_experiments(cfg, tmp_path / "seq",
+                                           device="cpu")
+    assert dp["n_experiments"] == seq["n_experiments"] == 2
+    for m in ("test_rmse", "valid_rmse", "train_mae"):
+        assert dp["statistics"][m]["values"] == seq["statistics"][m]["values"]
 
 
 def test_nothing_on_disk_gives_no_summary(toy_csv, tmp_path, monkeypatch):
