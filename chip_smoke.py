@@ -160,7 +160,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      seed's lane of one process's batch, bitwise or by the drift rule
      (printed which);
  28. phase 17's resume through a checkpoint directory
-     (torch.distributed.checkpoint), bitwise the straight fit.
+     (torch.distributed.checkpoint), bitwise the straight fit;
+ 29. lanes nested over an exp x data mesh (NESTED_MESH) of gloo ranks on the
+     card through `run_job_batch(mesh=...)`, twice: phase 27's lanes
+     (dropout 0, shuffle 'none'), held to phase 27's one-process batch, and
+     the bench workload's lanes (its dropout and shuffle), held to one
+     process's batch of each data row's lanes; each by the drift rule
+     against its own config's fit with its minibatch rows reversed; the
+     lanes each rank owns and writes, its launches;
+ 30. phase 6's lanes with artifacts and figures off, scored by the device
+     metrics: the params stay on the card, fits bitwise phase 6's, every
+     metric within DEVICE_METRICS_RTOL of the host path's;
+ 31. `trace_steady_state`'s capture and analysis of a short pipelined
+     stream: device time in every stage family, under TRACE_OTHER_SHARE of
+     it unclaimed by any stage, every host-device copy of the trace in a
+     copy family, the steady table summing to the batch wall.
+The device metrics' per-lane fallback (`batch_engine.eval_fallbacks`) must
+not fire in any phase: the run fails after the first phase in which it did.
 Phases 25 (ii)-27 run in one launch of RANKS child processes (spawned; each
 loads the libraries built here), whose launch counts and shapes come back.
 Phases 22-28 run before phase 21, whose shapes include theirs.
@@ -349,6 +365,20 @@ COMPACT_MIN_GAIN = 0.01
 RANKS, RANK_LANES = 2, 4
 RANK_TIMEOUT, RANK_JOIN_TIMEOUT = 60.0, 300.0
 TP_K_LOCAL = 114
+# phase 29: phase 27's lanes over an exp x data mesh of gloo ranks on the
+# card, each data row's lanes a data-parallel fit over the row
+NESTED_MESH = (("exp", 2), ("data", 2))
+# phase 30: the device metrics against the host path's scores of the same
+# fit (tests/test_torch_device_metrics.py's bar)
+DEVICE_METRICS_RTOL = 1e-5
+# phase 31: the trace tool's capture; the share of its device time that no
+# stage claims (none in a healthy capture: every launch of the stream comes
+# from a stage); how far the steady table may be from the batch wall on the
+# capture's own clock (an identity of the analysis: a row's idle time is
+# the rest of its period)
+TRACE_BATCHES, TRACE_LANES, TRACE_EPOCHS = 3, 4, 2
+TRACE_OTHER_SHARE = 0.01
+TRACE_WALL_RTOL = 0.10
 NAN_DIAG_KEYS = {"nan_epochs", "n_epochs_run", "train_loss_tail",
                  "val_loss_tail", "inputs", "params"}
 # bars: (rtol, atol) of each kernel against its plain version
@@ -959,9 +989,12 @@ class Phases:
         unpadded = self.lane_comparison(lane)
         self.spatial_gradients(bench, lane, launches)
         self.lanes_phase(bench)
+        self.no_fallback("6 (lanes)")
         jobs = self.ragged_lanes_phase({(tuple(RAGGED_GRID[0]), 1): unpadded,
                                         (tuple(RAGGED_GRID[1]), 1): bench[1]})
+        self.no_fallback("7 (ragged lanes)")
         self.pipeline_phase()
+        self.no_fallback("8 (pipeline)")
         self.init_phase(jobs)
         for name, phase in (("10 (init methods)",
                              lambda: self.init_methods_phase(jobs)),
@@ -993,12 +1026,28 @@ class Phases:
                              lambda: self.ranks_lanes_phase(bench)),
                             ("28 (checkpoint directory)",
                              self.checkpoint_dir_phase),
+                            ("29 (nested exp x data lanes)",
+                             self.nested_lanes_phase),
+                            ("30 (device metrics)",
+                             self.device_metrics_phase),
+                            ("31 (steady-state trace)", self.trace_phase),
                             ("21 (every launch shape)",
                              self.launch_shapes_phase)):
             t0 = time.time()
             phase()
+            self.no_fallback(name)
             print(f"phase {name}: {time.time() - t0:.1f} s", flush=True)
         return launches
+
+    @staticmethod
+    def no_fallback(name):
+        """Fails the run if a batch's device metrics fell back to the
+        per-lane evaluation so far (the count is the process's)."""
+        from st_dadk_tpu_torch.train import batch_engine as tbe
+
+        check(tbe.eval_fallbacks == 0,
+              f"phase {name}: the device metrics fell back to the per-lane "
+              f"evaluation {tbe.eval_fallbacks} times")
 
     def fit(self, name, out_dir, exp_id=1, **overrides):
         """One fit of the bench workload through run_single_experiment:
@@ -2500,7 +2549,7 @@ class Phases:
         res = json.loads((REPO / "build" / "chip_smoke_ranks" / "dp" /
                           "experiments" / "1" / "results.json").read_text())
         worst = self.hold_by_drift("dp over 2 ranks", res, want,
-                                   self.reordered_drift(bench))
+                                   self.reordered_drift())
         p0, p1 = (r["dp"]["params"] for r in ranks)
         equal = p0.keys() == p1.keys() and all(
             np.array_equal(p0[k], p1[k]) for k in p0)
@@ -2639,6 +2688,251 @@ class Phases:
               f"{RESUME_EPOCHS} straight: bitwise {same}", flush=True)
         check(same, "phase 28: the fit resumed from a directory differs")
 
+    def nested_lanes_phase(self):
+        """Phase 29: lanes through `run_job_batch` over an exp x data mesh of
+        gloo ranks on the card (NESTED_MESH): each data row owns the lanes
+        of its exp coordinate, every lane a data-parallel fit over the row,
+        and the row's rank 0 alone writes them. Two runs in the same ranks:
+        phase 27's lanes (RANK_LANES seeds at dropout 0, shuffle 'none'),
+        held to phase 27's single-process batch, and the bench workload's
+        RANK_LANES lanes with its dropout and shuffle (each rank takes its
+        rows of the minibatch's dropout block and order), held to one
+        process's batch of each data row's lanes (a lane's masks come from
+        its batch's generator). Each is held by the drift rule against its
+        own config's fit with every minibatch's rows reversed (the split
+        changes the order of every step's sums over the points, and how far
+        that moves a fit depends on the config): phase 27's config's, and
+        phase 25's for the bench workload."""
+        import shutil
+
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.config import ExperimentConfig, write_yaml
+        from st_dadk_tpu_torch.parallel.launch import run_ranks
+        from st_dadk_tpu_torch.train import batch_engine
+
+        root = REPO / "build" / "chip_smoke_ranks"
+        out = REPO / "build" / "chip_smoke_nested"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        bench_cfg = dict(bench_workload(
+            data_file=str(self.data_file), epochs=EPOCHS,
+            n_experiments=RANK_LANES, device="cuda", save_plots=False,
+            save_artifacts=True), tag="nested")
+        write_yaml(bench_cfg, out / "bench.yaml")
+        runs = {"phase 27's lanes": (str(root / "lanes.yaml"),
+                                     str(out / "lanes")),
+                "bench lanes": (str(out / "bench.yaml"),
+                                str(out / "bench"))}
+        mesh = dict(NESTED_MESH)
+        world = mesh["exp"] * mesh["data"]
+        t0 = time.time()
+        ranks = run_ranks(_nested_runs, world, (list(runs.values()),),
+                          backend="gloo", device="cuda",
+                          timeout=RANK_TIMEOUT,
+                          join_timeout=RANK_JOIN_TIMEOUT)
+        print(f"{world} gloo ranks on the card as exp x data = {mesh}, "
+              f"{len(runs)} runs: {time.time() - t0:.1f} s, child start "
+              f"included", flush=True)
+        per = RANK_LANES // mesh["exp"]
+        for r, got_runs in enumerate(ranks):
+            row, col = divmod(r, mesh["data"])
+            lanes = list(range(row * per + 1, (row + 1) * per + 1))
+            for run, got in zip(runs, got_runs):
+                ns = sorted({key[1] for key in
+                             got["shapes"]["fused_first_layer_bwd_w"]})
+                print(f"nested {run}, rank {r} (exp {row}, data {col}): "
+                      f"lanes {got['lanes']}, wrote {got['written']}; "
+                      f"launches "
+                      f"{json.dumps({k: v for k, v in got['counts'].items() if v})}"
+                      f" (dW at N = {ns})", flush=True)
+                check(got["lanes"] == lanes, f"phase 29: {run}, rank {r} "
+                      f"owns {got['lanes']}, not {lanes}")
+                check(got["written"] == (lanes if col == 0 else []),
+                      f"phase 29: {run}, rank {r} wrote {got['written']}")
+                for nm in LANE_KERNELS:
+                    check(got["counts"][nm] > 0,
+                          f"phase 29: {run}, rank {r} never launched {nm}")
+                self.parallel_launches[f"nested {run} rank {r}"] = \
+                    got["counts"]
+                for nm, keys in got["shapes"].items():
+                    self.launched.setdefault(nm, set()).update(
+                        tuple(key) for key in keys)
+        # the bench lanes' reference: one process's batch of each row's lanes
+        cfg = ExperimentConfig.from_dict(bench_cfg)
+        for row in range(mesh["exp"]):
+            batch_engine.run_job_batch(
+                [(cfg, i, out / "single" / "experiments" / str(i))
+                 for i in range(row * per + 1, (row + 1) * per + 1)],
+                device="cuda")
+        refs = {"phase 27's lanes": (
+                    root / "single",
+                    self.reordered_drift_of(
+                        "phase 27's lane config",
+                        ExperimentConfig.from_yaml(root / "lanes.yaml")
+                        .to_dict())),
+                "bench lanes": (out / "single", self.reordered_drift())}
+        for run, (ref_dir, drift) in refs.items():
+            worst = 0.0
+            for i in range(1, RANK_LANES + 1):
+                a = json.loads((Path(runs[run][1]) / "experiments" / str(i)
+                                / "results.json").read_text())
+                b = json.loads((ref_dir / "experiments" / str(i) /
+                                "results.json").read_text())
+                worst = max(worst, self.hold_by_drift(
+                    f"nested {run}, lane {i}", a, b, drift))
+            print(f"nested {run} against one process's batch: loss "
+                  f"histories within {worst:.1e} (drift rule, reordered "
+                  f"rows)", flush=True)
+
+    def device_metrics_phase(self):
+        """Phase 30: phase 6's LANES lanes again with artifacts and figures
+        off, so that the batch is scored by the device metrics
+        (`_batched_eval_device`: only (M, 3, K) scalars leave the card):
+        the serving params stay on the card, neither the host evaluation
+        nor the per-lane fallback runs, the fit is bitwise phase 6's, and
+        every lane's scores are phase 6's (the host path's) within
+        DEVICE_METRICS_RTOL."""
+        import contextlib
+        import io
+        import shutil
+
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+        from st_dadk_tpu_torch.train import batch_engine as tbe
+        from st_dadk_tpu_torch.train.runner import run_multiple_experiments
+
+        out_dir = REPO / "build" / "chip_smoke_device_metrics"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        cfg = bench_workload(data_file=str(self.data_file), epochs=EPOCHS,
+                             n_experiments=LANES, save_artifacts=False,
+                             save_plots=False)
+        seen = {"device": 0, "host": 0, "on_device": None}
+        saved = (tbe._batched_eval_device, tbe._batched_eval,
+                 tbe._finalize_job_batch)
+
+        def device(*a, **kw):
+            seen["device"] += 1
+            return saved[0](*a, **kw)
+
+        def host(*a, **kw):
+            seen["host"] += 1
+            return saved[1](*a, **kw)
+
+        def finalize(state):
+            seen["on_device"] = all(r.params is None
+                                    for r in state["results"])
+            return saved[2](state)
+
+        tbe._batched_eval_device, tbe._batched_eval = device, host
+        tbe._finalize_job_batch = finalize
+        log = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(log):
+                _, counts = self.counted(lambda: run_multiple_experiments(
+                    cfg, out_dir, engine="vmap", device="cuda"))
+        finally:
+            (tbe._batched_eval_device, tbe._batched_eval,
+             tbe._finalize_job_batch) = saved
+        print(log.getvalue(), end="", flush=True)
+        check("falling back per-lane" not in log.getvalue(),
+              "phase 30: the device evaluation failed and fell back")
+        check(seen["device"] == 1 and seen["host"] == 0,
+              f"phase 30: device evaluations {seen['device']}, host "
+              f"evaluations {seen['host']}")
+        check(seen["on_device"] is True,
+              "phase 30: the serving params left the card before finalize")
+        worst, secs = 0.0, []
+        for i in range(1, LANES + 1):
+            got = json.loads((out_dir / "experiments" / str(i) /
+                              "results.json").read_text())
+            want = self.lanes_results[i - 1]
+            check(got["training_history"] == want["training_history"],
+                  f"phase 30: lane {i}'s fit differs from phase 6's")
+            for split in ("train", "valid", "test"):
+                for m, v in want["metrics"][split].items():
+                    gap = abs(got["metrics"][split][m] - v) / abs(v)
+                    worst = max(worst, gap)
+                    check(gap <= DEVICE_METRICS_RTOL,
+                          f"phase 30: lane {i} {split} {m} "
+                          f"{got['metrics'][split][m]!r} is {gap:.2e} from "
+                          f"the host path's {v!r}")
+            secs.append((got["stage_timings"]["batch_eval_seconds"],
+                         want["stage_timings"]["batch_eval_seconds"]))
+        print(f"device metrics of {LANES} lanes: fits bitwise phase 6's, "
+              f"every metric within {worst:.1e} of the host path's (bar "
+              f"{DEVICE_METRICS_RTOL}); batch evaluation {secs[0][0]:.3f} s "
+              f"(host path {secs[0][1]:.3f} s); launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}",
+              flush=True)
+
+    def trace_phase(self):
+        """Phase 31: `trace_steady_state`'s capture of TRACE_BATCHES
+        batches of TRACE_LANES lanes, TRACE_EPOCHS epochs each (CUDA
+        activities alone: the CPU ops add most of a trace's size and its
+        export time; no warm-up batch: the earlier phases ran every path
+        it takes), and its analysis: device time in every stage family;
+        under TRACE_OTHER_SHARE of the device time, over the span and in
+        each steady period, in 'other' (no stage claims it: a launch the
+        attribution lost); the copy families' activities, summed, equal to
+        every host-device copy of the trace, read from the trace itself;
+        and a steady table whose rows sum to the batch wall on the
+        capture's own clock within TRACE_WALL_RTOL."""
+        import gzip
+        import shutil
+
+        from st_dadk_tpu_torch import trace_steady_state as tts
+
+        out = REPO / "build" / "chip_smoke_trace"
+        shutil.rmtree(out, ignore_errors=True)
+        meta, _ = self.counted(lambda: tts.capture(
+            out, TRACE_BATCHES, TRACE_LANES, TRACE_EPOCHS, ops=False,
+            warmup=False))
+        trace = json.loads(gzip.decompress((out / "trace.json.gz")
+                                           .read_bytes()))
+        report = tts.analyze(out, trace)
+        tts.print_report(report)
+        fam = report["family_seconds"]
+        for f in ("init", "fit step", "eval/finalize"):
+            check(fam.get(f, 0.0) > 0.0, f"phase 31: no device time in {f}")
+        check(fam.get("other", 0.0) <= TRACE_OTHER_SHARE
+              * report["device_busy_seconds"],
+              f"phase 31: {fam.get('other', 0.0):.4f} s of "
+              f"{report['device_busy_seconds']:.4f} s device time claimed "
+              f"by no stage")
+        # every host-device copy of the trace, and those the analysis put
+        # in a copy family: as many, and as long (end - ts rounds each
+        # duration at the trace's epoch microseconds: at most half a us)
+        raw = [dur for _, dur, cat, name, _ in trace["device"]
+               if cat == "gpu_memcpy" and "dtod" not in name.lower()]
+        got = [e["end"] - e["ts"] for e in tts.attribute(trace)
+               if e["family"] in ("copy H2D", "copy D2H")]
+        copies = sum(got)
+        check(raw and len(got) == len(raw)
+              and abs(copies - sum(raw)) <= 0.5 * len(raw),
+              f"phase 31: the copy families hold {len(got)} copies, "
+              f"{copies:.1f} us, of the trace's {len(raw)}, "
+              f"{sum(raw):.1f} us")
+        rows = (report.get("steady") or {}).get("batches", [])
+        check(len(rows) == TRACE_BATCHES - 2,
+              f"phase 31: {len(rows)} steady rows")
+        for r in rows:
+            busy = r["wall_seconds"] - r["idle"]
+            check(r["other"] <= TRACE_OTHER_SHARE * busy,
+                  f"phase 31: batch {r['batch']}: {r['other']:.4f} s of "
+                  f"{busy:.4f} s device time claimed by no stage")
+            gap = abs(r["table_sum_seconds"] - r["host_wall_seconds"])
+            check(gap <= TRACE_WALL_RTOL * r["host_wall_seconds"],
+                  f"phase 31: batch {r['batch']}'s table sums to "
+                  f"{r['table_sum_seconds']:.4f} s against a wall of "
+                  f"{r['host_wall_seconds']:.4f} s")
+        print(f"trace: 'other' {fam.get('other', 0.0):.4f} s; copies "
+              f"{len(got)}, {copies / 1e6:.6f} s, all of the trace's "
+              f"host-device copies ({sum(raw) / 1e6:.6f} s)", flush=True)
+        print(f"trace of {meta['fits']} fits: {meta['wall_seconds']:.2f} s in "
+              f"the window, export and reduction "
+              f"{meta['export_seconds']:.1f} s "
+              f"({json.dumps(meta['export_split_seconds'])}); events "
+              f"{json.dumps(meta['events'])}", flush=True)
+
     def hold(self, nm, kern, plain, where):
         """One call of kernel `nm` against its plain version at BARS[nm]:
         fails on a non-finite output or on excess; keeps the worst max |d|
@@ -2660,9 +2954,9 @@ class Phases:
 
     def launch_shapes_phase(self):
         """Phase 21: each kernel against its plain version at every shape
-        (N, k, H, basis) that a counted run of phases 3-20 launched it at
-        without a lane axis or a column mask, on seeded inputs; the lane
-        phases hold the lane axis and the mask."""
+        (N, k, H, basis) that a counted run of the other phases launched it
+        at, on seeded inputs: without a lane axis, and with one (M lanes,
+        the basis kernels with a column mask where the launch had one)."""
         from st_dadk_tpu_torch.ops.basis import BASIS_IDS, CALIBRATION_FACTORS
 
         torch = self.torch
@@ -2685,8 +2979,42 @@ class Phases:
                               + ("" if basis == "wendland" else f" {basis}"))
             print(f"  {nm}: held at {len(flat)} launch shapes ("
                   + ", ".join(shapes) + f"), worst max |d| {worst:.3e} "
-                  f"(rtol, atol {BARS[nm]}); {len(keys) - len(flat)} more "
-                  "with a lane axis or a mask", flush=True)
+                  f"(rtol, atol {BARS[nm]})", flush=True)
+            lanes = [key for key in keys if key[0]]
+            if not lanes:
+                continue
+            worst, shapes = 0.0, []
+            for i, (lead, n, k, h, masked, bid) in enumerate(lanes):
+                basis = basis_names[bid]
+                kern, plain = self.lane_pair_at(nm, lead[0], n, k, h,
+                                                masked, basis, 700 + i)
+                where = (f"lane launch shape M={lead[0]} N={n} k={k} H={h} "
+                         f"{basis}{' masked' if masked else ''}")
+                worst = max(worst, self.hold(nm, kern, plain, where))
+                shapes.append(f"{lead[0]}x{n}x{k}" + (f"x{h}" if h else "")
+                              + (" masked" if masked else ""))
+            print(f"  {nm}: held at {len(lanes)} lane launch shapes ("
+                  + ", ".join(shapes) + f"), worst max |d| {worst:.3e}",
+                  flush=True)
+
+    def lane_pair_at(self, nm, lanes, n, k, h, masked, basis, seed):
+        """(kernel call, plain call) of lane kernel `nm` on seeded inputs
+        with `lanes` lanes at (n, k, h); the basis kernels with phase 7's
+        column mask where the launch had one."""
+        from st_dadk_tpu_torch.ops.basis import BASIS_IDS, CALIBRATION_FACTORS
+        torch = self.torch
+        bid, cal = BASIS_IDS[basis], CALIBRATION_FACTORS[basis]
+        if nm in LANE_KERNELS:
+            coords, centers, bw, w, grad_h = _lane_inputs(torch, lanes, n, k,
+                                                          max(h, 1), seed)
+            return _lane_calls(self.ffl, coords, centers,
+                               (1.0 / (bw * cal)).contiguous(), w, grad_h,
+                               bid, (nm,))[nm]
+        coords, centers, bw, grad_phi, mask, _ = _basis_lane_inputs(
+            torch, lanes, n, k, seed)
+        return _basis_lane_calls(self.sbk, coords, centers,
+                                 (1.0 / (bw * cal)).contiguous(), grad_phi,
+                                 bid, mask if masked else None, (nm,))[nm]
 
     def time_shape(self, names, n, k, h, tag):
         """Each kernel in `names` against its plain version at (n, k, h),
@@ -2956,44 +3284,54 @@ class Phases:
                 for k, v in self._drift.items()), flush=True)
         return self._drift
 
-    def reordered_drift(self, bench):
+    def reordered_drift(self):
         """Phase 25's reference: the bench fit with every minibatch's rows,
         and its dropout block's rows with them, in reverse order. The same
         arithmetic on the same pairs of point and mask, with every sum over
         the points in another order, which is what the data-parallel split
-        changes in every step; its loss histories' relative gap to phase
-        3's by epoch."""
+        changes in every step; its loss histories' relative gap to the
+        straight fit's (phase 3's) by epoch."""
+        from st_dadk_tpu_torch.bench_workload import bench_workload
+
+        if getattr(self, "_reordered", None) is None:
+            self._reordered = self.reordered_drift_of(
+                "the bench fit", bench_workload(data_file=str(self.data_file),
+                                                epochs=EPOCHS))
+        return self._reordered
+
+    def reordered_drift_of(self, name, cfg):
+        """`reordered_drift`'s reference for another config (a dict):
+        experiment 1 of `cfg` fitted straight and with every minibatch's
+        rows (and dropout rows) reversed, the relative gap of their loss
+        histories by epoch."""
         import numpy as np
 
-        from st_dadk_tpu_torch.bench_workload import bench_workload
         from st_dadk_tpu_torch.config import ExperimentConfig
         from st_dadk_tpu_torch.models.st_interp import STInterp
         from st_dadk_tpu_torch.train import loop
         from st_dadk_tpu_torch.train.experiment import ExperimentSetup
 
-        if getattr(self, "_reordered", None) is None:
-            cfg = ExperimentConfig.from_dict(bench_workload(
-                data_file=str(self.data_file), epochs=EPOCHS))
+        cfg = ExperimentConfig.from_dict(cfg)
+        fits = []
+        for flip in (False, True):
             setup = ExperimentSetup(cfg, 1, "cuda")
             indices, keep = loop.epoch_batch_indices, STInterp.draw_dropout_keep
-            loop.epoch_batch_indices = lambda *a: indices(*a).flip(1)
-            STInterp.draw_dropout_keep = lambda m, *a: keep(m, *a).flip(0)
+            if flip:
+                loop.epoch_batch_indices = lambda *a: indices(*a).flip(1)
+                STInterp.draw_dropout_keep = lambda m, *a: keep(m, *a).flip(0)
             try:
-                rev = loop.fit(cfg, setup.spec, setup.model, setup.train_ps,
-                               setup.valid_ps, seed=setup.experiment_seed)
+                fits.append(loop.fit(cfg, setup.spec, setup.model,
+                                     setup.train_ps, setup.valid_ps,
+                                     seed=setup.experiment_seed).history)
             finally:
                 loop.epoch_batch_indices = indices
                 STInterp.draw_dropout_keep = keep
-            hist = bench[1]["training_history"]
-            self._reordered = {
-                key: np.abs(np.asarray(rev.history[key])
-                            - np.asarray(hist[key])) / np.abs(hist[key])
-                for key in ("train_loss", "val_loss")}
-            print("drift of the bench fit with its minibatch rows reversed: "
-                  + "; ".join(f"{k} " + " ".join(f"{g:.1e}" for g in v)
-                              for k, v in self._reordered.items()),
-                  flush=True)
-        return self._reordered
+        drift = {key: np.abs(np.asarray(fits[1][key]) - fits[0][key])
+                 / np.abs(fits[0][key]) for key in ("train_loss", "val_loss")}
+        print(f"drift of {name} with its minibatch rows reversed: "
+              + "; ".join(f"{k} " + " ".join(f"{g:.1e}" for g in v)
+                          for k, v in drift.items()), flush=True)
+        return drift
 
     def hold_by_drift(self, name, got, want, drift, scores=True):
         """Histories of `got` against `want` (results.json dicts): the
@@ -3334,6 +3672,51 @@ def _rank_runs(rank, data_file, root):
          "--output_dir", f"{root}/lanes"]))
     out["lanes"].update(written=sorted(set(written)),
                         summary=summary is not None)
+    return out
+
+
+def _nested_runs(rank, runs):
+    """Phase 29 on one gloo rank of the card: for each (config path, output
+    directory) of `runs`, its lanes through `run_job_batch` over a
+    NESTED_MESH mesh, with the kernels' launch counts and shapes reset
+    just before it; the lanes this rank owns and those it wrote."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from st_dadk_tpu_torch.config import ExperimentConfig
+    from st_dadk_tpu_torch.ops import fused_first_layer as ffl
+    from st_dadk_tpu_torch.ops import spatial_basis_kernels as sbk
+    from st_dadk_tpu_torch.parallel.mesh import make_mesh
+    from st_dadk_tpu_torch.parallel.multihost import local_device
+    from st_dadk_tpu_torch.train import batch_engine
+
+    mesh = make_mesh(dict(NESTED_MESH))
+    written = []
+    orig = batch_engine.finalize_experiment
+
+    def record(cfg_, setup, result, *a, **kw):
+        written.append(setup.experiment_id)
+        return orig(cfg_, setup, result, *a, **kw)
+    batch_engine.finalize_experiment = record
+    out = []
+    for cfg_path, out_dir in runs:
+        cfg = ExperimentConfig.from_yaml(cfg_path)
+        jobs = [(cfg, i, Path(out_dir) / "experiments" / str(i))
+                for i in range(1, cfg.n_experiments + 1)]
+        owned = batch_engine.owned_lane_slice(len(jobs), mesh)
+        written.clear()
+        ffl.reset_launch_counts()
+        sbk.reset_launch_counts()
+        torch.cuda.synchronize()
+        batch_engine.run_job_batch(jobs, mesh=mesh, device=local_device())
+        torch.cuda.synchronize()
+        out.append({"lanes": list(range(owned.start + 1, owned.stop + 1)),
+                    "written": sorted(written),
+                    "counts": {**ffl.launch_counts(),
+                               **sbk.launch_counts()},
+                    "shapes": {**ffl.launch_shapes(),
+                               **sbk.launch_shapes()}})
     return out
 
 

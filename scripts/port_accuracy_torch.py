@@ -13,8 +13,11 @@ workload (500-epoch cap, patience 50) for seeds base_seed + 0..n-1, on the
 stand-in field `data/standin/2a_8_standin-<hash>.csv` unless `--data_file`
 names another CSV. Each side uses its own init and RNG streams, so the two
 packages agree in distribution, not seed by seed. `--skip_existing` resumes
-a run that was cut. `run_info.json` records the card's name and power limit
-beside the wall time. The model and prediction files are not written
+a run that was cut. `--first N --last M` runs experiments N..M only, so
+that several processes can share one card (each with its own
+`--run_info`), and a last `--skip_existing` run over all n aggregates.
+`run_info.json` records the card's name and power limit beside the wall
+time. The model and prediction files are not written
 (`save_artifacts: false`): the scores and histories are in `results.json`.
 
     python3 scripts/port_accuracy_torch.py --table44 --engine vmap \
@@ -48,6 +51,13 @@ def main(argv=None) -> int:
                     help="cut the 500-epoch cap (for a rehearsal)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--skip_existing", action="store_true")
+    ap.add_argument("--first", type=int, default=None,
+                    help="the first experiment id to run (default 1)")
+    ap.add_argument("--last", type=int, default=None,
+                    help="the last experiment id to run (default n)")
+    ap.add_argument("--run_info", default="run_info.json",
+                    help="the file name of the run's record in "
+                    "--output_dir")
     ap.add_argument("--table44", action="store_true",
                     help="run Table 4.4 through the port's CLI")
     args = ap.parse_args(argv)
@@ -102,13 +112,16 @@ def main(argv=None) -> int:
     summary = run_multiple_experiments(cfg, args.output_dir,
                                        skip_existing=args.skip_existing,
                                        verbose=True, engine=args.engine,
-                                       device=args.device)
+                                       device=args.device,
+                                       start_exp_id=args.first,
+                                       end_exp_id=args.last)
     wall = time.time() - t0
     info = {"framework": "torch", "torch": torch.__version__,
             "engine": args.engine, "n": args.n,
+            "experiments": [args.first or 1, args.last or args.n],
             "data_file": Path(data_file).name, "wall_seconds": wall,
             "resumed": bool(args.skip_existing), "hardware": card}
-    (args.output_dir / "run_info.json").write_text(json.dumps(info, indent=1))
+    (args.output_dir / args.run_info).write_text(json.dumps(info, indent=1))
     if summary is None:
         print("no results", file=sys.stderr)
         return 1

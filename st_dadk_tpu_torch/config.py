@@ -131,13 +131,15 @@ class ExperimentConfig:
     # 'init_seed_rounds', 'init_em_dtype', 'ablate_validate',
     # 'sparsity_threshold_ratio' (the basis-evolution figure) and
     # 'lanes_per_device' (lanes a batch of the lane engine).
-    # Accepted and ignored on purpose: the JAX package's TPU
-    # and lane-engine knobs, which change how a fit runs there but not its
-    # numbers ('pregather', 'remat', 'profile_dir', 'packed_upload',
-    # 'final_stop_sync', 'packed_finalize_pull',
-    # 'pipeline_blocking_finalize': a loop of `run_job_batch` is the port's
-    # serial baseline; the JAX-only fields
-    # 'scan_unroll',
+    # Accepted and ignored on purpose: the JAX package's TPU and lane-engine
+    # knobs, which change how a fit runs there but not its numbers
+    # ('pregather', 'remat', 'profile_dir', 'final_stop_sync';
+    # 'packed_upload' and 'packed_finalize_pull', JAX's one-copy transfers,
+    # which the port does not carry: host-device copies are a small share
+    # of a batch on the card, PERF.md section 5; the on-device metrics of
+    # the lane engine need no knob, it takes them where JAX does by what the
+    # lanes need; 'pipeline_blocking_finalize': a loop of `run_job_batch`
+    # is the port's serial baseline; the JAX-only fields 'scan_unroll',
     # 'dropout_rng' (its RNG streams do not cross frameworks anyway) and the
     # CLI keys), and 'init_gmm_fused': JAX runs the resolutions'
     # GMM EMs as one loop with the same seeding keys and the same tol stop

@@ -549,7 +549,8 @@ class STInterpLanes(nn.Module):
                 train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 X: Optional[torch.Tensor] = None,
-                drop_rows: Optional[Tuple[int, torch.Tensor]] = None
+                drop_rows: Optional[Tuple[int, torch.Tensor]] = None,
+                drop_points: Optional[Tuple[int, slice]] = None
                 ) -> torch.Tensor:
         """yhat: coords (M, B, 2), t (M, B, 1) -> (M, B, output_dim), lane
         i from lane i's weights. `X` (M, B, p) are the covariates of a model
@@ -559,8 +560,11 @@ class STInterpLanes(nn.Module):
         draws nothing. With `drop_rows` = (M_full, rows), the lanes of a
         narrowed batch (tail compaction), the draw is (M_full, B,
         sum(hidden)) and lane i keeps row rows[i]: each lane's masks stay
-        those of the full-width batch. The trunk runs in the spec's dtype
-        (module docstring)."""
+        those of the full-width batch. With `drop_points` = (B_full, rows),
+        this rank's rows of a data-parallel minibatch (`loop.fit_lanes(dp=
+        ...)`), the draw is (M, B_full, sum(hidden)) and the points keep rows
+        `rows`: each point's masks are those of the whole minibatch. The
+        trunk runs in the spec's dtype (module docstring)."""
         spec = self.spec
         cd = spec.cdtype
         M, B = coords.shape[0], coords.shape[1]
@@ -609,11 +613,14 @@ class STInterpLanes(nn.Module):
             if generator is None:
                 raise ValueError("generator required for dropout in train mode")
             draw_m = M if drop_rows is None else int(drop_rows[0])
-            keep = torch.rand((draw_m, B, int(sum(spec.hidden_dims))),
+            draw_b = B if drop_points is None else int(drop_points[0])
+            keep = torch.rand((draw_m, draw_b, int(sum(spec.hidden_dims))),
                               generator=generator,
                               device=h.device) < (1.0 - spec.dropout)
             if drop_rows is not None:
                 keep = keep[drop_rows[1]]
+            if drop_points is not None:
+                keep = keep[:, drop_points[1]]
         off = 0
         for i, hdim in enumerate(spec.hidden_dims):
             if i > 0:

@@ -23,7 +23,9 @@ Two uses:
     dp_axis='data')`): every rank draws the epoch's shuffle and the whole
     minibatch's dropout block from one generator and takes its own rows, so
     the fit is the single fit's arithmetic up to the order of the sums (and
-    bitwise the single fit on one rank).
+    bitwise the single fit on one rank); `train/loop.py::fit_lanes(dp=...)`
+    does the same for each lane of a batch (lanes nested over exp x data),
+    with one all_reduce a step of the lane-stacked gradients and losses.
 """
 from __future__ import annotations
 
@@ -58,8 +60,15 @@ class DPGroup:
     @classmethod
     def from_mesh(cls, mesh, device: torch.device | str,
                   axis: str = "data") -> "DPGroup":
-        """This rank's row along `axis` of a `parallel.mesh.RankMesh`."""
-        group = mesh.axis_group(axis, torch.device(device).type)
+        """This rank's row along `axis` of a `parallel.mesh.RankMesh`. Under
+        gloo the row's group is built as a CPU mesh's (gloo moves the
+        card's tensors too): a CUDA `DeviceMesh` would pick each rank's card
+        by its local rank, and several ranks may share one card."""
+        kind = torch.device(device).type
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_backend() == "gloo":
+            kind = "cpu"
+        group = mesh.axis_group(axis, kind)
         if group is None:
             return cls(0, 1, torch.device(device))
         return cls(dist.get_rank(group), dist.get_world_size(group),
@@ -127,19 +136,21 @@ def loss_share(w_local: torch.Tensor, wsum_total: torch.Tensor,
                world: int) -> torch.Tensor:
     """wsum_r * n / W: the factor on a rank's local weighted-mean loss
     whose mean over ranks is the global weighted mean (module docstring);
-    exactly 1 on one rank. wsum_r is clamped at 1e-12, as in JAX."""
-    wsum = torch.clamp(torch.sum(w_local), min=1e-12)
+    exactly 1 on one rank. wsum_r is clamped at 1e-12, as in JAX. The rows
+    are the last axis: lanes (M, n_r) give one factor a lane (M,)."""
+    wsum = torch.clamp(torch.sum(w_local, dim=-1), min=1e-12)
     return wsum * world / wsum_total
 
 
 def block_wsum_total(w: torch.Tensor, world: int) -> torch.Tensor:
     """sum_r max(wsum_r, 1e-12) over the ranks' row blocks of the full
-    batch weights `w`: what the all_reduce of the clamped local sums gives,
-    computed by every rank from the batch it already holds."""
-    n = w.shape[0]
-    sums = [torch.clamp(torch.sum(w[row_slice(n, r, world)]), min=1e-12)
-            for r in range(world)]
-    return sums[0] if world == 1 else torch.stack(sums).sum()
+    batch weights `w` (rows on the last axis; lanes first): what the
+    all_reduce of the clamped local sums gives, computed by every rank from
+    the batch it already holds."""
+    n = w.shape[-1]
+    sums = [torch.clamp(torch.sum(w[..., row_slice(n, r, world)], dim=-1),
+                        min=1e-12) for r in range(world)]
+    return sums[0] if world == 1 else torch.stack(sums).sum(dim=0)
 
 
 def sync_gradients_(dp: DPGroup, tensors: Sequence[torch.Tensor],
@@ -147,15 +158,23 @@ def sync_gradients_(dp: DPGroup, tensors: Sequence[torch.Tensor],
     """Sum each tensor's `.grad` and `loss` over the ranks in one
     all_reduce, divide by n, write the gradients back in place; the mean
     loss as a float. One rank with no group: nothing moves."""
+    return float(sync_lane_gradients_(dp, tensors, loss.reshape(1))[0])
+
+
+def sync_lane_gradients_(dp: DPGroup, tensors: Sequence[torch.Tensor],
+                         loss: torch.Tensor) -> torch.Tensor:
+    """`sync_gradients_` for lanes: `loss` (M,) a lane; the mean loss over
+    the ranks (M,), on the device (no host read)."""
     if not dp.joined:
-        return float(loss.detach())
+        return loss.detach()
     grads = [t.grad for t in tensors]
+    n = loss.numel()
     flat = _summed(dp, grads + [loss.detach().to(grads[0].dtype)])
     if dp.world > 1:
         flat.div_(dp.world)
     with torch.no_grad():
-        _unflatten_into(flat[:-1], grads)
-    return float(flat[-1])
+        _unflatten_into(flat[:-n], grads)
+    return flat[-n:]
 
 
 def _summed(dp: DPGroup, tensors: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -34,7 +34,9 @@ one fit at `--profile-lanes` (default: the width with the least ms a step a
 lane). At the widest width it also runs the batch's finalize evaluation
 (`batch_engine._batched_eval`: one dense predict of the T x S grid for all
 lanes) and records its seconds and its peak device memory, since a chunk's
-activations grow with the lane count. `batch_engine.LANES_PER_DEVICE` takes
+activations grow with the lane count, beside the same lanes scored by the
+device metrics (`batch_engine._batched_eval_device`, which a batch with no
+artifacts or figures takes). `batch_engine.LANES_PER_DEVICE` takes
 the width this sweep finds best. With `--ragged` the lanes alternate between
 the resolutions [25, 81] and [25, 81, 121], padded to 227 centers: ragged-k
 lanes on the materialised-phi route, whose single fit is the padded lane.
@@ -192,7 +194,9 @@ def lanes_sweep(widths, profile_width, out: Path, ragged: bool = False,
     from st_dadk_tpu_torch.bench_workload import bench_workload
     from st_dadk_tpu_torch.config import ExperimentConfig
     from st_dadk_tpu_torch.dataio.synthetic import bench_data_file
-    from st_dadk_tpu_torch.models.st_interp import stack_lane_models
+    from st_dadk_tpu_torch.models.st_interp import (from_jax_params,
+                                                    model_consts,
+                                                    stack_lane_models)
     from st_dadk_tpu_torch.train import batch_engine as be
     from st_dadk_tpu_torch.train import loop
 
@@ -289,6 +293,28 @@ def lanes_sweep(widths, profile_width, out: Path, ragged: bool = False,
           f"{setups[0].T} x {setups[0].S} points a lane, chunks of "
           f"{cfg.eval_chunk}): {eval_s:.3f} s, peak device memory "
           f"{eval_gib:.3f} GiB", flush=True)
+    # the same lanes through the device metrics (`_batched_eval_device`),
+    # their serving params already on the card as `fit_lanes` leaves them;
+    # twice, each call uploading the grid, as every batch's finalize does
+    serving = stack_lane_models([
+        from_jax_params(s.spec, f.params, model_consts(s.model),
+                        device="cuda") for s, f in zip(setups[:wide], fits)])
+    params = {k: v.detach() for k, v in serving.named_parameters()}
+    device_eval = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        be._batched_eval_device(cfg, setups[:wide], serving, params)
+        torch.cuda.synchronize()
+        device_eval.append({"seconds": time.perf_counter() - t0,
+                            "peak_device_memory_gib":
+                                torch.cuda.max_memory_allocated() / 2 ** 30})
+    print("the same through the device metrics: "
+          + ", ".join(f"{d['seconds']:.3f} s (peak "
+                      f"{d['peak_device_memory_gib']:.3f} GiB)"
+                      for d in device_eval)
+          + " (first call, then a second)", flush=True)
 
     m = profile_width or best
     with profile(activities=[ProfilerActivity.CPU,
@@ -300,7 +326,8 @@ def lanes_sweep(widths, profile_width, out: Path, ragged: bool = False,
               single_ms, "setup_lanes": len(setups), "setup_seconds": setup_s,
               "widths": rows, "least_ms_per_step_per_lane_at": best,
               "finalize_eval": {"lanes": wide, "seconds": eval_s,
-                                "peak_device_memory_gib": eval_gib},
+                                "peak_device_memory_gib": eval_gib,
+                                "device_metrics": device_eval},
               "profiled": {
                   "lanes": m, "wall_s": prof_wall,
                   "device_activities_per_step": d["activities"] / steps,

@@ -11,9 +11,12 @@ ragged-k lanes, and the threaded batch pipeline).
                              `init_spatial_centers_batch`, each lane's model
                              at its real shapes, padded and stacked) and
                              `loop.fit_lanes`
-        _finalize_job_batch  one batched dense predict per dataset
-                             (`_batched_eval`), then each lane's results
-                             contract through `finalize_experiment`
+        _finalize_job_batch  the batch's metrics: on the device
+                             (`_batched_eval_device`) where no lane needs
+                             the dense field and one process runs, else one
+                             batched dense predict per dataset on pulled
+                             params (`_batched_eval`); then each lane's
+                             results contract through `finalize_experiment`
 
 Lanes may differ in seed, data file, observation design and real batch
 count; dataset shapes must match and the configs must share a
@@ -60,10 +63,28 @@ JAX. The caller (the runner, the grid) aggregates on the primary after a
 barrier. A lane's dropout masks come from its batch's generator
 (`loop.fit_lanes`), so a lane held by another process draws other masks
 than in a single-process batch; at dropout 0 with `shuffle: none` it is the
-same lane. Lanes nested over an 'exp' x 'data' mesh raise
-NotImplementedError (ROADMAP Queue 1). Left out without a knob of its own:
-packed transfers, the streaming pod path and the on-device metrics program;
-the knobs that select them stay accepted and ignored (`config.py`).
+same lane.
+
+Lanes nested over an 'exp' x 'data' mesh (JAX `jitted_fit_chunk(spec_dp,
+vmapped=True, mesh=..., spmd_axis='exp')`, loop.py:883-902): the layout is
+JAX's, lanes split over 'exp' and replicated over 'data'. The ranks of a
+data row own the same lanes (`owned_lane_slice`), and each lane's minibatch
+rows split over the row (`loop.fit_lanes(dp=DPGroup.from_mesh(mesh, device,
+'data'))`), as JAX's loop splits them with `dp_axis='data'`: one all_reduce
+a step of the lane-stacked gradients and losses. The row's rank 0 alone
+finalizes and writes its lanes.
+
+The metrics of a batch (JAX :1516-1582): where no lane writes or reads the
+dense field (no `save_artifacts`, no `save_plots`, no per-tau lane) and one
+process runs, the serving params stay on the device after the fit
+(`fit_lanes(serving_out=...)`) and `_batched_eval_device` scores every lane
+there; only (M, 3, K) scalars reach the host. The params are pulled only
+for a ragged batch's stripped writes, a lane with a non-finite history (its
+NaN diagnostics) or the per-lane fallback when the device metrics raise
+(counted in `eval_fallbacks`). Left out without a knob of its own: packed transfers and the
+streaming pod path (their knobs stay accepted and ignored, `config.py`):
+host-device copies are a small share of a batch on the card (PERF.md,
+section 5, `trace_steady_state.py`).
 """
 from __future__ import annotations
 
@@ -81,9 +102,11 @@ from st_dadk_tpu_torch.config import ExperimentConfig, resolve_device
 from st_dadk_tpu_torch.dataio.arrays import dense_grid_points
 from st_dadk_tpu_torch.models.st_interp import (STInterpLanes,
                                                 from_jax_params, model_consts,
+                                                select_lanes,
                                                 stack_lane_models)
 from st_dadk_tpu_torch.ops.init_centers import (DATA_ADAPTIVE_INIT_METHODS,
                                                 init_spatial_centers_batch)
+from st_dadk_tpu_torch.parallel.data_parallel import DPGroup
 from st_dadk_tpu_torch.parallel.multihost import (experiment_mesh_auto,
                                                   is_primary, local_device,
                                                   process_info,
@@ -96,10 +119,13 @@ from st_dadk_tpu_torch.train.experiment import (ExperimentSetup,
                                                 run_single_experiment)
 from st_dadk_tpu_torch.train.loop import (FitResult, LaneData, fit_lanes,
                                           lane_data_to, predict_lanes,
-                                          stack_lane_data)
+                                          pull_lane_params, stack_lane_data)
 from st_dadk_tpu_torch.train.optimizer import build_lr_tables
 
 Job = Tuple[ExperimentConfig, int, Path]   # (config, experiment id, output dir)
+
+# the mesh axis a lane's minibatch splits over (lanes nested over exp x data)
+DATA_AXIS = "data"
 
 # Lanes a batch on one H100 (80 GB HBM3, 700 W): the width with the least
 # wall time a step a lane in the sweep of `profile_fit.py --lanes` on the
@@ -281,12 +307,14 @@ def run_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
     designs may differ a lane as long as dataset shapes match. With several
     processes, or a `mesh`, this process runs its own lanes only (module
     docstring)."""
+    axis = jobs[0][0].mesh_axis if jobs else "exp"
     if jobs:
-        jobs = owned_jobs(jobs, mesh, jobs[0][0].mesh_axis)
+        jobs = owned_jobs(jobs, mesh, axis)
     prep = _prepare_job_batch(jobs, skip_existing=skip_existing,
                               device=device)
     if prep is None:
         return []
+    prep["dp"] = data_group(mesh, axis, prep["device"])
     state = _execute_job_batch(prep, verbose=verbose)
     return _finalize_job_batch(state)
 
@@ -296,19 +324,21 @@ def owned_lane_slice(n_lanes: int, mesh: Any, axis: str = "exp") -> slice:
     all of them for one process and no mesh; else its
     `process_lane_slice` of the lane axis padded to a multiple of the
     mesh's `axis` (default mesh: every rank on `axis`, grouped by host),
-    cut at the real lanes. A mesh with another axis of more than one rank
-    (lanes nested over exp x data) raises."""
+    cut at the real lanes. On an `axis` x 'data' mesh (lanes nested over
+    exp x data) the ranks of a data row own the same lanes; another axis of
+    more than one rank raises."""
     pc, _ = process_info()
     if pc == 1 and mesh is None:
         return slice(0, n_lanes)
     mesh = mesh if mesh is not None else experiment_mesh_auto(axis)
     if axis not in mesh.shape:
         raise ValueError(f"mesh {mesh.shape} has no lane axis {axis!r}")
-    nested = {a: n for a, n in mesh.shape.items() if a != axis and n > 1}
-    if nested:
-        raise NotImplementedError(
-            f"lanes nested over {axis!r} x {sorted(nested)} (a data-parallel "
-            "fit a lane) are not ported (ROADMAP Queue 1)")
+    other = {a: n for a, n in mesh.shape.items()
+             if a not in (axis, DATA_AXIS) and n > 1}
+    if other:
+        raise ValueError(f"mesh {mesh.shape}: the lane engine splits lanes "
+                         f"over {axis!r} and a lane's minibatch over "
+                         f"{DATA_AXIS!r}; it has no use for {sorted(other)}")
     size = mesh.shape[axis]
     sl = process_lane_slice(n_lanes + (-n_lanes) % size, mesh, axis)
     return slice(min(sl.start, n_lanes), min(sl.stop, n_lanes))
@@ -318,6 +348,17 @@ def owned_jobs(jobs: Sequence[Job], mesh: Any, axis: str = "exp"
                ) -> List[Job]:
     """This process's jobs of a batch (`owned_lane_slice`)."""
     return list(jobs)[owned_lane_slice(len(jobs), mesh, axis)]
+
+
+def data_group(mesh: Any, axis: str, device: torch.device
+               ) -> Optional[DPGroup]:
+    """The data-parallel group of this process's lanes: its row along the
+    mesh's 'data' axis (`DPGroup.from_mesh`), or None where no mesh nests
+    lanes over `axis` x 'data'."""
+    if mesh is None or mesh.shape.get(DATA_AXIS, 1) == 1 \
+            or axis == DATA_AXIS:
+        return None
+    return DPGroup.from_mesh(mesh, device, DATA_AXIS)
 
 
 def run_job_batches(batches: Sequence[Sequence[Job]],
@@ -506,10 +547,14 @@ def _execute_job_batch(prep: Dict[str, Any], verbose: bool = False
     t_init = time.time() - t0
     taus = ([float(s.cfg.current_quantile) for s in setups]
             if cfg.regression_type == "quantile" else None)
+    # the serving params stay on the card where the device metrics will
+    # score the batch and nothing else reads them (JAX :1516-1560); a
+    # non-finite history, known only afterwards, pulls them at finalize
+    serving = {} if _device_eval(setups) else None
     results = fit_lanes(cfg, setups[0].spec, lanes_model, data,
                         stacked["lr_steps"], stacked["lr_recorded"],
                         [s.experiment_seed for s in setups], verbose=verbose,
-                        taus=taus)
+                        taus=taus, dp=prep.get("dp"), serving_out=serving)
     t_train = time.time() - t0 - t_init
     if verbose:
         print(f"[batch] {len(setups)} experiments x "
@@ -518,9 +563,12 @@ def _execute_job_batch(prep: Dict[str, Any], verbose: bool = False
               f"{t_train:.1f}s", flush=True)
     # the state keeps the CPU copy of the lane data: the device buffers are
     # free once the fit returns, while finalize may still wait its turn
-    return dict(prep, results=results, lanes_model=lanes_model,
-                n_params=n_params, t_init=t_init, t_train=t_train,
-                verbose=verbose)
+    state = dict(prep, results=results, lanes_model=lanes_model,
+                 n_params=n_params, t_init=t_init, t_train=t_train,
+                 verbose=verbose, serving=serving)
+    if cfg.k_spatial_pad is not None:
+        _pull_serving(state)     # ragged lanes are written stripped (JAX too)
+    return state
 
 
 def _eval_group_key(cfg_lane: ExperimentConfig):
@@ -568,15 +616,180 @@ def _batched_eval(cfg: ExperimentConfig, setups: Sequence[ExperimentSetup],
     return out
 
 
+def _needs_field(setups: Sequence[ExperimentSetup]) -> bool:
+    """A lane of the batch writes the dense field or reads it back: its
+    artifacts, its figures, or a per-tau quantile lane (JAX :1516-1520)."""
+    return any(s.cfg.save_artifacts or s.cfg.save_plots
+               or s.cfg.regression_type == "quantile" for s in setups)
+
+
+def _device_eval(setups: Sequence[ExperimentSetup]) -> bool:
+    """The batch is scored by the device metrics (`_batched_eval_device`)
+    where JAX scores it so: no lane needs the dense field and one process
+    runs (JAX :1564-1575). A ragged batch (`k_spatial_pad`) is scored there
+    too, but its params are pulled for the stripped writes, as in JAX."""
+    return not _needs_field(setups) and process_info()[0] == 1
+
+
+def _device_metrics(cfg: ExperimentConfig, model: STInterpLanes,
+                    params: Dict[str, torch.Tensor], coords: torch.Tensor,
+                    t: torch.Tensor, z: torch.Tensor, labels: torch.Tensor,
+                    chunk: int) -> torch.Tensor:
+    """Each lane's split metrics on the device (JAX
+    `_device_metrics_program`, batch_engine.py:100-151): the lane-batched
+    predict of the n grid points in chunks of `chunk` (`model` with the
+    lane-stacked serving `params` in place of its own: the fused forward
+    kernel, or the lane phi kernel for ragged lanes), then per split
+    (labels (M, n): 1 train, 2 valid, 3 test) the weighted sums over the
+    points where z (n,) is finite. Returns (M, 3, K): MSE, MAE and,
+    multi-quantile, the CRPS 2 * mean_k check_k (`ops/losses.py::
+    compute_crps`, Eq. 4.6, uniform weights) and the mean check loss. A
+    per-tau quantile lane never comes here (`_needs_field`). The arithmetic is the
+    host's (`experiment.metrics_from_preds`), where JAX's program sums in
+    float32: the median's error in float32, the check losses from float64
+    copies, every sum in float64. So a batch scores the same, up to the
+    order of float64 sums, on either path."""
+    from torch.func import functional_call
+    M, n = labels.shape
+    multi = cfg.regression_type == "multi-quantile"
+    mid = len(cfg.quantile_levels) // 2 if multi else 0
+    q = torch.tensor([float(x) for x in cfg.quantile_levels],
+                     dtype=torch.float64, device=z.device)
+    splits = torch.arange(1, 4, dtype=labels.dtype, device=z.device)
+    cnt = torch.zeros((M, 3), dtype=torch.float64, device=z.device)
+    se, ae, chk = cnt.clone(), cnt.clone(), None
+    for s in range(0, n, chunk):
+        c = coords[s:s + chunk].expand(M, -1, -1).contiguous()
+        tt = t[s:s + chunk].expand(M, -1, -1).contiguous()
+        preds = functional_call(model, params, (c, tt), {"train": False})
+        zc = z[s:s + chunk]
+        finite = torch.isfinite(zc)
+        zz = torch.where(finite, zc, torch.zeros_like(zc))
+        err = (preds[..., mid] - zz).double()                    # (M, c)
+        w = ((labels[:, s:s + chunk, None] == splits)
+             & finite[None, :, None]).double()                   # (M, c, 3)
+        cnt = cnt + w.sum(dim=1)
+        se = se + torch.bmm((err * err)[:, None, :], w)[:, 0]
+        ae = ae + torch.bmm(torch.abs(err)[:, None, :], w)[:, 0]
+        if multi:
+            e_k = zz.double()[None, :, None] - preds.double()    # (M, c, Q)
+            rho = torch.maximum((q - 1.0) * e_k, q * e_k)
+            part = torch.bmm(w.transpose(1, 2), rho)             # (M, 3, Q)
+            chk = part if chk is None else chk + part
+    cnt = torch.clamp(cnt, min=1.0)
+    cols = [se / cnt, ae / cnt]
+    if multi:
+        checks = chk / cnt[..., None]
+        cols += [2.0 * checks.mean(dim=-1), checks.mean(dim=-1)]
+    return torch.stack(cols, dim=-1)
+
+
+def _batched_eval_device(cfg: ExperimentConfig,
+                         setups: Sequence[ExperimentSetup],
+                         model: STInterpLanes,
+                         params: Dict[str, torch.Tensor]
+                         ) -> List[Dict[str, Any]]:
+    """Per-lane split metrics with everything on the device (JAX
+    `_batched_eval_device`, batch_engine.py:154-226): one `_device_metrics`
+    call per distinct dataset, and only its (M, 3, K) scalars cross to the
+    host. `params` are the lane-stacked serving params of
+    `fit_lanes(serving_out=...)`. No dense field: valid where no lane
+    needs it (`_device_eval`)."""
+    groups: Dict[Any, List[int]] = {}
+    for li, s in enumerate(setups):
+        groups.setdefault(_eval_group_key(s.cfg), []).append(li)
+    out: List[Optional[Dict[str, Any]]] = [None] * len(setups)
+    dev = setups[0].device
+    for lanes in groups.values():
+        s0 = setups[lanes[0]]
+        coords_rep, t_rep = dense_grid_points(s0.T, s0.coords)
+        grid = tuple(torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                     device=dev) for a in
+                     (coords_rep, t_rep.reshape(-1, 1), s0.z_full.ravel()))
+        labels = torch.as_tensor(np.stack([
+            setups[li].train_mask.ravel().astype(np.int8)
+            + setups[li].valid_mask.ravel().astype(np.int8) * 2
+            + setups[li].test_mask.ravel().astype(np.int8) * 3
+            for li in lanes]), device=dev)
+        idx = torch.as_tensor(lanes, device=dev)
+        whole = len(lanes) == len(setups)
+        vals = _device_metrics(
+            cfg, model if whole else select_lanes(model, idx),
+            params if whole else {k: v[idx] for k, v in params.items()},
+            *grid, labels, int(cfg.eval_chunk)).cpu().numpy()
+        for gi, li in enumerate(lanes):
+            lane = {}
+            for si, split in enumerate(("train_metrics", "val_metrics",
+                                        "test_metrics")):
+                row = vals[gi, si]
+                m = {"mse": float(row[0]), "mae": float(row[1]),
+                     "rmse": float(np.sqrt(row[0]))}
+                if cfg.regression_type == "multi-quantile":
+                    m["crps"] = float(row[2])
+                    m["mean_check_loss"] = float(row[3])
+                    m["check_loss"] = float(row[3])
+                lane[split] = m
+            out[li] = lane
+    return out
+
+
+def _pull_serving(state: Dict[str, Any]) -> List[FitResult]:
+    """The batch's FitResults with their serving params and final EMA on
+    the host, pulled from the device once where `fit_lanes` kept them
+    there (state['serving'])."""
+    serving = state.get("serving")
+    if serving and state["results"][0].params is None:
+        params = pull_lane_params(serving["params"])
+        final = pull_lane_params(serving["final_ema"])
+        state["results"] = [r._replace(params=p, final_ema=f) for r, p, f
+                            in zip(state["results"], params, final)]
+    return state["results"]
+
+
+# device evaluations that raised and fell back to the per-lane one, since
+# the process began: a caller that needs the batched path reads it
+eval_fallbacks = 0
+
+
 def _finalize_job_batch(state: Dict[str, Any]) -> List[Dict[str, Any]]:
     """Batched evaluation, then every lane's results contract through
     `finalize_experiment`. A lane's `total_time_seconds` is the batch's own
     work (host set-up, init, training, evaluation: not the time it waited in
-    a pipeline) divided by its lanes."""
-    cfg, setups, results = state["cfg"], state["setups"], state["results"]
+    a pipeline) divided by its lanes.
+
+    The evaluation is the device metrics (`_batched_eval_device`) where
+    `_device_eval` holds, and the serving params then stay on the device
+    unless a lane's history is non-finite (its NaN diagnostics read them);
+    else the dense predict of `_batched_eval` on pulled params. If the
+    device metrics raise, a warning is printed, `eval_fallbacks` counts
+    it, the params are pulled and each lane is evaluated on its own (JAX
+    :1576-1582); the host path raises as it is. In a
+    data-parallel row (lanes nested over exp x data) the row's rank 0
+    alone finalizes and writes; the others return no results."""
+    global eval_fallbacks
+    cfg, setups = state["cfg"], state["setups"]
+    dp = state.get("dp")
+    if dp is not None and not dp.primary:
+        return []
     M = len(setups)
     t_phase = time.time()
-    precomputed = _batched_eval(cfg, setups, results)
+    device_eval = state.get("serving") is not None
+    if device_eval and any(not np.all(np.isfinite(r.history["train_loss"]))
+                           for r in state["results"]):
+        _pull_serving(state)
+    if not device_eval:
+        precomputed = _batched_eval(cfg, setups, state["results"])
+    else:
+        try:
+            precomputed = _batched_eval_device(
+                cfg, setups, state["lanes_model"], state["serving"]["params"])
+        except Exception as e:   # noqa: BLE001 (JAX's fallback, as it has it)
+            eval_fallbacks += 1
+            print(f"[WARNING] batched eval failed, falling back per-lane: "
+                  f"{e}", flush=True)
+            precomputed = None
+            _pull_serving(state)
+    results = state["results"]
     t_eval = time.time() - t_phase
     t_setup = state["t_prep"] + state["t_init"]
     wall = t_setup + state["t_train"] + t_eval
@@ -594,7 +807,7 @@ def _finalize_job_batch(state: Dict[str, Any]) -> List[Dict[str, Any]]:
                            "batch_train_seconds": state["t_train"],
                            "batch_eval_seconds": t_eval,
                            **fit_res.timings},
-            precomputed=precomputed[li],
+            precomputed=precomputed[li] if precomputed else None,
             steps_per_epoch=state["stacked"]["data"].B_shared)
         # a quantile lane's split predictions: the per-tau aggregation
         # reads them back from predictions.npz

@@ -411,7 +411,10 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
     and the dense median field 'all_predictions' (T, S), which then are not
     computed again; `steps_per_epoch` is the batch's shared step count
     where it differs from this fit's own. A quantile fit's returned dict
-    also holds '_split_predictions' (see `_run_per_tau`)."""
+    also holds '_split_predictions' (see `_run_per_tau`). A lane scored by
+    the device metrics comes with `result.params` None (the params stayed
+    on the card): it then needs `precomputed` and writes no artifact or
+    figure, and its `model_parameters` is the setup's `n_params`."""
     t_eval = time.time()
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -429,7 +432,15 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
             centers_history=tuple((e, np.asarray(c)[:spec.k_spatial])
                                   for e, c in result.centers_history))
         consts = consts_real
-    serving = from_jax_params(spec, params, consts, device=setup.device)
+    if params is None:
+        if precomputed is None or (write_artifacts and (
+                cfg.save_artifacts or cfg.save_plots)) \
+                or cfg.regression_type == "quantile":
+            raise ValueError("finalize_experiment: no params, and the "
+                             "metrics or the writes need them")
+        serving = None
+    else:
+        serving = from_jax_params(spec, params, consts, device=setup.device)
     chunk = int(cfg.eval_chunk)
 
     if precomputed is not None:
@@ -459,7 +470,8 @@ def finalize_experiment(cfg: ExperimentConfig, setup: ExperimentSetup,
         "total_time_formatted": (f"{int(total_time // 3600):02d}:"
                                  f"{int((total_time % 3600) // 60):02d}:"
                                  f"{int(total_time % 60):02d}"),
-        "model_parameters": count_parameters(serving),
+        "model_parameters": (setup.n_params if serving is None
+                             else count_parameters(serving)),
         "timestamp": datetime.now().strftime("%Y-%m-%d %H:%M:%S"),
         "n_epochs_run": result.n_epochs_run,
         "stage_timings": dict(stage_timings or {}),

@@ -86,6 +86,7 @@ from st_dadk_tpu_torch.parallel.data_parallel import (DPGroup,
                                                       block_wsum_total,
                                                       loss_share,
                                                       sync_gradients_,
+                                                      sync_lane_gradients_,
                                                       validation_sums)
 from st_dadk_tpu_torch.train.optimizer import (AdamW, AdamWLanes,
                                                build_lr_tables,
@@ -1006,30 +1007,45 @@ def _transform_grads_lanes(spec: LoopSpec, model: STInterpLanes,
 
 @torch.no_grad()
 def _validate_lanes(spec: LoopSpec, ema: STInterpLanes, data: LaneData,
-                    taus: Optional[torch.Tensor] = None
+                    taus: Optional[torch.Tensor] = None,
+                    dp: Optional[DPGroup] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`_validate` for all lanes in one forward per chunk: (val_loss (M,),
-    val_rmse (M,)) on the device."""
+    val_rmse (M,)) on the device. With `dp`, each rank evaluates its rows
+    of every chunk and one all_reduce completes the sums, as `_validate`
+    does; rank 0's result is broadcast."""
     C = spec.val_chunk
     loss_sum = valid = se = cnt = 0.0
     for i in range(spec.n_val_chunks):
         sl = slice(i * C, (i + 1) * C)
         ck, tk, yk, wk = (data.va_coords[:, sl], data.va_t[:, sl],
                           data.va_y[:, sl], data.va_w[:, sl])
+        n_real = torch.sum(wk, dim=1)
+        if dp is not None:
+            rows = dp.rows(wk.shape[1])
+            ck, tk, yk, wk = (x[:, rows].contiguous()
+                              for x in (ck, tk, yk, wk))
         preds = ema(ck, tk, train=False)
         loss = lane_losses_from_preds(spec, ema, preds, yk, wk, train=False,
                                       taus=taus)
+        if dp is not None:
+            loss = loss * (torch.sum(wk, dim=1)
+                           / torch.clamp(n_real, min=1e-12))
         if spec.regression_type == "multi-quantile":
             mid = len(spec.quantile_levels) // 2
             preds = preds[..., mid:mid + 1]
-        n_real = torch.sum(wk, dim=1)
         has_real = (n_real > 0).float()
         loss_sum = loss_sum + loss * has_real
         valid = valid + has_real
         se = se + torch.sum((preds - yk) ** 2 * wk[..., None], dim=(1, 2))
         cnt = cnt + n_real
-    return (loss_sum / torch.clamp(valid, min=1.0),
-            torch.sqrt(se / torch.clamp(cnt, min=1.0)))
+    if dp is not None:
+        loss_sum, se = validation_sums(dp, (loss_sum, se))
+    val_loss = loss_sum / torch.clamp(valid, min=1.0)
+    val_rmse = torch.sqrt(se / torch.clamp(cnt, min=1.0))
+    if dp is not None:
+        val_loss, val_rmse = dp.broadcast_(torch.stack([val_loss, val_rmse]))
+    return val_loss, val_rmse
 
 
 class _LaneRun(NamedTuple):
@@ -1084,7 +1100,10 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
               model: STInterpLanes, data: LaneData, lr_steps: np.ndarray,
               lr_recorded: Sequence[np.ndarray], seeds: Sequence[int],
               verbose: bool = False,
-              taus: Optional[Sequence[float]] = None) -> List[FitResult]:
+              taus: Optional[Sequence[float]] = None,
+              dp: Optional[DPGroup] = None,
+              serving_out: Optional[Dict[str, Any]] = None
+              ) -> List[FitResult]:
     """Train the M lanes of `model` in place; one FitResult a lane.
 
     `lr_steps` (M, epochs, B_shared, 2) holds each lane's per-step (MLP,
@@ -1114,7 +1133,25 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
     generators and index rows. The dropout draw stays full-width and each
     lane takes its own row, so every lane's masks, and so its results, are
     those of the full-width run. After the last epoch the narrow state is
-    scattered back into the full batch, whose stopped lanes were frozen."""
+    scattered back into the full batch, whose stopped lanes were frozen.
+
+    With `dp` (`parallel.data_parallel.DPGroup`), every lane is a
+    data-parallel fit over the group's ranks (lanes nested over an 'exp' x
+    'data' mesh, JAX `jitted_fit_chunk(spec_dp, vmapped=True, mesh=...,
+    spmd_axis='exp')`): rank 0's lanes go to every rank; every rank draws
+    the epoch's shuffle and each minibatch's whole dropout block from the
+    generators above and takes its rows of the minibatch (`dp.rows`); each
+    lane's loss takes its `loss_share`; one all_reduce a step sums the
+    lane-stacked gradients and losses, and validation sums its ranks'
+    shares. So the fit is this fit on one process up to the order of its
+    sums, with the packed optimizer and tail compaction as well.
+
+    With `serving_out` (a dict), the serving params (best EMA where a lane
+    has one, else its EMA) and the final EMA stay on the device, lane
+    stacked, as serving_out['params'] and serving_out['final_ema']
+    ({name: (M, ...) tensor}), and each FitResult's `params` and
+    `final_ema` are None: a caller that needs them pulls them
+    (`pull_lane_params`)."""
     device = data.packed_tr.device
     M, cap = data.packed_tr.shape[0], data.packed_tr.shape[1]
     bs, B = data.batch_size, data.B_shared
@@ -1159,6 +1196,9 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
     if tau_lanes is not None:
         book["tau"] = tau_lanes
     packed = bool(cfg.packed_optimizer)
+    if dp is not None:
+        dp.broadcast_module_(model)
+    rows = None if dp is None or dp.world == 1 else dp.rows(bs)
     run = _lane_run(model, copy.deepcopy(model), packed, spec.weight_decay)
     full = run
     nan = torch.full((M,), math.nan, **f32)
@@ -1236,16 +1276,29 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
         loss_sum = torch.zeros((Wn,), **f32)
         for b in range(B):
             _zero_grads(run.params, run.layout)
-            preds = run.model(coords_e[b], t_e[b], train=True,
-                              generator=drop_gen, drop_rows=drop_rows)
-            loss = lane_losses_from_preds(spec, run.model, preds, y_e[b],
-                                          w_e[b], train=True,
-                                          taus=book.get("tau"))
+            cb, tb, yb, wb = coords_e[b], t_e[b], y_e[b], w_e[b]
+            if rows is not None:
+                # the whole minibatch's weights give each lane's share;
+                # then this rank's rows of it
+                share = loss_share(wb[:, rows], block_wsum_total(
+                    wb, dp.world), dp.world)
+                cb, tb, yb, wb = (x[:, rows].contiguous()
+                                  for x in (cb, tb, yb, wb))
+            preds = run.model(cb, tb, train=True, generator=drop_gen,
+                              drop_rows=drop_rows,
+                              drop_points=None if rows is None
+                              else (bs, rows))
+            loss = lane_losses_from_preds(spec, run.model, preds, yb, wb,
+                                          train=True, taus=book.get("tau"))
+            if rows is not None:
+                loss = loss * share
             # lanes share no parameter: the sum's gradient is each lane's own
             loss.sum().backward()
             if not views_checked:
                 _check_grad_views(run.model, run.params, run.layout)
                 views_checked = True
+            loss_d = (loss.detach() if dp is None
+                      else sync_lane_gradients_(dp, run.params, loss))
             _transform_grads_lanes(spec, run.model, run.groups,
                                    run.layout is not None)
             executes = in_lane[b] & ~nan_epoch & alive
@@ -1253,7 +1306,6 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
             ema_update_lanes(run.ema, run.params, book["decay"],
                              book["one_minus_decay"], executes)
             with torch.no_grad():
-                loss_d = loss.detach()
                 loss_sum = loss_sum + torch.where(executes, loss_d,
                                                   torch.zeros_like(loss_d))
                 nan_epoch = nan_epoch | (executes & ~torch.isfinite(loss_d))
@@ -1265,7 +1317,7 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
                 val_loss, val_rmse = train_loss, torch.zeros_like(train_loss)
             else:
                 val_loss, val_rmse = _validate_lanes(
-                    spec, run.ema_model, lane_data, book.get("tau"))
+                    spec, run.ema_model, lane_data, book.get("tau"), dp)
 
             # JAX _epoch_bookkeeping, a lane each
             best_val, sig_best = book["best_val"], book["sig_best"]
@@ -1340,10 +1392,15 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
             _leaves(full.layout, full.best)))
         serving = {name: torch.where(
             has_best.reshape(M, *([1] * (e.dim() - 1))), best_named[name],
-            e).cpu().numpy()
-            for name, e in full.ema_model.named_parameters()}
-        final = {name: e.cpu().numpy()
+            e) for name, e in full.ema_model.named_parameters()}
+        final = {name: e.detach()
                  for name, e in full.ema_model.named_parameters()}
+        if serving_out is not None:
+            serving_out.update(params=serving, final_ema=final)
+            serving_h = final_h = [None] * M
+        else:
+            serving_h, final_h = (pull_lane_params(serving),
+                                  pull_lane_params(final))
     hist_h = {k: v.cpu().numpy().astype(np.float64) for k, v in hist.items()}
     stopped_h = book["stopped"].cpu().numpy()
     stop_epoch_h = book["stop_epoch"].cpu().numpy()
@@ -1356,8 +1413,7 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
                    for k in ("train_loss", "val_loss", "val_rmse")}
         history["lr"] = np.asarray(lr_recorded[i][:n_run]).copy()
         results.append(FitResult(
-            params=lane_tree({name: v[i].copy()
-                              for name, v in serving.items()}),
+            params=serving_h[i],
             history=history, best_val=float(best_val_h[i]),
             n_epochs_run=n_run, stopped_early=bool(stopped_h[i]),
             center_shift=(hist_h["center_shift"][:n_run, i].copy()
@@ -1367,11 +1423,23 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
                      "first_epoch_seconds": t_first,
                      "epochs_run_batch": float(epochs_done),
                      "steps_per_epoch_batch": float(B)},
-            final_ema=lane_tree({name: v[i].copy()
-                                 for name, v in final.items()}),
+            final_ema=final_h[i],
             centers_history=tuple((e, c[i].copy()) for e, c in
                                   centers_history if e <= n_run)))
     return results
+
+
+def pull_lane_params(tree: Dict[str, torch.Tensor],
+                     lanes: Optional[Sequence[int]] = None
+                     ) -> List[Dict[str, Any]]:
+    """Each lane's host param tree (the JAX layout) from a lane-stacked
+    tree {name: (M, ...) tensor} of `fit_lanes(serving_out=...)`, for the
+    lanes `lanes` (default all): one copy to the host a leaf."""
+    host = {name: v.cpu().numpy() for name, v in tree.items()}
+    if lanes is None:
+        lanes = range(next(iter(host.values())).shape[0])
+    return [lane_tree({name: v[i].copy() for name, v in host.items()})
+            for i in lanes]
 
 
 @torch.no_grad()

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 from st_dadk_tpu_torch import ab_paired
+from torch_threads import worker_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

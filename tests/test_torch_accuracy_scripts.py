@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import worker_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -7,6 +7,7 @@ import torch
 
 from st_dadk_tpu.ops import basis as jb
 from st_dadk_tpu_torch.ops import basis as tb
+from torch_threads import worker_threads  # noqa: F401
 
 PHI_ATOL = 2e-6   # the bar of tests/test_pallas_basis.py:46
 

@@ -15,6 +15,7 @@ from st_dadk_tpu_torch.train import batch_engine as tbe
 from st_dadk_tpu_torch.train import experiment as texp
 from st_dadk_tpu_torch.train.loop import FitResult
 from st_dadk_tpu_torch.train.runner import run_multiple_experiments
+from torch_threads import worker_threads  # noqa: F401
 
 _BASE = dict(
     tag="batchtest", k_spatial_centers=[9], k_temporal_centers=[4],
@@ -300,15 +301,21 @@ def test_what_the_engine_refuses(toy_csv, tmp_path, case):
         return
     else:
         # a rank mesh runs now (one process: it owns every lane; lanes
-        # across processes: tests/test_torch_multiprocess_cluster.py); what
-        # stays refused is lanes nested over exp x data
+        # across processes: tests/test_torch_multiprocess_cluster.py; lanes
+        # nested over exp x data: tests/test_torch_nested_lanes.py); what
+        # stays refused is a data axis of two ranks with no group joined,
+        # and an axis the engine has no use for
         from st_dadk_tpu_torch.parallel.mesh import make_mesh
         from st_dadk_tpu_torch.parallel.multihost import RankDevice
-        nested = make_mesh({"exp": 1, "data": 2},
-                           [RankDevice(0, 0), RankDevice(1, 1)])
-        with pytest.raises(NotImplementedError, match="nested"):
+        ranks = [RankDevice(0, 0), RankDevice(1, 1)]
+        nested = make_mesh({"exp": 1, "data": 2}, ranks)
+        with pytest.raises(ValueError, match="no process group"):
             tbe.run_experiment_batch(_cfg(toy_csv), [1, 2], tmp_path,
                                      mesh=nested)
+        with pytest.raises(ValueError, match="no use for"):
+            tbe.run_experiment_batch(_cfg(toy_csv), [1, 2], tmp_path,
+                                     mesh=make_mesh({"exp": 1, "model": 2},
+                                                    ranks))
         assert not any(tmp_path.glob("*/results.json"))
         res = tbe.run_experiment_batch(_cfg(toy_csv, epochs=2), [1, 2],
                                        tmp_path, mesh=make_mesh())

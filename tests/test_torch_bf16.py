@@ -34,6 +34,7 @@ from st_dadk_tpu_torch.ops import fused_first_layer as ffl
 from st_dadk_tpu_torch.ops import spatial_basis_kernels as sbk
 from st_dadk_tpu_torch.train import batch_engine as tbe
 from st_dadk_tpu_torch.train import loop as tloop
+from torch_threads import worker_threads  # noqa: F401
 
 MODEL = dict(k_spatial_centers=[25, 81], k_temporal_centers=[4, 6],
              hidden_dims=[32, 16], dropout=0.1, spatial_learnable=True,

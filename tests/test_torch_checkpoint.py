@@ -15,6 +15,7 @@ from st_dadk_tpu_torch.models.st_interp import (init_model, spec_from_config,
                                                 to_jax_params)
 from st_dadk_tpu_torch.train import checkpoint as tck
 from st_dadk_tpu_torch.train.loop import fit, load_fit_checkpoint
+from torch_threads import worker_threads  # noqa: F401
 
 
 def _synthetic(n=256, seed=0):

@@ -12,6 +12,7 @@ import pytest
 from st_dadk_tpu.dataio import kaust as jk
 from st_dadk_tpu_torch.dataio import kaust as tk
 from st_dadk_tpu_torch.dataio.competition import write_competition_family
+from torch_threads import worker_threads  # noqa: F401
 
 
 def _field(S=30, T=12, seed=0, spatial_only=False):

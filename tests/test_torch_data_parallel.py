@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from st_dadk_tpu_torch.config import ExperimentConfig
+from torch_threads import worker_threads  # noqa: F401
 
 HIST_RTOL = 1e-4       # tests/test_torch_fit.py
 DP_RTOL, DP_ATOL = 1e-4, 1e-5

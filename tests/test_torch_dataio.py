@@ -6,6 +6,7 @@ import pytest
 from st_dadk_tpu.dataio.kaust import load_kaust_csv_single as jax_load
 from st_dadk_tpu_torch.dataio import synthetic
 from st_dadk_tpu_torch.dataio.kaust import load_kaust_csv_single as torch_load
+from torch_threads import worker_threads  # noqa: F401
 
 
 def _write(path, rows, header="x,y,t,z"):

@@ -17,6 +17,7 @@ from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.models.st_interp import from_jax_params
 from st_dadk_tpu_torch.train import experiment as texp
 from st_dadk_tpu_torch.train import loop as tloop
+from torch_threads import worker_threads  # noqa: F401
 
 # The two fits run the same float32 arithmetic in another order (the JAX
 # fit inside one compiled scan); rounding differences grow through 3 epochs

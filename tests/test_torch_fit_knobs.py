@@ -18,6 +18,7 @@ from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.models import st_interp as tm
 from st_dadk_tpu_torch.ops import init_centers as ti
 from st_dadk_tpu_torch.train import experiment as texp
+from torch_threads import worker_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ from st_dadk_tpu_torch.dataio import windows as twin
 from st_dadk_tpu_torch.models import forecaster as tfc
 from st_dadk_tpu_torch.models import legacy_basis as tleg
 from st_dadk_tpu_torch.train.optimizer import AdamW
+from torch_threads import worker_threads  # noqa: F401
 
 FWD_ATOL = 1e-5
 PHI_ATOL = 2e-6

@@ -20,6 +20,7 @@ import torch
 
 from st_dadk_tpu_torch.ops import fused_first_layer as ffl
 from st_dadk_tpu_torch.ops.basis import basis_matrix
+from torch_threads import worker_threads  # noqa: F401
 
 GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
 CSRC = Path(ffl.__file__).resolve().parent.parent / "csrc"

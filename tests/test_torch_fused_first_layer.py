@@ -13,6 +13,7 @@ import torch
 
 from st_dadk_tpu.ops.basis import spatial_basis_embed as jnp_embed
 from st_dadk_tpu_torch.ops import fused_first_layer as ffl
+from torch_threads import worker_threads  # noqa: F401
 
 FWD_ATOL = 1e-4
 GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5

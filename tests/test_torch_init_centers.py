@@ -11,6 +11,7 @@ import torch
 
 from st_dadk_tpu.ops import init_centers as ji
 from st_dadk_tpu_torch.ops import init_centers as ti
+from torch_threads import worker_threads  # noqa: F401
 
 # Both EMs run in float32 with reductions in another order, over ~20-60
 # tol-stopped iterations; the gap measured at k = 9, 25, 81 on these points

@@ -29,6 +29,7 @@ from st_dadk_tpu_torch.ops import fused_first_layer as ffl
 from st_dadk_tpu_torch.ops import spatial_basis_kernels as sbk
 from test_torch_fused_backward_design import (_bench_operands,
                                               _product_3xtf32, _tf32)
+from torch_threads import worker_threads  # noqa: F401
 
 FWD_ATOL = 1e-4
 GRAD_RTOL, GRAD_ATOL = 5e-3, 5e-4

@@ -24,6 +24,7 @@ from st_dadk_tpu_torch.ops.kmeans_exact import (auction_assign_balanced,
                                                 kmeans_constrained,
                                                 transport_assign,
                                                 transport_assign_native)
+from torch_threads import worker_threads  # noqa: F401
 
 
 def _sites(seed, u, reps):

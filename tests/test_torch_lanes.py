@@ -27,6 +27,7 @@ from st_dadk_tpu_torch.train import batch_engine as tbe
 from st_dadk_tpu_torch.train import experiment as texp
 from st_dadk_tpu_torch.train import loop as tloop
 from st_dadk_tpu_torch.train import optimizer as to
+from torch_threads import worker_threads  # noqa: F401
 
 # the bars of the two-dimensional kernels' tests
 # (tests/test_torch_fused_first_layer.py): float32 sums in another order

@@ -7,6 +7,7 @@ import torch
 
 from st_dadk_tpu.ops import losses as jl
 from st_dadk_tpu_torch.ops import losses as tl
+from torch_threads import worker_threads  # noqa: F401
 
 ATOL = 1e-6   # float32 reductions of ~100 terms in another order
 

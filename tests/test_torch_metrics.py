@@ -13,6 +13,7 @@ from st_dadk_tpu.utils import metrics as jm
 from st_dadk_tpu_torch.utils import covariance as tcov
 from st_dadk_tpu_torch.utils import metrics as tmet
 from st_dadk_tpu_torch.utils.seed import set_seed
+from torch_threads import worker_threads  # noqa: F401
 
 
 def _fields(seed=0):

@@ -14,6 +14,7 @@ from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.models import st_interp as tm
 from st_dadk_tpu_torch.train import experiment as texp
 from st_dadk_tpu_torch.train import loop as tloop
+from torch_threads import worker_threads  # noqa: F401
 
 FWD_ATOL = 5e-5                   # test_pallas_fused.py:59
 GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5  # test_pallas_fused.py:134-136

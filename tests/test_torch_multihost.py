@@ -18,6 +18,7 @@ from st_dadk_tpu_torch.parallel import mesh as tmesh
 from st_dadk_tpu_torch.parallel import multihost as mh
 from st_dadk_tpu_torch.train import batch_engine as tbe
 from st_dadk_tpu_torch.train import runner as trunner
+from torch_threads import worker_threads  # noqa: F401
 
 
 class FakeDev:

@@ -8,6 +8,7 @@ import pytest
 from st_dadk_tpu_torch.dataio import kaust as tk
 from st_dadk_tpu_torch.dataio.native import load_csv_native
 from st_dadk_tpu_torch.ops import _build
+from torch_threads import worker_threads  # noqa: F401
 
 
 def _write(path, header, rows):

@@ -25,6 +25,7 @@ from st_dadk_tpu_torch.models import st_interp as tm
 from st_dadk_tpu_torch.train import experiment as texp
 from st_dadk_tpu_torch.train import loop as tloop
 from st_dadk_tpu_torch.train.runner import run_multiple_experiments
+from torch_threads import worker_threads  # noqa: F401
 
 FWD_ATOL = 5e-5
 GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5

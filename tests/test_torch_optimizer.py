@@ -11,6 +11,7 @@ from st_dadk_tpu.train import optimizer as jo
 from st_dadk_tpu_torch.bench_workload import bench_workload as torch_bench
 from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.train import optimizer as to
+from torch_threads import worker_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("override", [

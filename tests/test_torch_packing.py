@@ -33,6 +33,7 @@ from st_dadk_tpu_torch.train import batch_engine as tbe
 from st_dadk_tpu_torch.train import experiment as texp
 from st_dadk_tpu_torch.train import loop as tloop
 from st_dadk_tpu_torch.train.packing import PackSpec
+from torch_threads import worker_threads  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-6           # tests/test_train_loop.py:170-176
 HIST_RTOL = 1e-4                  # tests/test_torch_shuffle.py

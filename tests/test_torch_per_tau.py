@@ -22,6 +22,7 @@ from st_dadk_tpu_torch.train import batch_engine as tbe
 from st_dadk_tpu_torch.train import experiment as texp
 from st_dadk_tpu_torch.train import loop as tloop
 from st_dadk_tpu_torch.train.runner import run_multiple_experiments
+from torch_threads import worker_threads  # noqa: F401
 
 # the bars of tests/test_torch_fit.py
 HIST_RTOL, METRIC_RTOL = 1e-4, 1e-5

@@ -18,6 +18,7 @@ from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.train import experiment as texp
 from st_dadk_tpu_torch.train import runner as trunner
 from st_dadk_tpu_torch.viz import plots
+from torch_threads import worker_threads  # noqa: F401
 
 TOY = dict(k_spatial_centers=[4], k_temporal_centers=[3], hidden_dims=[8],
            epochs=2, batch_size=32, obs_ratio=0.5, spatial_learnable=True,

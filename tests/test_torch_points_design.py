@@ -26,6 +26,7 @@ from st_dadk_tpu_torch.ops import fused_first_layer as ffl
 from st_dadk_tpu_torch.ops import spatial_basis_kernels as sbk
 from test_torch_kernel_design import FIT_SHAPES, ODD_SHAPES, _const
 from test_torch_kernel_design import _product_3xtf32_trunc
+from torch_threads import worker_threads  # noqa: F401
 
 GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
 CSRC = Path(ffl.__file__).resolve().parent.parent / "csrc"

@@ -23,6 +23,7 @@ from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.models import st_interp as tm
 from st_dadk_tpu_torch.train import experiment as texp
 from st_dadk_tpu_torch.train import loop as tloop
+from torch_threads import worker_threads  # noqa: F401
 
 FWD_RTOL, FWD_ATOL = 1e-5, 1e-6
 HIST_RTOL = 1e-4

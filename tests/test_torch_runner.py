@@ -12,6 +12,7 @@ from st_dadk_tpu.train import runner as jrunner
 from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.train import experiment as texp
 from st_dadk_tpu_torch.train import runner as trunner
+from torch_threads import worker_threads  # noqa: F401
 
 
 def _cfg(toy_dir, **kw):

@@ -20,6 +20,7 @@ from st_dadk_tpu_torch.models import st_interp as tm
 from st_dadk_tpu_torch.train import batch_engine as tbe
 from st_dadk_tpu_torch.train import experiment as texp
 from st_dadk_tpu_torch.train import loop as tloop
+from torch_threads import worker_threads  # noqa: F401
 
 # The paired fits run the same float32 arithmetic in another order on the
 # same batches, as tests/test_torch_fit.py's fits under `shuffle: none`

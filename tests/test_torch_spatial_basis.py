@@ -15,6 +15,7 @@ import torch
 
 from st_dadk_tpu.ops.basis import spatial_basis_embed as jnp_embed
 from st_dadk_tpu_torch.ops import spatial_basis_kernels as sbk
+from torch_threads import worker_threads  # noqa: F401
 
 PHI_ATOL = 2e-6
 GRAD_RTOL, GRAD_ATOL = 5e-3, 5e-4

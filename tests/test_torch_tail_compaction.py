@@ -13,6 +13,7 @@ import pytest
 from st_dadk_tpu_torch.config import ExperimentConfig
 from st_dadk_tpu_torch.train import batch_engine as tbe
 from st_dadk_tpu_torch.train import loop as tloop
+from torch_threads import worker_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ from st_dadk_tpu_torch.models.st_interp import (ModelSpec, from_jax_params,
                                                 init_model, model_consts,
                                                 to_jax_params)
 from st_dadk_tpu_torch.parallel import tensor_parallel as ttp
+from torch_threads import worker_threads  # noqa: F401
 
 SPECS = {
     "fixed": ModelSpec(k_spatial_centers=(9, 16), k_temporal_centers=(4,),
