@@ -174,19 +174,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
  31. `trace_steady_state`'s capture and analysis of a short pipelined
      stream: device time in every stage family, under TRACE_OTHER_SHARE of
      it unclaimed by any stage, every host-device copy of the trace in a
-     copy family, the steady table summing to the batch wall.
+     copy family, the steady table summing to the batch wall;
+ 32. the fits/hour bench (`python3 -m st_dadk_tpu_torch.bench`) in a child
+     process, cut to BENCH_M jobs a batch in BENCH_LANE_WIDTH-lane batches,
+     BENCH_WINDOWS windows of at least BENCH_WINDOW_SECONDS s and
+     BENCH_EPOCHS epochs: its last line (the card's name, platform gpu), its
+     details file, fits equal to the jobs run, and non-zero launches of the
+     three kernels a fit trains through over its windows;
+ 33. the dense-inference bench (`bench_dense_inference.run`) at DENSE_N
+     points, DENSE_REPS calls a trial: its three arms' agreement and launch
+     checks (each raises), every arm's time finite.
 The device metrics' per-lane fallback (`batch_engine.eval_fallbacks`) must
 not fire in any phase: the run fails after the first phase in which it did.
 Phases 25 (ii)-27 run in one launch of RANKS child processes (spawned; each
 loads the libraries built here), whose launch counts and shapes come back.
-Phases 22-28 run before phase 21, whose shapes include theirs.
-Each of phases 3-7, 11-13, 15, 18-20 and 22-27 (in each child rank) sets the
-launch counts to 0 just before it and reads them just after; it checks the
-fit's losses, centers and test metrics. The last line of standard output is one JSON
+Phases 22-33 run before phase 21, whose shapes include theirs (phase 32's
+child counts its own launches and keeps its shapes).
+Each of phases 3-7, 11-13, 15, 18-20, 22-27 (in each child rank), 32 (in
+the bench's child, around its windows) and 33 sets the launch counts to 0
+just before it and reads them just after; it checks the fit's losses,
+centers and test metrics. The last line of standard output is one JSON
 object with "ok" and the device; the line before it lists the kernels, with
 the launches of phases 18-20 under "competition_launches", those of phases
 22-24 under "option_launches", those of phases 25-27 by rank under
-"parallel_launches" and, as "max_abs_err", the worst difference
+"parallel_launches", those of phases 32-33 under "tool_launches" and, as
+"max_abs_err", the worst difference
 from the plain version in phases 2, 18-19 and 21.
 """
 from __future__ import annotations
@@ -379,6 +391,12 @@ DEVICE_METRICS_RTOL = 1e-5
 TRACE_BATCHES, TRACE_LANES, TRACE_EPOCHS = 3, 4, 2
 TRACE_OTHER_SHARE = 0.01
 TRACE_WALL_RTOL = 0.10
+# phase 32: the bench tool in a child process, cut to seconds; phase 33:
+# the dense-inference tool
+BENCH_M, BENCH_LANE_WIDTH, BENCH_WINDOWS = 4, 2, 2
+BENCH_WINDOW_SECONDS, BENCH_EPOCHS = 1.0, 2
+BENCH_TIMEOUT = 300
+DENSE_N, DENSE_REPS = 32768, 5
 NAN_DIAG_KEYS = {"nan_epochs", "n_epochs_run", "train_loss_tail",
                  "val_loss_tail", "inputs", "params"}
 # bars: (rtol, atol) of each kernel against its plain version
@@ -895,7 +913,7 @@ def main(argv=None) -> int:
                                            CALIBRATION_FACTORS, worst))
     launches = {nm: None for nm in KERNELS}
     lane_launches, competition, competition_ms, options = {}, {}, {}, {}
-    parallel = {}
+    parallel, tools = {}, {}
     if not args.kernels_only:
         phases = Phases(torch, ffl, sbk)
         launches = phases.run()
@@ -904,6 +922,7 @@ def main(argv=None) -> int:
         competition_ms = phases.competition_times
         options = phases.option_launches
         parallel = phases.parallel_launches
+        tools = phases.tool_launches
         for nm, err in phases.held_err.items():
             worst[nm] = max(worst[nm], err)
 
@@ -937,7 +956,10 @@ def main(argv=None) -> int:
          # launches in each rank's runs of phases 25-27 (dp, fit_tp, lanes
          # across processes; the shapes are in phase 26's lines)
          "parallel_launches": {run: counts[nm] for run, counts
-                               in parallel.items()} or None}
+                               in parallel.items()} or None,
+         # launches in the bench tools' runs of phases 32-33
+         "tool_launches": {run: counts[nm] for run, counts
+                           in tools.items()} or None}
         for nm, (src, replaces) in KERNELS.items()]}
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(json.dumps(report))
@@ -957,6 +979,7 @@ class Phases:
         self.competition_launches = {}
         self.option_launches = {}
         self.parallel_launches = {}
+        self.tool_launches = {}
         self.lanes_results = None
         self.competition_times = {}
         # kernel -> every launch shape of the counted runs; kernel -> the
@@ -1031,6 +1054,9 @@ class Phases:
                             ("30 (device metrics)",
                              self.device_metrics_phase),
                             ("31 (steady-state trace)", self.trace_phase),
+                            ("32 (fits/hour bench)", self.bench_tool_phase),
+                            ("33 (dense-inference bench)",
+                             self.dense_tool_phase),
                             ("21 (every launch shape)",
                              self.launch_shapes_phase)):
             t0 = time.time()
@@ -2932,6 +2958,85 @@ class Phases:
               f"{meta['export_seconds']:.1f} s "
               f"({json.dumps(meta['export_split_seconds'])}); events "
               f"{json.dumps(meta['events'])}", flush=True)
+
+    def bench_tool_phase(self):
+        """Phase 32: `python3 -m st_dadk_tpu_torch.bench` in a child process
+        (the command a user runs), cut to BENCH_M jobs a batch in
+        BENCH_LANE_WIDTH-lane batches, BENCH_WINDOWS windows of
+        BENCH_WINDOW_SECONDS s and BENCH_EPOCHS epochs: its last line, its
+        details file, fits equal to the jobs run, and the launches of the
+        fused forward, dW and d centers over its windows."""
+        torch = self.torch
+        details = REPO / "build" / "chip_smoke_bench" / "bench_details.json"
+        details.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "st_dadk_tpu_torch.bench", str(BENCH_M),
+               "--lane_width", str(BENCH_LANE_WIDTH),
+               "--windows", str(BENCH_WINDOWS),
+               "--window_seconds", str(BENCH_WINDOW_SECONDS),
+               "--overrides", json.dumps({"epochs": BENCH_EPOCHS}),
+               "--details", str(details)]
+        print("bench: " + " ".join(cmd[1:]), flush=True)
+        out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=BENCH_TIMEOUT)
+        print("\n".join(out.stderr.strip().splitlines()[-6:]), flush=True)
+        check(out.returncode == 0, f"phase 32: the bench exited "
+              f"{out.returncode}: {out.stderr[-2000:]}")
+        last = json.loads(out.stdout.strip().splitlines()[-1])
+        dev = last.get("device", {})
+        check(last.get("metric") == "fits_per_hour"
+              and last.get("unit") == "fits/hour" and last.get("value", 0) > 0,
+              f"phase 32: last line {last}")
+        check(dev.get("platform") == "gpu"
+              and dev.get("kind") == torch.cuda.get_device_name(0),
+              f"phase 32: the last line's device {dev}")
+        check(details.exists(), "phase 32: no details file")
+        d = json.loads(details.read_text())
+        check(d["partial"] is False and len(d["windows"]) == BENCH_WINDOWS,
+              f"phase 32: details of {len(d['windows'])} windows, partial "
+              f"{d['partial']}")
+        for w in d["windows"]:
+            check(w["fits"] == w["jobs"] > 0
+                  and w["wall_seconds"] >= BENCH_WINDOW_SECONDS,
+                  f"phase 32: a window of {w['fits']} fits for {w['jobs']} "
+                  f"jobs in {w['wall_seconds']:.2f} s")
+            check(w["golden"] is not None and all(
+                v > 0 for v in w["golden"].values()),
+                f"phase 32: probe {w['golden']}")
+        for nm in LANE_KERNELS:
+            check(d["launches"][nm] > 0,
+                  f"phase 32: {nm} never launched in the bench's windows")
+        self.tool_launches["bench (phase 32)"] = d["launches"]
+        print(f"bench: {last['value']:.1f} fits/hour over "
+              f"{sum(w['fits'] for w in d['windows'])} fits, "
+              f"{d['data_kind']} data; warm-up "
+              f"{json.dumps(d['warmup']['seconds'])} s; probe "
+              f"{json.dumps(d['windows'][-1]['golden'])}; launches "
+              f"{json.dumps({k: v for k, v in d['launches'].items() if v})}",
+              flush=True)
+
+    def dense_tool_phase(self):
+        """Phase 33: `bench_dense_inference.run` at DENSE_N points: the
+        tool's own checks (the kernel arms against the plain arm, each
+        arm's launches) raise on a failure; every arm's numbers finite."""
+        import math
+
+        from st_dadk_tpu_torch import bench_dense_inference as bdi
+
+        s, counts = self.counted(lambda: bdi.run(DENSE_N, DENSE_REPS, "cuda"))
+        c = s["checks"]
+        for arm, a in s["arms"].items():
+            check(all(math.isfinite(v) and v > 0 for v in a.values()),
+                  f"phase 33: {arm}: {a}")
+        self.tool_launches["dense inference (phase 33)"] = counts
+        print(f"dense inference at n={DENSE_N}: first layer " + ", ".join(
+            f"{arm} {d:.3e}" for arm, d in c["h1_max_abs"].items())
+            + f" (bar {c['h1_atol']}), quantiles " + ", ".join(
+            f"{arm} {d:.3e}" for arm, d in c["out_max_abs"].items())
+            + f" (bar {c['out_atol']}); " + "; ".join(
+            f"{arm} {a['amortized_ms']:.4f} ms amortized, "
+            f"{a['latency_ms']:.4f} ms latency, {a['mpts_per_s']:.1f} M pts/s,"
+            f" peak {a['peak_memory_mib']:.0f} MiB"
+            for arm, a in s["arms"].items()), flush=True)
 
     def hold(self, nm, kern, plain, where):
         """One call of kernel `nm` against its plain version at BARS[nm]:

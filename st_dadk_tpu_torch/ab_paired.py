@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import shutil
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -44,6 +43,7 @@ from st_dadk_tpu_torch.config import ExperimentConfig, load_yaml
 from st_dadk_tpu_torch.train.runner import (load_all_results,
                                             run_multiple_experiments)
 from st_dadk_tpu_torch.utils.io import save_json
+from st_dadk_tpu_torch.utils.timing import card_line
 
 REPO = Path(__file__).resolve().parents[1]
 WARMUP_SEED_OFFSET = 777000
@@ -88,16 +88,6 @@ def paired(a: Dict[str, Dict[int, float]],
     }
 
 
-def _card() -> Optional[str]:
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True, check=True).stdout
-    except (OSError, subprocess.CalledProcessError):
-        return None
-    return out.strip().splitlines()[0]
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n_experiments", type=int, default=16)
@@ -131,7 +121,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     out.mkdir(parents=True, exist_ok=True)
     over_a = parse_overrides(args.a)
     arm_over = {"a": over_a, "b": {**over_a, **parse_overrides(args.b)}}
-    table: Dict[str, Any] = {"card": _card() if args.device != "cpu"
+    table: Dict[str, Any] = {"card": card_line() if args.device != "cpu"
                              else "cpu", "data_file": data_file}
     per_seed = {}
     for arm in ("a", "b"):

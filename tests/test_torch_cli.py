@@ -184,13 +184,20 @@ def test_run_grid_search_runs_and_dry_runs(toy, tmp_path, capsys):
     assert f"Results: {out}" in capsys.readouterr().out
 
 
-def test_run_table_4_4_runs_its_eight_cells(toy, tmp_path):
-    out = tmp_path / "t44"
+@pytest.fixture(scope="module")
+def t44_run(toy, tmp_path_factory):
+    """(summary, output dir) of a Table 4.4 run through the CLI."""
+    out = tmp_path_factory.mktemp("t44") / "t44"
     summary = cli_t44.main([
         "--config", str(toy / "tiny.yaml"), "--data_file",
         str(toy / "toy.csv"), "--n_experiments", "1", "--engine", "vmap",
         "--overrides", json.dumps({"epochs": 2, "basis_unfreeze_epoch": 1}),
         "--output_dir", str(out)])
+    return summary, out
+
+
+def test_run_table_4_4_runs_its_eight_cells(t44_run):
+    summary, out = t44_run
     on_disk = json.loads((out / "table_4_4_summary.json").read_text())
     assert summary == dict(on_disk, _output_dir=str(out))
     cells = {k: v for k, v in on_disk.items() if not k.startswith("_")}
@@ -209,6 +216,35 @@ def test_run_table_4_4_runs_its_eight_cells(toy, tmp_path):
         assert cfg.epochs == 2 and cfg.use_delta_reparameterization
         _check_run_tree(cdir, 1)
     assert not (out / "QUARANTINE_eq310.txt").exists()
+
+
+def test_compare_evidence_reads_the_port_table(t44_run, tmp_path, capsys):
+    """The port's compare_evidence renders a Table 4.4 tree of the port as
+    it is, '_protocol' and all; on a copy without the run's notes it prints
+    what the JAX package's script prints."""
+    import subprocess
+    import sys
+
+    from st_dadk_tpu_torch.cli import compare_evidence as ce
+
+    _, out = t44_run
+    assert ce.main(["table", str(out), str(out)]) == 0
+    got = capsys.readouterr().out
+    assert got.count("| +0.0000 |") == 8
+    assert "max |delta| = 0.00 sigma_mean across cells" in got
+    bare = tmp_path / "bare"
+    bare.mkdir()
+    cells = json.loads((out / "table_4_4_summary.json").read_text())
+    (bare / "table_4_4_summary.json").write_text(json.dumps(
+        {k: v for k, v in cells.items() if not k.startswith("_")}))
+    assert ce.main(["table", str(bare), str(out)]) == 0
+    mine = capsys.readouterr().out
+    theirs = subprocess.run(
+        [sys.executable, str(REPO / "scripts" / "compare_evidence.py"),
+         "table", str(bare), str(bare)], capture_output=True, text=True,
+        timeout=120)
+    assert theirs.returncode == 0, theirs.stderr
+    assert mine.replace(out.name, bare.name) == theirs.stdout
 
 
 def test_run_table_4_4_quarantines_eq310(toy, tmp_path, monkeypatch):

@@ -561,3 +561,48 @@ def test_run_grid_search_ends_with_the_analysis(tmp_path, capsys):
                    json.dumps(grid), "--output_dir", str(out)])
     assert (out / "detailed_summary.csv").exists()
     assert "best test_rmse" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# compare_evidence on the port's trees: the JAX package's script (which
+# imports neither package) and the port's copy print the same tables
+# ---------------------------------------------------------------------------
+
+def _compare_both(mode, old, new):
+    import subprocess
+
+    from st_dadk_tpu_torch.cli import compare_evidence as ce
+
+    theirs = subprocess.run(
+        [sys.executable, str(REPO / "scripts" / "compare_evidence.py"),
+         mode, str(old), str(new)], capture_output=True, text=True,
+        timeout=120)
+    assert theirs.returncode == 0, theirs.stderr
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert ce.main([mode, str(old), str(new)]) == 0
+    assert buf.getvalue() == theirs.stdout
+    return theirs.stdout
+
+
+def test_compare_evidence_reads_the_port_grid_tree(grid_tree):
+    got = _compare_both("grid", grid_tree, grid_tree)
+    assert got.count("| +0.0000 |") == 4
+    assert "max |delta| = 0.00 sigma_mean across configs" in got
+
+
+def test_compare_evidence_reads_the_port_family_scores(families, tmp_path):
+    data, _ = families
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text("k_spatial_centers: [4]\nk_temporal_centers: [3]\n"
+                   "hidden_dims: [8]\nbatch_size: 32\ndevice: cpu\n")
+    rows = cli_sf.main(["--families", "2a", "--data_dir", str(data),
+                        "--epochs", "1", "--config", str(cfg), "--only",
+                        "2a_1", "--out", str(tmp_path / "out")])
+    got = _compare_both("families", tmp_path / "out", tmp_path / "out")
+    r = rows[0]
+    assert f"| {r['name']} | " + " | ".join(
+        f"{r[c]:.3f} -> {r[c]:.3f}" for c in ("rmse", "mae", "crps")) + " |" \
+        in got
