@@ -28,7 +28,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      8, 16; the same for the two kernels a ragged-k batch trains through
      (basis forward and d centers), with and without a per-lane column mask
      of different real widths: each lane bitwise the two-dimensional call on
-     its real columns and exactly 0 on its masked ones;
+     its real columns and exactly 0 on its masked ones; then at the launch
+     shapes the later paths added (ADDED_TIMED, ADDED_LANE_TIMED: the dense
+     tool's N = 131,072, a dp or nested rank's step at N = 256, the
+     bench's 16-lane validation), each held and timed as at the fit shapes;
   3. the bench-workload DA-STDK fit (12 epochs, basis unfreezing at epoch
      10) through `run_single_experiment`, on the fused route;
   4. a ragged-k lane of that workload (centers 25+81 padded to 227) through
@@ -183,12 +186,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      three kernels a fit trains through over its windows;
  33. the dense-inference bench (`bench_dense_inference.run`) at DENSE_N
      points, DENSE_REPS calls a trial: its three arms' agreement and launch
-     checks (each raises), every arm's time finite.
+     checks (each raises), every arm's time finite;
+ 34. the synthesize CLIs (`cli/synthesize_1b3b.py`, `cli/synthesize_2b.py`)
+     through their `main` on the card at the JAX scripts' scale, on input
+     trees generated from seeds under a temporary directory: 1b_2 (100,000
+     test sites, 900,000 train rows at m = 4,096), 3b_1 (50,000 sites, two
+     columns mixed at rho 0.5) and 2b_8 (the covariance fitted to the bench
+     field, 5,000 sites x T = 100, cut from 2b's 10,000): the files,
+     columns and rows, every value finite; eval_latent at n = 1,000,000
+     timed on the CLI's own features, its std, the CLI's values bitwise
+     sample_field of it, and 4,096 of its points within SYNTH_F64_BAR of a
+     float64 numpy evaluation; the refitted range, sill and nugget beside
+     the generating ones. It launches none of the seven kernels.
 The device metrics' per-lane fallback (`batch_engine.eval_fallbacks`) must
 not fire in any phase: the run fails after the first phase in which it did.
 Phases 25 (ii)-27 run in one launch of RANKS child processes (spawned; each
 loads the libraries built here), whose launch counts and shapes come back.
-Phases 22-33 run before phase 21, whose shapes include theirs (phase 32's
+Phases 22-34 run before phase 21, whose shapes include theirs (phase 32's
 child counts its own launches and keeps its shapes).
 Each of phases 3-7, 11-13, 15, 18-20, 22-27 (in each child rank), 32 (in
 the bench's child, around its windows) and 33 sets the launch counts to 0
@@ -262,6 +276,15 @@ LANE_TWO_LAUNCHES = LANE_SHAPES[-1]
 LANE_FWD_SHAPES = [(4, 2000, 227, 256), (4, 32768, 227, 256),
                    (4, 1696, 227, 256)]
 LANE_TIMED = (1, 4, 8, 16)      # lanes timed at the step's shape
+# launch shapes the paths added after the three fit shapes, timed as those
+# are: the dense tool's N (fused and phi forward), a dp or nested rank's
+# step at N = 256 (the fused trio) and the bench's 16-lane validation
+ADDED_TIMED = [((131072, 227, 256), ("fused_first_layer_fwd",
+                                     "spatial_basis_fwd")),
+               ((256, 227, 256), ("fused_first_layer_fwd",
+                                  "fused_first_layer_bwd_w",
+                                  "fused_first_layer_bwd_centers"))]
+ADDED_LANE_TIMED = [(16, 2000, 227, 256)]
 # the lane axis and column mask of the two kernels a ragged batch trains
 # through; a lane's real width under the mask cycles through these shares
 # of k (106 and 227 of 227: the grid's two resolutions; one lane fully real)
@@ -397,6 +420,24 @@ BENCH_M, BENCH_LANE_WIDTH, BENCH_WINDOWS = 4, 2, 2
 BENCH_WINDOW_SECONDS, BENCH_EPOCHS = 1.0, 2
 BENCH_TIMEOUT = 300
 DENSE_N, DENSE_REPS = 32768, 5
+# phase 34: the synthesize CLIs at the JAX scripts' scale on generated input
+# trees: 1b_2's 100,000 test sites (its solutions drawn from the 1b_2 entry
+# of data/1b/fit_params.json, the one with a nugget), 3b_1's 50,000 sites
+# (two columns mixed at SYNTH_3B_RHO), 2b_8's sites x T = 100 from the
+# covariance fitted to the bench field, cut from 2b's 10,000 sites to
+# 5,000 to keep the phase near a minute (the host's Matern covariance,
+# scipy's K_1 over S^2 pairs on one core, grows with S^2 and the Cholesky
+# with S^3); the scripts' m = 4,096 features
+# and seed; eval_latent against float64 numpy on SYNTH_F64_POINTS points at
+# the script's accepted phase error (scripts/synthesize_1b3b.py:103-106);
+# the latent's std and the refit round trip as the JAX tests bound them
+# (tests/test_family_scoring.py:40-66)
+SYNTH_1B_SITES, SYNTH_3B_SITES, SYNTH_3B_RHO = 100_000, 50_000, 0.5
+SYNTH_2B_SITES, SYNTH_2B_T, SYNTH_2B_TEST_T = 5_000, 100, 10
+SYNTH_M, SYNTH_SEED, SYNTH_TRAIN_RATIO = 4096, 2026, 9
+SYNTH_F64_POINTS, SYNTH_F64_BAR = 4096, 1e-4
+SYNTH_LATENT_STD = (0.85, 1.15)
+SYNTH_LATENT_REPS = 3
 NAN_DIAG_KEYS = {"nan_epochs", "n_epochs_run", "train_loss_tail",
                  "val_loss_tail", "inputs", "params"}
 # bars: (rtol, atol) of each kernel against its plain version
@@ -730,6 +771,52 @@ def lane_kernel_phase(torch, ffl, basis_ids, cal, worst):
     return lane_ms
 
 
+def added_shapes_phase(torch, ffl, sbk, basis_ids, worst):
+    """ADDED_TIMED and ADDED_LANE_TIMED: each kernel against its plain
+    version at phase 2's bars, then the device time a launch of both
+    (CUDA-graph replays in turns plain, kernel, kernel, plain) beside its
+    bound (M times one lane's). Returns {kernel: {shape: times}}."""
+    from st_dadk_tpu_torch.utils.timing import graph_ms, in_turns
+
+    cases = [((1,) + shape, names) for shape, names in ADDED_TIMED]
+    cases += [(shape, LANE_KERNELS) for shape in ADDED_LANE_TIMED]
+    print("kernel times at the launch shapes added since the fit shapes, "
+          "Wendland, device time a launch (CUDA-graph replay):", flush=True)
+    times = {}
+    for (lanes, n, k, h), names in cases:
+        if lanes == 1:
+            coords, centers, bw, w, grad_h, grad_phi = _inputs(
+                torch, n, k, h, seed=97)
+            pairs = _pairs(ffl, sbk, coords, centers, (1.0 / bw).contiguous(),
+                           w, grad_h, grad_phi, basis_ids["wendland"])
+        else:
+            coords, centers, bw, w, grad_h = _lane_inputs(torch, lanes, n, k,
+                                                          h, seed=97)
+            pairs = _lane_calls(ffl, coords, centers, (1.0 / bw).contiguous(),
+                                w, grad_h, basis_ids["wendland"])
+        key = f"M={lanes} N={n} k={k} H={h}"
+        for nm in names:
+            kern, plain = pairs[nm]
+            rtol, atol = BARS[nm]
+            for a, b in zip(_outputs(kern()), _outputs(plain())):
+                mx, excess = _err(torch, a, b, rtol, atol)
+                worst[nm] = max(worst[nm], mx)
+                check(bool(torch.isfinite(a).all()) and excess <= 0.0,
+                      f"{nm} disagrees with its plain version at {key} "
+                      f"(max |d| {mx:.3e})")
+            ms, plain_ms = in_turns(graph_ms, plain, kern)
+            b, by = bound_ms(nm, n, k, h)
+            times.setdefault(nm, {})[key] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": lanes * b,
+                "bound_by": by}
+            print(f"  {nm:31s} {key}: device {ms:.4f} ms (plain "
+                  f"{plain_ms:.4f}), bound {lanes * b:.4f} ms ({by}, "
+                  f"{100 * lanes * b / ms:.1f} % of device)", flush=True)
+        del coords, centers, bw, w, grad_h, pairs
+        torch.cuda.empty_cache()
+    return times
+
+
 def _basis_lane_inputs(torch, lanes, n, k, seed):
     """coords (M, n, 2), centers (M, k, 2), bw (M, k), g (M, n, k) of `lanes`
     seeds, and the column mask (M, k) of MASK_REAL_OF_227's real widths."""
@@ -911,6 +998,7 @@ def main(argv=None) -> int:
                                 worst)
     lane_ms.update(basis_lane_kernel_phase(torch, sbk, BASIS_IDS,
                                            CALIBRATION_FACTORS, worst))
+    added_ms = added_shapes_phase(torch, ffl, sbk, BASIS_IDS, worst)
     launches = {nm: None for nm in KERNELS}
     lane_launches, competition, competition_ms, options = {}, {}, {}, {}
     parallel, tools = {}, {}
@@ -945,6 +1033,8 @@ def main(argv=None) -> int:
          "lane_launches": lane_launches.get(nm),
          "lanes_ms": ({str(m): t for m, t in lane_ms[nm].items()}
                       if nm in lane_ms else None),
+         # device ms a launch at ADDED_TIMED / ADDED_LANE_TIMED
+         "added_shapes_ms": added_ms.get(nm),
          # launches in each run of phases 18-20 (the competition path)
          "competition_launches": {run: counts[nm] for run, counts
                                   in competition.items()} or None,
@@ -1057,6 +1147,7 @@ class Phases:
                             ("32 (fits/hour bench)", self.bench_tool_phase),
                             ("33 (dense-inference bench)",
                              self.dense_tool_phase),
+                            ("34 (synthesize CLIs)", self.synthesize_phase),
                             ("21 (every launch shape)",
                              self.launch_shapes_phase)):
             t0 = time.time()
@@ -3037,6 +3128,189 @@ class Phases:
             f"{a['latency_ms']:.4f} ms latency, {a['mpts_per_s']:.1f} M pts/s,"
             f" peak {a['peak_memory_mib']:.0f} MiB"
             for arm, a in s["arms"].items()), flush=True)
+
+    @staticmethod
+    def synth_inputs(ref):
+        """Phase 34's reference tree under `ref`: 1b_2 and 3b_1 test sites
+        with their solutions, drawn on the card from the generating
+        parameters of data/{1b,3b}/fit_params.json, and 2b_8's test sites
+        (SYNTH_2B_TEST_T time steps). Returns the generating parameters."""
+        import numpy as np
+
+        from st_dadk_tpu_torch.cli import synthesize_1b3b as s13
+        from st_dadk_tpu_torch.dataio.kaust import write_columns
+
+        rng = np.random.default_rng(34)
+        gen_1b = json.loads((REPO / "data/1b/fit_params.json").read_text())
+        gen_3b = json.loads((REPO / "data/3b/fit_params.json").read_text())
+        gen = {"1b_2": gen_1b["1b_2"]["z"], "3b_1.z1": gen_3b["3b_1"]["z1"],
+               "3b_1.z2": gen_3b["3b_1"]["z2"]}
+
+        def latent(xy, p, seed):
+            om, ph = s13.matern_rff(p, SYNTH_M, seed)
+            return s13.eval_latent(xy, om, ph, device="cuda")
+
+        for fam, i, n in (("1b", 2, SYNTH_1B_SITES),
+                          ("3b", 1, SYNTH_3B_SITES)):
+            (ref / fam).mkdir(parents=True)
+            xy = rng.uniform(size=(n, 2)).round(6)
+            write_columns(ref / fam / f"{fam}_{i}_test.csv",
+                          {"x": xy[:, 0], "y": xy[:, 1]})
+            if fam == "1b":
+                sol = {"z2": s13.sample_field(gen["1b_2"],
+                                              latent(xy, gen["1b_2"], 1), 2)}
+            else:
+                p1, p2 = gen["3b_1.z1"], gen["3b_1.z2"]
+                a, b = latent(xy, p1, 3), latent(xy, p2, 4)
+                mixed = SYNTH_3B_RHO * a + np.sqrt(1 - SYNTH_3B_RHO ** 2) * b
+                sol = {"z1": s13.sample_field(p1, a, 5),
+                       "z2": s13.sample_field(p2, mixed, 6)}
+            write_columns(ref / fam / f"{fam}-solutions.csv",
+                          {"id": np.arange(1, n + 1),
+                           **{k: v.astype(np.float32)
+                              for k, v in sol.items()}})
+        (ref / "2b").mkdir()
+        sites = rng.uniform(size=(SYNTH_2B_SITES, 2)).round(6)
+        T0 = SYNTH_2B_T - SYNTH_2B_TEST_T + 1
+        write_columns(ref / "2b" / "2b_8_test.csv",
+                      {"x": np.tile(sites[:, 0], SYNTH_2B_TEST_T),
+                       "y": np.tile(sites[:, 1], SYNTH_2B_TEST_T),
+                       "t": np.repeat(np.arange(T0, SYNTH_2B_T + 1),
+                                      SYNTH_2B_SITES)}, float_format="%.6f")
+        return gen
+
+    def synthesize_phase(self):
+        """Phase 34: `cli/synthesize_1b3b.py` and `cli/synthesize_2b.py`
+        through their `main` on the card at the JAX scripts' scale, on
+        input trees generated under a temporary directory (`synth_inputs`;
+        2b fits the bench field): the files, columns and rows, every value
+        finite; then eval_latent at n = 1,000,000, m = SYNTH_M timed on the
+        CLI's own features for 1b_2, its std, the CLI's 1b_2 values
+        bitwise sample_field of it, and SYNTH_F64_POINTS of its points
+        against a float64 numpy evaluation; the refitted range, sill and
+        nugget beside the generating ones (1b_2 and 2b within the JAX
+        round trip's bounds)."""
+        import tempfile
+
+        import numpy as np
+
+        from st_dadk_tpu_torch.cli import synthesize_1b3b as s13
+        from st_dadk_tpu_torch.cli import synthesize_2b as s2b
+        from st_dadk_tpu_torch.dataio.kaust import read_columns
+        from st_dadk_tpu_torch.dataio.synthetic import standin_path
+
+        torch = self.torch
+        n_tr1 = SYNTH_TRAIN_RATIO * SYNTH_1B_SITES
+        n_tr3 = SYNTH_TRAIN_RATIO * SYNTH_3B_SITES
+        expected = {
+            "1b/1b_2.csv": (["id_train", "x", "y", "z"], n_tr1),
+            "1b/1b_2_synthsol.csv": (["id", "z"], SYNTH_1B_SITES),
+            "3b/3b_1.csv": (["x", "y", "z1", "z2"], n_tr3),
+            "3b/3b_1_synthsol.csv": (["id", "z1", "z2"], SYNTH_3B_SITES),
+            "2b/2b_8.csv": (["x", "y", "t", "z"],
+                            SYNTH_2B_SITES * SYNTH_2B_T)}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_synth") as tmp:
+            ref, out = Path(tmp) / "ref", Path(tmp) / "out"
+            t0 = time.time()
+            gen = self.synth_inputs(ref)
+            print(f"synthesize: generated the input trees in "
+                  f"{time.time() - t0:.1f} s", flush=True)
+            walls = {}
+            for name, main, argv in (
+                    ("synthesize_1b3b", s13.main,
+                     ["--families", "1b", "3b", "--ref_data", str(ref),
+                      "--out_root", str(out), "--m_features", str(SYNTH_M),
+                      "--seed", str(SYNTH_SEED), "--device", "cuda"]),
+                    ("synthesize_2b", s2b.main,
+                     ["--indices", "8", "--T", str(SYNTH_2B_T), "--out_dir",
+                      str(out / "2b"), "--fit_from", str(self.data_file),
+                      "--sites_from", str(ref / "2b"), "--device", "cuda"])):
+                t0 = time.time()
+                rc = main(argv)
+                walls[name] = time.time() - t0
+                check(rc == 0, f"phase 34: {name} exited {rc}")
+            files = sorted(str(p.relative_to(out)) for p in out.rglob("*")
+                           if p.is_file())
+            check(files == sorted(list(expected) + [
+                f"{f}/fit_params.json" for f in ("1b", "2b", "3b")]),
+                f"phase 34: the CLIs wrote {files}")
+            cols = {}
+            for name, (header, rows) in expected.items():
+                c = read_columns(out / name)
+                check(list(c) == header
+                      and all(len(v) == rows for v in c.values()),
+                      f"phase 34: {name}: columns {list(c)}, rows "
+                      f"{[len(v) for v in c.values()]}")
+                check(all(bool(np.isfinite(v).all()) for v in c.values()),
+                      f"phase 34: {name} holds a non-finite value")
+                cols[name] = c
+            fitted = {f: json.loads((out / f / "fit_params.json").read_text())
+                      for f in ("1b", "2b", "3b")}
+
+            # eval_latent at the script's scale, on the CLI's own features
+            p = fitted["1b"]["1b_2"]["z"]
+            te = read_columns(ref / "1b" / "1b_2_test.csv")
+            tr = np.random.default_rng(SYNTH_SEED + 100 * 2).uniform(
+                size=(n_tr1, 2))
+            check(np.array_equal(cols["1b/1b_2.csv"]["x"], tr[:, 0]),
+                  "phase 34: 1b_2's train sites are not the script's draw")
+            xy = np.vstack([tr, np.column_stack([te["x"], te["y"]])])
+            om, ph = s13.matern_rff(p, SYNTH_M, SYNTH_SEED + 7 * 2)
+            lat = s13.eval_latent(xy, om, ph, device="cuda")
+            ms = []
+            for _ in range(SYNTH_LATENT_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                again = s13.eval_latent(xy, om, ph, device="cuda")
+                ms.append(1e3 * (time.perf_counter() - t0))
+                check(np.array_equal(again, lat),
+                      "phase 34: two calls of eval_latent differ")
+            lo, hi = SYNTH_LATENT_STD
+            check(lo < lat.std() < hi, f"phase 34: the latent's std "
+                  f"{lat.std():.4f} is outside ({lo}, {hi})")
+            z = s13.sample_field(p, lat, SYNTH_SEED + 11 * 2).astype(
+                np.float32)
+            check(np.array_equal(cols["1b/1b_2.csv"]["z"].astype(np.float32),
+                                 z[:n_tr1])
+                  and np.array_equal(cols["1b/1b_2_synthsol.csv"]["z"]
+                                     .astype(np.float32), z[n_tr1:]),
+                  "phase 34: the CLI's 1b_2 values are not sample_field of "
+                  "this latent")
+            idx = np.random.default_rng(35).choice(len(xy), SYNTH_F64_POINTS,
+                                                   replace=False)
+            f64 = np.sqrt(2.0 / SYNTH_M) * np.cos(xy[idx] @ om.T + ph).sum(1)
+            gap = float(np.abs(lat[idx] - f64).max())
+            check(gap <= SYNTH_F64_BAR, f"phase 34: eval_latent is "
+                  f"{gap:.3e} from float64 (bar {SYNTH_F64_BAR})")
+            print(f"synthesize: eval_latent at n={len(xy)}, m={SYNTH_M} on "
+                  f"the card: " + ", ".join(f"{t:.3f}" for t in ms)
+                  + f" ms (median {sorted(ms)[len(ms) // 2]:.3f}); latent "
+                  f"mean {lat.mean():.4f} std {lat.std():.4f}; max |d| to "
+                  f"float64 at {SYNTH_F64_POINTS} points {gap:.3e} (bar "
+                  f"{SYNTH_F64_BAR}); |omega| up to "
+                  f"{np.abs(om).max():.1f}", flush=True)
+
+            gen_2b = json.loads((REPO / "data/2b/fit_params.json")
+                                .read_text())
+            pairs = [("1b_2", gen["1b_2"], p),
+                     ("3b_1.z1", gen["3b_1.z1"], fitted["3b"]["3b_1"]["z1"]),
+                     ("3b_1.z2", gen["3b_1.z2"], fitted["3b"]["3b_1"]["z2"]),
+                     ("2b (bench field)", gen_2b, fitted["2b"])]
+            for name, g, f in pairs:
+                print(f"synthesize: {name} refitted range {f['range_']:.4f} "
+                      f"sill {f['sigma2']:.4f} nugget {f['nugget']:.4f}; "
+                      f"generating {g['range_']:.4f} / {g['sigma2']:.4f} / "
+                      f"{g['nugget']:.4f}", flush=True)
+            print(f"synthesize: 3b_1 measured rho "
+                  f"{fitted['3b']['3b_1']['cross_corr']:.4f} (latents mixed "
+                  f"at {SYNTH_3B_RHO})", flush=True)
+            for name, g, f in pairs[:1] + ([pairs[3]] if self.data_file
+                                          == standin_path() else []):
+                check(0.5 * g["range_"] < f["range_"] < 2.0 * g["range_"]
+                      and abs(f["sigma2"] - g["sigma2"]) < 0.3,
+                      f"phase 34: {name} refitted {f} far from {g}")
+        print("synthesize: " + ", ".join(f"{k} {v:.1f} s" for k, v
+                                         in walls.items()), flush=True)
 
     def hold(self, nm, kern, plain, where):
         """One call of kernel `nm` against its plain version at BARS[nm]:

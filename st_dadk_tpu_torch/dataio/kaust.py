@@ -38,6 +38,29 @@ def read_columns(path: str | Path) -> Dict[str, np.ndarray]:
             for i, name in enumerate(header)}
 
 
+def write_columns(path: str | Path, columns: Dict[str, np.ndarray],
+                  float_format: Optional[str] = None) -> None:
+    """A CSV of `columns` by name, as pandas' `to_csv(index=False)` lays
+    them out: integers as integers; floats in `float_format` where given,
+    else float64 in its shortest round-trip form and float32 in 9
+    significant digits (which parse back to the same float32)."""
+    fmts, values = [], []
+    for a in columns.values():
+        a = np.asarray(a)
+        if a.dtype.kind in "iu":
+            fmts.append("{}")
+        elif float_format is not None:
+            fmts.append("{:" + float_format.lstrip("%") + "}")
+        else:
+            fmts.append("{:.9g}" if a.dtype == np.float32 else "{!r}")
+        values.append(a.tolist() if a.dtype.kind in "iu"
+                      else a.astype(np.float64).tolist())
+    line = ",".join(fmts) + "\n"
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(",".join(columns) + "\n")
+        f.writelines(line.format(*row) for row in zip(*values))
+
+
 def _first_appearance(x: np.ndarray, y: np.ndarray
                       ) -> Tuple[np.ndarray, np.ndarray]:
     """(site code per row, the unique float64 (x, y) pairs (S, 2)), sites

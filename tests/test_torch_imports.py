@@ -45,7 +45,8 @@ def test_port_imports_no_jax_yaml_pandas_or_reference():
                  "parallel.data_parallel", "parallel.tensor_parallel",
                  "parallel.launch", "trace_steady_state", "bench",
                  "bench_dense_inference", "cli.visualize_obs_density",
-                 "cli.visualize_2b_data", "cli.compare_evidence"):
+                 "cli.visualize_2b_data", "cli.compare_evidence",
+                 "cli.synthesize_1b3b", "cli.synthesize_2b"):
         assert f"st_dadk_tpu_torch.{name}" in res["modules"], name
     assert res["forbidden"] == []
 
