@@ -1,0 +1,7 @@
+"""The traced span's product FLOPs (steps and validations) as a share of the
+float32-accurate product peak."""
+from stbench import yardstick
+
+
+def read(obs):
+    return yardstick.mfu_pct(obs.get("span"), obs["model"])
