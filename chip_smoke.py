@@ -177,7 +177,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
  31. `trace_steady_state`'s capture and analysis of a short pipelined
      stream: device time in every stage family, under TRACE_OTHER_SHARE of
      it unclaimed by any stage, every host-device copy of the trace in a
-     copy family, the steady table summing to the batch wall;
+     copy family, the clock probe's launch inside its program span within
+     TRACE_CLOCK_SLACK_US, the idle time by the main thread's spans summing
+     to the span's idle time;
  32. the fits/hour bench (`python3 -m st_dadk_tpu_torch.bench`) in a child
      process, cut to BENCH_M jobs a batch in BENCH_LANE_WIDTH-lane batches,
      BENCH_WINDOWS windows of at least BENCH_WINDOW_SECONDS s and
@@ -408,12 +410,12 @@ NESTED_MESH = (("exp", 2), ("data", 2))
 DEVICE_METRICS_RTOL = 1e-5
 # phase 31: the trace tool's capture; the share of its device time that no
 # stage claims (none in a healthy capture: every launch of the stream comes
-# from a stage); how far the steady table may be from the batch wall on the
-# capture's own clock (an identity of the analysis: a row's idle time is
-# the rest of its period)
+# from a stage); how far a launch's runtime call may lie outside the
+# program span around it on the trace's clock (the clock the stages are
+# placed by; tests/test_torch_trace_clock.py's bar)
 TRACE_BATCHES, TRACE_LANES, TRACE_EPOCHS = 3, 4, 2
 TRACE_OTHER_SHARE = 0.01
-TRACE_WALL_RTOL = 0.10
+TRACE_CLOCK_SLACK_US = 50.0
 # phase 32: the bench tool in a child process, cut to seconds; phase 33:
 # the dense-inference tool
 BENCH_M, BENCH_LANE_WIDTH, BENCH_WINDOWS = 4, 2, 2
@@ -2991,8 +2993,9 @@ class Phases:
         each steady period, in 'other' (no stage claims it: a launch the
         attribution lost); the copy families' activities, summed, equal to
         every host-device copy of the trace, read from the trace itself;
-        and a steady table whose rows sum to the batch wall on the
-        capture's own clock within TRACE_WALL_RTOL."""
+        the capture's clock probe within TRACE_CLOCK_SLACK_US; and the
+        device's idle time by the main thread's innermost span summing to
+        the span's idle time."""
         import gzip
         import shutil
 
@@ -3028,6 +3031,15 @@ class Phases:
               f"phase 31: the copy families hold {len(got)} copies, "
               f"{copies:.1f} us, of the trace's {len(raw)}, "
               f"{sum(raw):.1f} us")
+        slack = meta["clock_slack_us"]
+        check(slack <= TRACE_CLOCK_SLACK_US,
+              f"phase 31: a launch's runtime call lies {slack:.1f} us "
+              f"outside the program span around it on the trace's clock")
+        idle = report["span_seconds"] - report["device_busy_seconds"]
+        by_span = report["idle_by_span"]["main"]
+        check(abs(sum(by_span.values()) - idle) <= 1e-6 + 1e-3 * idle,
+              f"phase 31: the idle time by the main thread's spans sums to "
+              f"{sum(by_span.values()):.6f} s of {idle:.6f} s")
         rows = (report.get("steady") or {}).get("batches", [])
         check(len(rows) == TRACE_BATCHES - 2,
               f"phase 31: {len(rows)} steady rows")
@@ -3036,12 +3048,8 @@ class Phases:
             check(r["other"] <= TRACE_OTHER_SHARE * busy,
                   f"phase 31: batch {r['batch']}: {r['other']:.4f} s of "
                   f"{busy:.4f} s device time claimed by no stage")
-            gap = abs(r["table_sum_seconds"] - r["host_wall_seconds"])
-            check(gap <= TRACE_WALL_RTOL * r["host_wall_seconds"],
-                  f"phase 31: batch {r['batch']}'s table sums to "
-                  f"{r['table_sum_seconds']:.4f} s against a wall of "
-                  f"{r['host_wall_seconds']:.4f} s")
-        print(f"trace: 'other' {fam.get('other', 0.0):.4f} s; copies "
+        print(f"trace: clock probe {slack:.1f} us outside its span; 'other' "
+              f"{fam.get('other', 0.0):.4f} s; copies "
               f"{len(got)}, {copies / 1e6:.6f} s, all of the trace's "
               f"host-device copies ({sum(raw) / 1e6:.6f} s)", flush=True)
         print(f"trace of {meta['fits']} fits: {meta['wall_seconds']:.2f} s in "

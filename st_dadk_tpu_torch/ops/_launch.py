@@ -2,11 +2,14 @@
 
 A wrapper takes its plain PyTorch version when every tensor lies on the
 CPU (`on_cpu`); on CUDA tensors it checks dtype, shape and contiguity,
-launches its kernel on the current stream, and raises on a launch error.
+launches its kernel on the current stream, raises on a launch error, and
+counts the call by shape (`LaunchCounter`).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import threading
+from collections import Counter
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -87,3 +90,44 @@ def raise_on(rc: int, what: str) -> None:
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class LaunchCounter:
+    """The calls of one module's kernel wrappers that reached the card, by
+    shape: one a call, however many device launches it makes and however
+    many lanes it serves. A shape is (lane axis, N, k, H, masked, basis
+    id). Calls from several threads (the batch pipeline's finalize thread
+    predicts while the main thread trains) count together; a lock of its
+    own keeps every one."""
+
+    def __init__(self, wrappers: Sequence[Callable]):
+        self.names = tuple(fn.__name__ for fn in wrappers)
+        self._calls: Counter = Counter()     # (name, *shape) -> calls
+        self._lock = threading.Lock()
+
+    def add(self, fn: Callable, shape: Tuple) -> None:
+        key = (fn.__name__,) + shape
+        with self._lock:
+            self._calls[key] += 1
+
+    def _items(self) -> List[Tuple[Tuple, int]]:
+        with self._lock:
+            return list(self._calls.items())
+
+    def counts(self) -> Dict[str, int]:
+        """Calls of each wrapper since the last reset."""
+        out = dict.fromkeys(self.names, 0)
+        for key, n in self._items():
+            out[key[0]] += n
+        return out
+
+    def shapes(self) -> Dict[str, List[Tuple]]:
+        """Each wrapper's distinct shapes since the last reset."""
+        out: Dict[str, set] = {name: set() for name in self.names}
+        for key, _ in self._items():
+            out[key[0]].add(key[1:])
+        return {name: sorted(shapes) for name, shapes in out.items()}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._calls.clear()

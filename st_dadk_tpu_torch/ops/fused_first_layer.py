@@ -40,12 +40,12 @@ serves them all, the lane being one more grid dimension. The tiles and slab
 counts stay chosen by one lane's N. The two-dimensional call is the M = 1
 case of the same kernels. The plain versions broadcast over the lane axis.
 
-Each wrapper counts its calls that reach the card in `<wrapper>.launches`:
-one a call, however many device launches the call makes and however many
-lanes it serves. It keeps the shapes they launched at in `<wrapper>.shapes`
-(`launch_shapes`). The counts are plain module-level integers; where two
-threads launch (the batch pipeline's finalize thread predicts while the main
-thread trains) they count both threads' launches together.
+Each wrapper counts its calls that reach the card by shape (`_LAUNCHES`,
+an `_launch.LaunchCounter`): one a call, however many device launches the
+call makes and however many lanes it serves; `launch_counts()` and
+`launch_shapes()` read it. Where two threads launch (the batch pipeline's
+finalize thread predicts while the main thread trains) they count both
+threads' launches together.
 """
 from __future__ import annotations
 
@@ -55,9 +55,9 @@ from typing import Dict, List, Tuple
 import torch
 
 from st_dadk_tpu_torch.ops._build import load_library
-from st_dadk_tpu_torch.ops._launch import (check, check_basis,
-                                           check_basis_lanes, on_cpu,
-                                           raise_on, stream)
+from st_dadk_tpu_torch.ops._launch import (LaunchCounter, check,
+                                           check_basis, check_basis_lanes,
+                                           on_cpu, raise_on, stream)
 from st_dadk_tpu_torch.ops.basis import (BASIS_IDS, CALIBRATION_FACTORS,
                                          basis_matrix)
 
@@ -260,8 +260,7 @@ def plain_bwd_points(coords, centers, inv_bw, w, g, basis_id: int
 def _count(fn, lead: Tuple[int, ...], n: int, k: int, h: int,
            basis_id: int) -> None:
     """One launch of `fn`'s kernel, and the shape it launched at."""
-    fn.launches += 1
-    fn.shapes.add((lead, n, k, h, False, basis_id))
+    _LAUNCHES.add(fn, (lead, n, k, h, False, basis_id))
 
 
 def fused_first_layer_fwd(coords: torch.Tensor, centers: torch.Tensor,
@@ -372,22 +371,21 @@ KERNEL_WRAPPERS = (fused_first_layer_fwd, fused_first_layer_bwd_w,
                    fused_first_layer_bwd_centers, fused_first_layer_bwd_points)
 
 
+_LAUNCHES = LaunchCounter(KERNEL_WRAPPERS)
+
+
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
-        fn.launches, fn.shapes = 0, set()
-
-
-reset_launch_counts()
+    _LAUNCHES.reset()
 
 
 def launch_counts() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    return _LAUNCHES.counts()
 
 
 def launch_shapes() -> Dict[str, List[Tuple]]:
     """Each kernel's distinct launch shapes since the last reset, as
     (lane axis, N, k, H, masked, basis id)."""
-    return {fn.__name__: sorted(fn.shapes) for fn in KERNEL_WRAPPERS}
+    return _LAUNCHES.shapes()
 
 
 # ---------------------------------------------------------------------------

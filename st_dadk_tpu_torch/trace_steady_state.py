@@ -12,17 +12,19 @@ capture: one warm-up batch of the bench workload (stand-in field unless
 `profile_fit.py` warms up), then a pipelined stream of `--batches` batches
 of `--lanes` lanes, `--epochs` epochs each (`batch_engine.run_job_batches`:
 prepare and finalize threads beside the main thread's init and fit) under
-`torch.profiler` with CPU and CUDA activities. The engine carries no spans
-of its own: for the capture only, this module wraps the engine's stages
-(`_prepare_job_batch`; `_execute_job_batch` and, inside it, the upload with
-`_init_lane_carries` and `fit_lanes`; `_finalize_job_batch`) in
-`torch.profiler.record_function` ranges and records every stage on the
-host's clock as well: the profiler records the ops and ranges of the
-calling thread only (all threads cost it tens of seconds of export for a
-short window), while CUPTI traces every thread's launches; the host spans
-place the other threads' stages on the trace's clock. The profiler's Chrome
-trace is reduced (`compact`) to what the analysis reads and kept as
-`trace.json.gz` beside `capture_meta.json`; the raw export is deleted.
+`torch.profiler` with CPU and CUDA activities, and with the program's
+tracer on (`utils/trace.py`): the engine's own spans give its stages on
+every thread (`batch.prepare` on the prepare thread; `batch.execute` and,
+inside it, `batch.upload`, `batch.init` and `fit` on the main thread;
+`batch.finalize` on the finalize thread), on the clock of the trace's
+`baseTimeNanoseconds`. The profiler records the ops of the calling thread
+only (all threads cost it tens of seconds of export for a short window),
+while CUPTI traces every thread's launches. Before the stream, one launch
+inside a span checks that clock (`clock_slack_us`, kept in the meta). The
+profiler's Chrome trace is reduced (`compact`) to what the analysis reads,
+with the stages and every span of the program, and kept as `trace.json.gz`
+beside `capture_meta.json` and the drained record (`program.json`); the
+raw export is deleted.
 
 analyze (host only, no card): every device activity (kernel, copy, memset)
 is attributed by the host launch that correlates with it: the launching
@@ -41,13 +43,19 @@ main thread was doing, and a steady-state table, one row a batch period
 pipeline's spin-up and tail, are left out), in which the device time of
 each family plus the idle time sums to the period exactly; beside it the
 same periods on the capture's own clock. The copies' share of the steady
-batch wall decides whether packed transfers pay (ROADMAP Queue 1).
+batch wall decides whether packed transfers pay (ROADMAP Queue 1). And the
+device's idle time over the span by the innermost program span open on
+each pipeline thread then (`idle_by_span`: main, prepare, finalize; each
+sums to the idle time, 'outside' where the thread had no span open): the
+main thread's split says which host work the card waits on (a step's
+forward, backward or optimizer dispatch, the shuffle, validation, the
+epoch's host read, init, or the waits for a batch), and so where a cut of
+host time a step or a batch pays.
 """
 from __future__ import annotations
 
 import argparse
 import bisect
-import contextlib
 import gzip
 import json
 import sys
@@ -64,8 +72,14 @@ STAGE_FAMILY = {"init": "init", "fit": "fit step",
                 "finalize": "eval/finalize"}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
-STAGE_PREFIX = "stage:"
+# the analysis's stages: the engine's spans that name them
+STAGE_SPANS = {"batch.prepare": "prepare", "batch.execute": "execute",
+               "batch.upload": "init", "batch.init": "init", "fit": "fit",
+               "batch.finalize": "finalize"}
 GAP_MIN_US = 1000.0              # gaps listed: at least 1 ms
+# the pipeline's threads, by the span that only each of them opens
+THREAD_ROLES = {"fit": "main", "batch.prepare": "prepare",
+                "batch.finalize": "finalize"}
 
 
 def log(msg: str) -> None:
@@ -76,61 +90,15 @@ def log(msg: str) -> None:
 # capture
 # --------------------------------------------------------------------------
 
-@contextlib.contextmanager
-def staged_engine(starts: List[float], spans: List[tuple]):
-    """The engine's stages wrapped in record_function ranges named
-    'stage:<stage>' for the duration of the block. `starts` collects the
-    host clock (time.time) at the start of each batch's execute stage,
-    `spans` every stage as (native thread id, stage, start ns, end ns) on
-    the host's clock: the profiler records the ranges of the calling
-    thread only, and these place the pipeline threads' stages."""
-    import threading
-
-    import torch
-
-    from st_dadk_tpu_torch.train import batch_engine as be
-
-    def wrap(fn, stage, first=None):
-        def staged(*a, **kw):
-            if first is not None:
-                first.append(time.time())
-            t0 = time.time_ns()
-            try:
-                with torch.profiler.record_function(STAGE_PREFIX + stage):
-                    return fn(*a, **kw)
-            finally:
-                spans.append((threading.get_native_id(), stage, t0,
-                              time.time_ns()))
-        return staged
-
-    saved = {n: getattr(be, n) for n in ("_prepare_job_batch",
-                                         "_execute_job_batch", "lane_data_to",
-                                         "_init_lane_carries", "fit_lanes",
-                                         "_finalize_job_batch")}
-    be._prepare_job_batch = wrap(saved["_prepare_job_batch"], "prepare")
-    be._execute_job_batch = wrap(saved["_execute_job_batch"], "execute",
-                                 starts)
-    be.lane_data_to = wrap(saved["lane_data_to"], "init")
-    be._init_lane_carries = wrap(saved["_init_lane_carries"], "init")
-    be.fit_lanes = wrap(saved["fit_lanes"], "fit")
-    be._finalize_job_batch = wrap(saved["_finalize_job_batch"], "finalize")
-    try:
-        yield
-    finally:
-        for n, fn in saved.items():
-            setattr(be, n, fn)
-
-
 def compact(trace: Dict[str, Any],
-            spans: Optional[List[tuple]] = None) -> Dict[str, Any]:
+            program: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """What `analyze` reads of a torch.profiler Chrome trace, each as a
     short list (times in the trace's microseconds): the device activities;
     the runtime calls that launched them, each with the innermost CPU op
-    around it on its thread where the trace holds CPU ops; and the stage
-    ranges, the traced ones and, from the host `spans` of `staged_engine`,
-    those of the threads the profiler recorded no range on
-    (`_host_stages`)."""
-    dev, launch, stages = [], [], []
+    around it on its thread where the trace holds CPU ops; the stages, from
+    the engine's spans in the drained `program` record (`_program_stages`);
+    and every span of the record as (ts, dur, native thread id, name)."""
+    dev, launch = [], []
     ops = defaultdict(list)
     for e in trace.get("traceEvents", []):
         if e.get("ph") != "X":
@@ -142,55 +110,40 @@ def compact(trace: Dict[str, Any],
                         args.get("correlation")))
         elif cat in LAUNCH_CATS and args.get("correlation") is not None:
             launch.append((ts, dur, e.get("tid"), args["correlation"]))
-        elif cat == "user_annotation" and \
-                str(e.get("name", "")).startswith(STAGE_PREFIX):
-            stages.append((ts, dur, e.get("tid"),
-                           e["name"][len(STAGE_PREFIX):]))
         elif cat == "cpu_op":
             ops[e.get("tid")].append((ts, ts + dur, e.get("name", "")))
     ops = {tid: _Spans(rows) for tid, rows in ops.items()}
     launch = [row + ((ops[row[2]].holding(row[0]) or [None])[0]
                      if row[2] in ops else None,) for row in launch]
-    if spans:
-        stages += _host_stages(stages, spans, launch,
-                               trace.get("baseTimeNanoseconds"))
-    return {"device": dev, "launch": launch, "stages": stages}
+    base = trace.get("baseTimeNanoseconds") or 0
+    spans = program["spans"] if program else []
+    return {"device": dev, "launch": launch,
+            "stages": _program_stages(spans, launch, base) if spans else [],
+            "spans": [((sp["start_ns"] - base) / 1e3,
+                       (sp["end_ns"] - sp["start_ns"]) / 1e3, sp["thread"],
+                       sp["name"]) for sp in spans]}
 
 
-def _host_stages(traced: List[tuple], spans: List[tuple],
-                 launch: List[tuple], base_ns: Optional[int]) -> List[tuple]:
-    """The host `spans` (native thread id, stage, start ns, end ns) of the
-    threads with no traced range, as trace stages (ts, dur, tid, stage).
+def _program_stages(spans: List[Dict[str, Any]], launch: List[tuple],
+                    base_ns: int) -> List[tuple]:
+    """The engine's stage spans (STAGE_SPANS) as trace stages (ts, dur,
+    tid, stage).
 
-    The clock: the median offset between the traced ranges and the host's
-    where a thread has both, else the trace's base time (its microseconds
-    count from `baseTimeNanoseconds` on the host's wall clock). The thread:
-    a launching thread the trace names by another id than the host's (the
-    profiler names threads it recorded no op on by their CUDA-runtime id)
-    takes the host thread whose stages hold at least 90 % of its launches
-    and cover the least of the traced time for it, the thread with the
-    highest share inside over share of time covered."""
-    import statistics
-    by_key = defaultdict(list)
-    for ts, _, tid, name in sorted(traced):
-        by_key[(tid, name)].append(ts)
-    host = defaultdict(list)
-    for tid, name, t0, t1 in sorted(spans, key=lambda r: r[2]):
-        host[(tid, name)].append((t0, t1))
-    offsets = [ts - t0 / 1e3 for key, rows in host.items()
-               for ts, (t0, _) in zip(by_key.get(key, ()), rows)]
-    if offsets:
-        off = statistics.median(offsets)
-    elif base_ns is not None:
-        off = -float(base_ns) / 1e3
-    else:
-        off = 0.0
-    seen = {tid for _, _, tid, _ in traced}
+    The clock: the trace's microseconds count from `base_ns` on the clock
+    of the drained stamps (`time.time_ns()`'s). The thread: a span's native
+    thread id, which the trace uses for the threads it recorded ops on; a
+    launching thread the trace names by another id (the profiler names
+    threads it recorded no op on by their CUDA-runtime id) takes the thread
+    whose stages hold at least 90 % of its launches and cover the least of
+    the traced time for it, the thread with the highest share inside over
+    share of time covered."""
     threads = defaultdict(list)
-    for (tid, name), rows in host.items():
-        if tid not in seen:
-            threads[tid] += [(t0 / 1e3 + off, t1 / 1e3 + off, name)
-                             for t0, t1 in rows]
+    for sp in spans:
+        name = STAGE_SPANS.get(sp["name"])
+        if name is not None:
+            threads[sp["thread"]].append(((sp["start_ns"] - base_ns) / 1e3,
+                                          (sp["end_ns"] - base_ns) / 1e3,
+                                          name))
     if not threads:
         return []
     times = defaultdict(list)
@@ -204,7 +157,7 @@ def _host_stages(traced: List[tuple], spans: List[tuple],
              for h, m in merged.items()}
     alias = defaultdict(set)
     for tid, ts_list in times.items():
-        if tid in seen or tid in threads:
+        if tid in threads:
             continue
         best, lift = None, 0.0
         for h, m in merged.items():
@@ -234,6 +187,7 @@ def capture(out_dir: Path, n_batches: int, lanes: int, epochs: int,
     from st_dadk_tpu_torch.config import ExperimentConfig
     from st_dadk_tpu_torch.dataio.synthetic import bench_data_file
     from st_dadk_tpu_torch.train import batch_engine as be
+    from st_dadk_tpu_torch.utils import trace as tracer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -252,22 +206,29 @@ def capture(out_dir: Path, n_batches: int, lanes: int, epochs: int,
         log(f"[trace] warm-up batch of {lanes} lanes in "
             f"{time.time() - t0:.1f} s")
     batches = [jobs_for(2025 + 1000 * b, f"b{b}") for b in range(n_batches)]
-    starts: List[float] = []
-    spans: List[tuple] = []
+    slack_us = clock_slack_us(out_dir)
     raw = out_dir / "raw_trace.json"
     activities = ([ProfilerActivity.CPU] if ops else []) + [
         ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
-        with staged_engine(starts, spans):
-            t0 = time.time()
+        tracer.enable()
+        try:
+            t0, t0_ns = time.time(), time.time_ns()
             results = be.run_job_batches(batches, device="cuda")
             torch.cuda.synchronize()
             wall = time.time() - t0
+        finally:
+            tracer.disable()
+    program = tracer.drain()
+    (out_dir / "program.json").write_text(json.dumps(program))
+    starts = sorted((sp["start_ns"] - t0_ns) * 1e-9
+                    for sp in program["spans"]
+                    if sp["name"] == "batch.execute")
     t1 = time.time()
     prof.export_chrome_trace(str(raw))
     t2 = time.time()
     with open(raw) as f:
-        trace = compact(json.load(f), spans)
+        trace = compact(json.load(f), program)
     raw.unlink()
     t3 = time.time()
     (out_dir / "trace.json.gz").write_bytes(
@@ -281,7 +242,7 @@ def capture(out_dir: Path, n_batches: int, lanes: int, epochs: int,
                                      "chrome_export": t2 - t1,
                                      "load_and_reduce": t3 - t2,
                                      "write": time.time() - t3},
-            "batch_starts_host": [s - t0 for s in starts],
+            "batch_starts_host": starts, "clock_slack_us": slack_us,
             "epochs_run": sorted({r["n_epochs_run"] for r in results})}
     (out_dir / "capture_meta.json").write_text(json.dumps(meta, indent=1))
     log(f"[trace] {n_batches} batches x {lanes} lanes in {wall:.2f} s "
@@ -333,17 +294,17 @@ class _Timeline:
     (STAGE_FAMILY), by one bisection."""
 
     def __init__(self, rows):
-        rows = sorted(rows)
-        self.bounds = sorted({t for a, b, _ in rows for t in (a, b)})
-        self.labels = []
-        for a, b in zip(self.bounds, self.bounds[1:]):
-            mid = (a + b) / 2
-            # innermost first: the latest start, the earliest end on ties
-            held = [name for s, _, name in sorted(
-                (s, -e, name) for s, e, name in rows if s <= mid < e)][::-1]
+        self.bounds: List[float] = []
+        self.labels: List[tuple] = []
+        for a, b, held in _stretches(rows):
+            if not self.bounds or self.bounds[-1] != a:
+                if self.bounds:                  # no stage between
+                    self.labels.append((None, None))
+                self.bounds.append(a)
+            self.bounds.append(b)
             self.labels.append(
-                (held[0] if held else None,
-                 next((n for n in held if n in STAGE_FAMILY), None)))
+                (held[-1], next((n for n in reversed(held)
+                                 if n in STAGE_FAMILY), None)))
 
     def at(self, ts: float):
         """(innermost stage, innermost family stage) at ts, each None where
@@ -352,6 +313,109 @@ class _Timeline:
         if 0 <= i < len(self.labels):
             return self.labels[i]
         return None, None
+
+
+def _stretches(rows) -> List[tuple]:
+    """One thread's ranges (start, end, name), nested as one thread's spans
+    are, as the disjoint stretches they cover in time order: (start, end,
+    the names of the ranges open then, innermost last; of ranges that start
+    together the shorter is the inner). One sweep with the stack of open
+    ranges."""
+    out: List[tuple] = []
+    stack: List[tuple] = []              # (end, name), innermost last
+    at = None
+
+    def held() -> tuple:
+        return tuple(name for _, name in stack)
+
+    def close_until(t: float) -> None:
+        nonlocal at
+        while stack and stack[-1][0] <= t:
+            if stack[-1][0] > at:
+                out.append((at, stack[-1][0], held()))
+                at = stack[-1][0]
+            stack.pop()
+
+    for start, end, name in sorted(rows, key=lambda r: (r[0], -r[1])):
+        close_until(start)
+        if stack and start > at:
+            out.append((at, start, held()))
+        at = start
+        stack.append((end, name))
+    close_until(float("inf"))
+    return out
+
+
+def idle_by_span(tr: Dict[str, Any], busy: List[List[float]]
+                 ) -> Dict[str, Dict[str, float]]:
+    """Seconds of the device's idle time between the `busy` intervals, by
+    the innermost program span open then on each pipeline thread
+    (THREAD_ROLES; another thread by its id), 'outside' where none was;
+    each thread's seconds sum to the idle time."""
+    idle = [(e1, s2) for (_, e1), (s2, _) in zip(busy, busy[1:])]
+    total = sum(b - a for a, b in idle)
+    rows = defaultdict(list)
+    for ts, dur, tid, name in tr.get("spans", []):
+        rows[tid].append((ts, ts + dur, name))
+    out = {}
+    for tid, spans in rows.items():
+        role = next((THREAD_ROLES[n] for _, _, n in spans
+                     if n in THREAD_ROLES), str(tid))
+        by = defaultdict(float)
+        line, i = _stretches(spans), 0
+        for lo, hi in idle:
+            while i < len(line) and line[i][1] <= lo:
+                i += 1
+            j = i
+            while j < len(line) and line[j][0] < hi:
+                a, b, held = line[j]
+                by[held[-1]] += min(b, hi) - max(a, lo)
+                j += 1
+        by["outside"] = total - sum(by.values())
+        out[role] = {k: v / 1e6 for k, v in
+                     sorted(by.items(), key=lambda kv: -kv[1])}
+    return out
+
+
+def clock_slack_us(tmp: Path) -> float:
+    """How far the runtime call of one kernel launch lies outside a program
+    span around it, on a torch.profiler Chrome trace's clock (the span's
+    stamps through the trace's `baseTimeNanoseconds`, as `compact` places
+    the stages), in microseconds: 0.0 inside. Turns the tracer on and off
+    and drains it; needs a CUDA device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from st_dadk_tpu_torch.utils import trace as tracer
+
+    x = torch.ones(1 << 16, device="cuda")
+    x.add_(1)                            # the kernel is loaded before
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tracer.enable()
+        try:
+            with tracer.span("clock"):
+                x.add_(1)
+        finally:
+            tracer.disable()
+        torch.cuda.synchronize()
+    (sp,) = [s for s in tracer.drain()["spans"] if s["name"] == "clock"]
+    path = Path(tmp) / "clock_trace.json"
+    prof.export_chrome_trace(str(path))
+    chrome = json.loads(path.read_text())
+    path.unlink()
+    base = chrome.get("baseTimeNanoseconds") or 0
+    events = [e for e in chrome["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if len(kernels) != 1:
+        raise RuntimeError(f"clock probe: {len(kernels)} kernels traced: "
+                           f"{[e['name'] for e in kernels]}")
+    corr = kernels[0]["args"]["correlation"]
+    (launch,) = [e for e in events if e.get("cat") == "cuda_runtime"
+                 and (e.get("args") or {}).get("correlation") == corr]
+    lo, hi = (sp["start_ns"] - base) / 1e3, (sp["end_ns"] - base) / 1e3
+    end = launch["ts"] + launch.get("dur", 0.0)
+    return max(0.0, lo - launch["ts"], end - hi)
 
 
 def _copy_kind(name: str) -> Optional[str]:
@@ -468,6 +532,7 @@ def analyze(out_dir: Path, trace: Optional[Dict[str, Any]] = None,
         "gaps": {"count": len(gaps),
                  "seconds": sum(g["ms"] for g in gaps) / 1e3,
                  "largest": sorted(gaps, key=lambda g: -g["ms"])[:12]},
+        "idle_by_span": idle_by_span(trace, busy),
     }
     # batch periods: execute start to the next one, on the main thread
     starts = sorted(ts for ts, _, tid, n in trace["stages"]
@@ -525,6 +590,9 @@ def print_report(report: Dict[str, Any]) -> None:
         f"{k} {v:.4f}" for k, v in report["family_seconds"].items()))
     print(f"queue gaps of 1 ms or more: {report['gaps']['count']}, "
           f"{report['gaps']['seconds']:.3f} s")
+    for role, by in report.get("idle_by_span", {}).items():
+        print(f"device idle by the {role} thread's innermost span: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in list(by.items())[:8]))
     st = report.get("steady")
     if st:
         cols = ("wall_seconds",) + FAMILIES + ("idle", "table_sum_seconds")

@@ -85,11 +85,18 @@ NaN diagnostics) or the per-lane fallback when the device metrics raise
 streaming pod path (their knobs stay accepted and ignored, `config.py`):
 host-device copies are a small share of a batch on the card (PERF.md,
 section 5, `trace_steady_state.py`).
+
+Each batch carries an id (`_batch_ids`) and its stages are spans of the
+tracer (`utils/trace.py`): `batch.prepare`, `batch.execute` (`batch.upload`,
+`batch.init`, `fit`), `batch.finalize` (`finalize.eval`, `finalize.write`)
+and the main thread's waits, `batch.wait_prepare` and
+`batch.wait_finalize`. The stages always take their clock reads: the
+results' `stage_timings` are built from them, traced or not.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
+import itertools
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -121,6 +128,7 @@ from st_dadk_tpu_torch.train.loop import (FitResult, LaneData, fit_lanes,
                                           lane_data_to, predict_lanes,
                                           pull_lane_params, stack_lane_data)
 from st_dadk_tpu_torch.train.optimizer import build_lr_tables
+from st_dadk_tpu_torch.utils import trace
 
 Job = Tuple[ExperimentConfig, int, Path]   # (config, experiment id, output dir)
 
@@ -145,6 +153,9 @@ LANES_PER_DEVICE = 128
 # cast to every Linear and LayerNorm of a step that the host bounds; wide
 # models take the size trigger (st_interp.AUTO_BF16_HIDDEN_SUM).
 AUTO_BF16_LANES: Optional[int] = None
+
+# the batches this process prepared: the tracer's `batch` id of each
+_batch_ids = itertools.count(1)
 
 
 def _padded_lanes_per_device(M: int, n_dev: int,
@@ -391,43 +402,65 @@ def run_job_batches(batches: Sequence[Sequence[Job]],
             ThreadPoolExecutor(max_workers=1) as fin_ex:
 
         def submit_next_prepare():
+            """(batch id, the future of its prepare), or None at the end."""
             jobs = next(it, None)
             if jobs is None:
                 return None
-            return prep_ex.submit(_prepare_job_batch, jobs,
-                                  skip_existing=skip_existing, device=device)
+            batch = next(_batch_ids)
+            return batch, prep_ex.submit(_prepare_job_batch, jobs,
+                                         skip_existing=skip_existing,
+                                         device=device, batch=batch)
 
-        prep_fut = submit_next_prepare()
-        fin_futs: deque = deque()
+        def finalized(batch, fut):
+            with trace.span("batch.wait_finalize", batch=batch):
+                return fut.result()
+
+        pending = submit_next_prepare()
+        fin_futs: deque = deque()          # (batch id, finalize future)
         try:
-            while prep_fut is not None:
-                prep = prep_fut.result()
-                prep_fut = submit_next_prepare()   # overlaps this training
+            while pending is not None:
+                with trace.span("batch.wait_prepare", batch=pending[0]):
+                    prep = pending[1].result()
+                pending = submit_next_prepare()    # overlaps this training
                 state = (_execute_job_batch(prep, verbose=verbose)
                          if prep is not None else None)
-                while fin_futs and (fin_futs[0].done()
+                while fin_futs and (fin_futs[0][1].done()
                                     or len(fin_futs) >= 2):
-                    results.extend(fin_futs.popleft().result())
+                    results.extend(finalized(*fin_futs.popleft()))
                 if state is not None:
-                    fin_futs.append(fin_ex.submit(_finalize_job_batch, state))
+                    fin_futs.append((state["batch"], fin_ex.submit(
+                        _finalize_job_batch, state)))
             while fin_futs:
-                results.extend(fin_futs.popleft().result())
+                results.extend(finalized(*fin_futs.popleft()))
         except BaseException:
             # leave no queued work behind the failure
-            for f in list(fin_futs) + ([prep_fut] if prep_fut else []):
+            for _, f in list(fin_futs) + ([pending] if pending else []):
                 f.cancel()
             raise
     return results
 
 
 def _prepare_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
-                       device: Optional[torch.device | str] = None
+                       device: Optional[torch.device | str] = None,
+                       batch: Optional[int] = None
                        ) -> Optional[Dict[str, Any]]:
     """Host work only, so that it may run on a thread while another batch
     trains: per-lane setups (masks, point sets; the model is deferred to
     `_init_lane_carries`), the lane data stacked on the CPU and the LR
-    tables. None when every job is already on disk."""
-    t_start = time.time()
+    tables. None when every job is already on disk. The batch's tracer id
+    is `batch` (default: the next of this process)."""
+    batch = next(_batch_ids) if batch is None else batch
+    with trace.stage("batch.prepare", batch=batch) as stage:
+        prep = _prepare_lanes(jobs, skip_existing, device)
+    if prep is None:
+        return None
+    return dict(prep, batch=batch, t_prep=stage.seconds)
+
+
+def _prepare_lanes(jobs: Sequence[Job], skip_existing: bool,
+                   device: Optional[torch.device | str]
+                   ) -> Optional[Dict[str, Any]]:
+    """`_prepare_job_batch`'s work."""
     todo = [(c, i, Path(d)) for c, i, d in jobs
             if not (skip_existing and (Path(d) / "results.json").exists())]
     if not todo:
@@ -459,8 +492,7 @@ def _prepare_job_batch(jobs: Sequence[Job], skip_existing: bool = False,
     _apply_auto_train_dtype(cfg, setups,
                             _padded_lanes_per_device(len(setups), 1, None))
     stacked = _stack_lane_host(cfg, setups, torch.device("cpu"))
-    return dict(cfg=cfg, setups=setups, stacked=stacked, device=dev,
-                t_prep=time.time() - t_start)
+    return dict(cfg=cfg, setups=setups, stacked=stacked, device=dev)
 
 
 def _lane_lr_tables(cfg: ExperimentConfig, n_batches: Sequence[int],
@@ -510,28 +542,33 @@ def _init_lane_carries(cfg: ExperimentConfig,
     its own generator and the numpy stream its setup left off at, so a
     lane's centers are those of its single fit. `finish_model` then draws a
     lane's params at its real shapes (the values of an unpadded run) and
-    pads them to the shared width with the lane's column mask. A lane's
-    `init_seconds` is its group's init over the group's lanes."""
+    pads them to the shared width with the lane's column mask (a lane's
+    own generator: the order of the lanes does not matter). A lane's
+    `init_seconds` is its group's init (an `init.centers` span) over the
+    group's lanes."""
     groups: Dict[Tuple[int, ...], List[int]] = {}
     for i, s in enumerate(setups):
         groups.setdefault(tuple(s.cfg.k_spatial_centers), []).append(i)
     adaptive = cfg.spatial_init_method in DATA_ADAPTIVE_INIT_METHODS
+    inits: List[Tuple[np.ndarray, np.ndarray]] = [None] * len(setups)
     for klist, idx in groups.items():
-        t0 = time.perf_counter()
         lanes = [setups[i] for i in idx]
-        inits = init_spatial_centers_batch(
-            cfg.spatial_init_method, list(klist),
-            [s.train_ps.coords if adaptive else None for s in lanes],
-            generators=[torch.Generator(device=s.device).manual_seed(
-                s.experiment_seed) for s in lanes],
-            rngs=[s.np_rng for s in lanes], device=lanes[0].device,
-            **init_knobs(cfg))
-        per_lane = (time.perf_counter() - t0) / len(lanes)
-        for s, (centers, bandwidths) in zip(lanes, inits):
-            s.timings["init_seconds"] = per_lane
+        with trace.stage("init.centers") as stage:
+            group = init_spatial_centers_batch(
+                cfg.spatial_init_method, list(klist),
+                [s.train_ps.coords if adaptive else None for s in lanes],
+                generators=[torch.Generator(device=s.device).manual_seed(
+                    s.experiment_seed) for s in lanes],
+                rngs=[s.np_rng for s in lanes], device=lanes[0].device,
+                **init_knobs(cfg))
+        for i, s, init in zip(idx, lanes, group):
+            s.timings["init_seconds"] = stage.seconds / len(lanes)
+            inits[i] = init
+    with trace.span("init.models"):
+        for s, (centers, bandwidths) in zip(setups, inits):
             s.finish_model(centers, bandwidths)
-    return (stack_lane_models([s.model for s in setups]),
-            [s.n_params for s in setups])
+        return (stack_lane_models([s.model for s in setups]),
+                [s.n_params for s in setups])
 
 
 def _execute_job_batch(prep: Dict[str, Any], verbose: bool = False
@@ -541,33 +578,38 @@ def _execute_job_batch(prep: Dict[str, Any], verbose: bool = False
     the epoch loop."""
     cfg, setups = prep["cfg"], prep["setups"]
     stacked = prep["stacked"]
-    t0 = time.time()
-    data: LaneData = lane_data_to(stacked["data"], prep["device"])
-    lanes_model, n_params = _init_lane_carries(cfg, setups)
-    t_init = time.time() - t0
-    taus = ([float(s.cfg.current_quantile) for s in setups]
-            if cfg.regression_type == "quantile" else None)
-    # the serving params stay on the card where the device metrics will
-    # score the batch and nothing else reads them (JAX :1516-1560); a
-    # non-finite history, known only afterwards, pulls them at finalize
-    serving = {} if _device_eval(setups) else None
-    results = fit_lanes(cfg, setups[0].spec, lanes_model, data,
-                        stacked["lr_steps"], stacked["lr_recorded"],
-                        [s.experiment_seed for s in setups], verbose=verbose,
-                        taus=taus, dp=prep.get("dp"), serving_out=serving)
-    t_train = time.time() - t0 - t_init
-    if verbose:
-        print(f"[batch] {len(setups)} experiments x "
-              f"{max(r.n_epochs_run for r in results)} epochs: host set-up "
-              f"{prep['t_prep']:.1f}s, init and models {t_init:.1f}s, train "
-              f"{t_train:.1f}s", flush=True)
-    # the state keeps the CPU copy of the lane data: the device buffers are
-    # free once the fit returns, while finalize may still wait its turn
-    state = dict(prep, results=results, lanes_model=lanes_model,
-                 n_params=n_params, t_init=t_init, t_train=t_train,
-                 verbose=verbose, serving=serving)
-    if cfg.k_spatial_pad is not None:
-        _pull_serving(state)     # ragged lanes are written stripped (JAX too)
+    with trace.stage("batch.execute", batch=prep["batch"]):
+        with trace.stage("batch.upload") as upload:
+            data: LaneData = lane_data_to(stacked["data"], prep["device"])
+        with trace.stage("batch.init") as init:
+            lanes_model, n_params = _init_lane_carries(cfg, setups)
+        taus = ([float(s.cfg.current_quantile) for s in setups]
+                if cfg.regression_type == "quantile" else None)
+        # the serving params stay on the card where the device metrics will
+        # score the batch and nothing else reads them (JAX :1516-1560); a
+        # non-finite history, known only afterwards, pulls them at finalize
+        serving = {} if _device_eval(setups) else None
+        with trace.stage("fit") as fit:
+            results = fit_lanes(cfg, setups[0].spec, lanes_model, data,
+                                stacked["lr_steps"], stacked["lr_recorded"],
+                                [s.experiment_seed for s in setups],
+                                verbose=verbose, taus=taus, dp=prep.get("dp"),
+                                serving_out=serving)
+        t_init = (init.t1 - upload.t0) * 1e-9
+        t_train = (fit.t1 - init.t1) * 1e-9
+        if verbose:
+            print(f"[batch] {len(setups)} experiments x "
+                  f"{max(r.n_epochs_run for r in results)} epochs: host "
+                  f"set-up {prep['t_prep']:.1f}s, init and models "
+                  f"{t_init:.1f}s, train {t_train:.1f}s", flush=True)
+        # the state keeps the CPU copy of the lane data: the device buffers
+        # are free once the fit returns, while finalize may still wait its
+        # turn
+        state = dict(prep, results=results, lanes_model=lanes_model,
+                     n_params=n_params, t_init=t_init, t_train=t_train,
+                     verbose=verbose, serving=serving)
+        if cfg.k_spatial_pad is not None:
+            _pull_serving(state)  # ragged lanes are written stripped (JAX too)
     return state
 
 
@@ -766,31 +808,54 @@ def _finalize_job_batch(state: Dict[str, Any]) -> List[Dict[str, Any]]:
     :1576-1582); the host path raises as it is. In a
     data-parallel row (lanes nested over exp x data) the row's rank 0
     alone finalizes and writes; the others return no results."""
-    global eval_fallbacks
     cfg, setups = state["cfg"], state["setups"]
     dp = state.get("dp")
     if dp is not None and not dp.primary:
         return []
-    M = len(setups)
-    t_phase = time.time()
+    with trace.stage("batch.finalize", batch=state["batch"]) as phase:
+        with trace.stage("finalize.eval") as evaluation:
+            precomputed = _finalize_eval(cfg, setups, state)
+        with trace.stage("finalize.write") as write:
+            out = _finalize_write(state, precomputed, evaluation.seconds)
+        # known only once the last lane is written: in the returned dicts,
+        # not in results.json
+        finalize_s = (write.t1 - phase.t0) * 1e-9
+        for r in out:
+            r["stage_timings"]["batch_finalize_seconds"] = finalize_s
+        if state["verbose"]:
+            print(f"[batch] finalize (eval + artifacts) {finalize_s:.1f}s",
+                  flush=True)
+    return out
+
+
+def _finalize_eval(cfg: ExperimentConfig, setups: Sequence[ExperimentSetup],
+                   state: Dict[str, Any]) -> Optional[List[Dict[str, Any]]]:
+    """`_finalize_job_batch`'s evaluation: each lane's precomputed metrics,
+    or None where the per-lane fallback evaluates them."""
+    global eval_fallbacks
     device_eval = state.get("serving") is not None
     if device_eval and any(not np.all(np.isfinite(r.history["train_loss"]))
                            for r in state["results"]):
         _pull_serving(state)
     if not device_eval:
-        precomputed = _batched_eval(cfg, setups, state["results"])
-    else:
-        try:
-            precomputed = _batched_eval_device(
-                cfg, setups, state["lanes_model"], state["serving"]["params"])
-        except Exception as e:   # noqa: BLE001 (JAX's fallback, as it has it)
-            eval_fallbacks += 1
-            print(f"[WARNING] batched eval failed, falling back per-lane: "
-                  f"{e}", flush=True)
-            precomputed = None
-            _pull_serving(state)
-    results = state["results"]
-    t_eval = time.time() - t_phase
+        return _batched_eval(cfg, setups, state["results"])
+    try:
+        return _batched_eval_device(
+            cfg, setups, state["lanes_model"], state["serving"]["params"])
+    except Exception as e:   # noqa: BLE001 (JAX's fallback, as it has it)
+        eval_fallbacks += 1
+        print(f"[WARNING] batched eval failed, falling back per-lane: "
+              f"{e}", flush=True)
+        _pull_serving(state)
+        return None
+
+
+def _finalize_write(state: Dict[str, Any],
+                    precomputed: Optional[List[Dict[str, Any]]],
+                    t_eval: float) -> List[Dict[str, Any]]:
+    """`_finalize_job_batch`'s writes: every lane's results contract."""
+    setups, results = state["setups"], state["results"]
+    M = len(setups)
     t_setup = state["t_prep"] + state["t_init"]
     wall = t_setup + state["t_train"] + t_eval
     out = []
@@ -818,11 +883,4 @@ def _finalize_job_batch(state: Dict[str, Any]) -> List[Dict[str, Any]]:
                 f"{r['model_parameters']} parameters, its real shapes "
                 f"{state['n_params'][li]}")
         out.append(r)
-    # known only once the last lane is written: in the returned dicts, not
-    # in results.json
-    for r in out:
-        r["stage_timings"]["batch_finalize_seconds"] = time.time() - t_phase
-    if state["verbose"]:
-        print(f"[batch] finalize (eval + artifacts) "
-              f"{time.time() - t_phase:.1f}s", flush=True)
     return out

@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import math
 import time
 from dataclasses import dataclass
@@ -95,6 +96,7 @@ from st_dadk_tpu_torch.train.optimizer import (AdamW, AdamWLanes,
                                                ema_update, ema_update_lanes,
                                                gradient_damping)
 from st_dadk_tpu_torch.train.packing import PackSpec
+from st_dadk_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -722,93 +724,101 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
     for epoch in range(epochs_done, session_limit):
         if book["stopped"]:
             break
-        t0 = time.perf_counter()
-        idx = epoch_batch_indices(cap, batch_size, B, spec.shuffle, gen, device)
-        batches = packed_tr[idx]                               # (B, bs, 5)
-        loss_sum, nan_epoch = 0.0, False
-        for b in range(B):
-            xb, keep = batches[b], None
-            if dp is not None:
-                # the whole minibatch's masks, then this rank's rows
-                if use_dropout:
-                    keep = model.draw_dropout_keep(batch_size, gen, device)
-                rows = dp.rows(batch_size)
-                share = loss_share(xb[rows, 4], block_wsum_total(
-                    xb[:, 4], dp.world), dp.world)
-                xb = xb[rows]
-                keep = keep[rows] if keep is not None else None
-            _zero_grads(params, layout)
-            loss = training_loss(spec, model, xb[:, 0:2], xb[:, 2:3],
-                                 xb[:, 3:4], xb[:, 4], train=True,
-                                 generator=gen, dropout_keep=keep)
-            if dp is not None:
-                loss = loss * share
-            loss.backward()
-            if epoch == session_start and b == 0:
-                _check_grad_views(model, params, layout)
-            if dp is not None:
-                lv = sync_gradients_(dp, params, loss)
-            _transform_grads(spec, model, groups, layout is not None)
-            s = epoch * B + b
-            opt.step({"mlp": float(lr_mlp[s]), "basis": float(lr_basis[s])})
-            ema_update(ema, params, data.ema_decay)
-            if dp is None:
-                lv = float(loss.detach())
-            loss_sum += lv
-            if not math.isfinite(lv):
-                nan_epoch = True
-                break
-        train_loss = math.nan if nan_epoch else loss_sum / max(B, 1)
-        t1 = time.perf_counter()
-        if spec.ablate_validate:
-            val_loss, val_rmse = train_loss, 0.0
-        else:
-            val_loss, val_rmse = _validate(spec, ema_model, data, dp)
-        t_steps += t1 - t0
-        t_val += time.perf_counter() - t1
-        if epoch == session_start:
-            t_first = t1 - t0      # includes the process's first launches
+        with trace.span("fit.epoch", epoch=epoch):
+            t0 = time.perf_counter()
+            idx = epoch_batch_indices(cap, batch_size, B, spec.shuffle, gen,
+                                      device)
+            batches = packed_tr[idx]                           # (B, bs, 5)
+            loss_sum, nan_epoch = 0.0, False
+            for b in range(B):
+                with trace.span("fit.step"):
+                    xb, keep = batches[b], None
+                    if dp is not None:
+                        # the whole minibatch's masks, then this rank's rows
+                        if use_dropout:
+                            keep = model.draw_dropout_keep(batch_size, gen,
+                                                           device)
+                        rows = dp.rows(batch_size)
+                        share = loss_share(xb[rows, 4], block_wsum_total(
+                            xb[:, 4], dp.world), dp.world)
+                        xb = xb[rows]
+                        keep = keep[rows] if keep is not None else None
+                    _zero_grads(params, layout)
+                    loss = training_loss(spec, model, xb[:, 0:2], xb[:, 2:3],
+                                         xb[:, 3:4], xb[:, 4], train=True,
+                                         generator=gen, dropout_keep=keep)
+                    if dp is not None:
+                        loss = loss * share
+                    loss.backward()
+                    if epoch == session_start and b == 0:
+                        _check_grad_views(model, params, layout)
+                    if dp is not None:
+                        lv = sync_gradients_(dp, params, loss)
+                    _transform_grads(spec, model, groups,
+                                     layout is not None)
+                    s = epoch * B + b
+                    opt.step({"mlp": float(lr_mlp[s]),
+                              "basis": float(lr_basis[s])})
+                    ema_update(ema, params, data.ema_decay)
+                    if dp is None:
+                        lv = float(loss.detach())
+                    loss_sum += lv
+                    if not math.isfinite(lv):
+                        nan_epoch = True
+                        break
+            train_loss = math.nan if nan_epoch else loss_sum / max(B, 1)
+            t1 = time.perf_counter()
+            if spec.ablate_validate:
+                val_loss, val_rmse = train_loss, 0.0
+            else:
+                val_loss, val_rmse = _validate(spec, ema_model, data, dp)
+            t_steps += t1 - t0
+            t_val += time.perf_counter() - t1
+            if epoch == session_start:
+                t_first = t1 - t0      # includes the process's first launches
 
-        improved = math.isfinite(val_loss) and val_loss < book["best_val"]
-        if improved:
-            book["best_val"], book["has_best"] = val_loss, True
-            with torch.no_grad():
-                for dst, src in zip(best_ema, ema):
-                    dst.copy_(src)
-        sig_best = book["sig_best"]
-        sig_thresh = (sig_best - spec.min_rel_delta * abs(sig_best)
-                      if math.isfinite(sig_best) else sig_best)
-        if math.isfinite(val_loss) and val_loss < sig_thresh:
-            book["sig_best"], book["patience_ctr"] = val_loss, 0
-        else:
-            book["patience_ctr"] += 1
-        hist["train_loss"].append(train_loss)
-        hist["val_loss"].append(val_loss)
-        hist["val_rmse"].append(val_rmse)
-        if spec.record_centers:
-            # a padded lane's junk centers stay at their init 0, so the
-            # max is the real centers' (pad_lane_model's invariant)
-            with torch.no_grad():
-                c = model.basis.centers
-                hist["center_shift"].append(float(torch.max(torch.abs(
-                    c - model.spatial_centers_init))))
-                if (epoch + 1) % CENTERS_EVERY == 0:
-                    centers_history.append(
-                        (epoch + 1, c.detach().cpu().numpy().copy()))
-        if epoch == session_start:
-            t_first_epoch = time.perf_counter() - t0
-        if verbose:
-            print(f"  epoch {epoch + 1:4d} train {train_loss:.6f} "
-                  f"val {val_loss:.6f} rmse {val_rmse:.6f}", flush=True)
-        epochs_done = epoch + 1
-        if book["patience_ctr"] >= spec.patience:
-            book["stopped"], book["stop_epoch"] = True, epoch + 1
+            improved = (math.isfinite(val_loss)
+                        and val_loss < book["best_val"])
+            if improved:
+                book["best_val"], book["has_best"] = val_loss, True
+                with torch.no_grad():
+                    for dst, src in zip(best_ema, ema):
+                        dst.copy_(src)
+            sig_best = book["sig_best"]
+            sig_thresh = (sig_best - spec.min_rel_delta * abs(sig_best)
+                          if math.isfinite(sig_best) else sig_best)
+            if math.isfinite(val_loss) and val_loss < sig_thresh:
+                book["sig_best"], book["patience_ctr"] = val_loss, 0
+            else:
+                book["patience_ctr"] += 1
+            hist["train_loss"].append(train_loss)
+            hist["val_loss"].append(val_loss)
+            hist["val_rmse"].append(val_rmse)
+            if spec.record_centers:
+                # a padded lane's junk centers stay at their init 0, so the
+                # max is the real centers' (pad_lane_model's invariant)
+                with torch.no_grad():
+                    c = model.basis.centers
+                    hist["center_shift"].append(float(torch.max(torch.abs(
+                        c - model.spatial_centers_init))))
+                    if (epoch + 1) % CENTERS_EVERY == 0:
+                        centers_history.append(
+                            (epoch + 1, c.detach().cpu().numpy().copy()))
+            if epoch == session_start:
+                t_first_epoch = time.perf_counter() - t0
             if verbose:
-                print(f"Early stopping at epoch {epoch + 1}")
-        if checkpoint_path is not None and (dp is None or dp.primary) and (
-                (epochs_done - session_start) % chunk == 0
-                or epochs_done == session_limit or book["stopped"]):
-            save()
+                print(f"  epoch {epoch + 1:4d} train {train_loss:.6f} "
+                      f"val {val_loss:.6f} rmse {val_rmse:.6f}", flush=True)
+            epochs_done = epoch + 1
+            if book["patience_ctr"] >= spec.patience:
+                book["stopped"], book["stop_epoch"] = True, epoch + 1
+                if verbose:
+                    print(f"Early stopping at epoch {epoch + 1}")
+            if checkpoint_path is not None and (
+                    dp is None or dp.primary) and (
+                    (epochs_done - session_start) % chunk == 0
+                    or epochs_done == session_limit or book["stopped"]):
+                save()
     t_epochs = time.perf_counter() - t_loop
 
     stopped = book["stopped"]
@@ -843,23 +853,46 @@ def fit(cfg: ExperimentConfig, spec_model: ModelSpec, model: STInterp,
 # Inference
 # ---------------------------------------------------------------------------
 
+# the predict requests of this process: the tracer's `request` id of each
+_request_ids = itertools.count(1)
+
+
+def _copy_in(coords: np.ndarray, t: np.ndarray, s: int, chunk: int,
+             device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A chunk's coords (c, 2) and t (c, 1) on `device`: one
+    `predict.copy_in` span."""
+    with trace.span("predict.copy_in"):
+        c = np.ascontiguousarray(coords[s:s + chunk], np.float32)
+        tt = np.ascontiguousarray(t[s:s + chunk].reshape(-1, 1), np.float32)
+        return (torch.as_tensor(c, device=device),
+                torch.as_tensor(tt, device=device))
+
+
+def _gather(outs: List[torch.Tensor], dim: int) -> np.ndarray:
+    """The chunks' outputs joined on the host: one `predict.gather`
+    span."""
+    with trace.span("predict.gather"):
+        return torch.cat(outs, dim=dim).cpu().numpy()
+
+
 @torch.no_grad()
 def predict(model: STInterp, coords: np.ndarray, t: np.ndarray,
             chunk: int = 32768) -> np.ndarray:
     """Dense inference in chunks of `chunk` points: (n, out_dim) numpy.
     It takes the fused forward where the spec allows it (no covariates, not
-    a ragged-k lane: JAX loop.py:1348), else the materialised-phi one."""
+    a ragged-k lane: JAX loop.py:1348), else the materialised-phi one. A
+    call is a `predict.request` span of the tracer: a `predict.copy_in` and
+    a `predict.forward` a chunk, then one `predict.gather`."""
     device = next(model.parameters()).device
     fused = model.spec.fused_predict
     n = coords.shape[0]
     outs = []
-    for s in range(0, n, chunk):
-        c = torch.as_tensor(np.ascontiguousarray(coords[s:s + chunk],
-                                                 np.float32), device=device)
-        tt = torch.as_tensor(np.ascontiguousarray(
-            t[s:s + chunk].reshape(-1, 1), np.float32), device=device)
-        outs.append(model(c, tt, train=False, fused=fused))
-    return torch.cat(outs).cpu().numpy()
+    with trace.span("predict.request", request=next(_request_ids)):
+        for s in range(0, n, chunk):
+            c, tt = _copy_in(coords, t, s, chunk, device)
+            with trace.span("predict.forward"):
+                outs.append(model(c, tt, train=False, fused=fused))
+        return _gather(outs, 0)
 
 
 def n_predict_chunks(n: int, chunk: int = 32768) -> int:
@@ -1242,134 +1275,163 @@ def fit_lanes(cfg: ExperimentConfig, spec_model: ModelSpec,
     t_loop = time.perf_counter()
     for epoch in range(E):
         t0 = time.perf_counter()
-        if (compact and lane_idx is None and epoch > 0
-                and epoch % int(cfg.compaction_epoch) == 0):
-            sel = _compaction_width(book["stopped"].cpu().numpy())
-            if sel is not None:
-                full_book, lane_idx_h = book, sel
-                lane_idx = torch.as_tensor(sel, device=device)
-                run = _lane_run(select_lanes(run.model, lane_idx),
-                                select_lanes(run.ema_model, lane_idx),
-                                packed, spec.weight_decay, run.best, run.opt,
-                                lane_idx)
-                book = {k: v[lane_idx] for k, v in book.items()}
-                lr_t = lr_t[:, :, lane_idx]
-                lane_data = data._replace(
-                    n_batches=tuple(data.n_batches[i] for i in sel),
-                    ema_decay=tuple(data.ema_decay[i] for i in sel),
-                    **{f: getattr(data, f)[lane_idx] for f in
-                       ("packed_tr", "va_coords", "va_t", "va_y", "va_w")})
-                lane_gens = [lane_gens[i] for i in sel]
-                views_checked = False
-                if verbose:
-                    print(f"[batch] tail compaction {M}->{len(sel)} lanes at "
-                          f"epoch {epoch} "
-                          f"({int((~book['stopped']).sum())} active)",
-                          flush=True)
-        Wn = run.model.lanes
-        drop_rows = None if lane_idx is None else (M, lane_idx)
-        coords_e, t_e, y_e, w_e = epoch_batches()
-        stopped = book["stopped"]
-        alive = ~stopped
-        in_lane = book["in_lane"].t()
-        nan_epoch = torch.zeros_like(stopped)
-        loss_sum = torch.zeros((Wn,), **f32)
-        for b in range(B):
-            _zero_grads(run.params, run.layout)
-            cb, tb, yb, wb = coords_e[b], t_e[b], y_e[b], w_e[b]
-            if rows is not None:
-                # the whole minibatch's weights give each lane's share;
-                # then this rank's rows of it
-                share = loss_share(wb[:, rows], block_wsum_total(
-                    wb, dp.world), dp.world)
-                cb, tb, yb, wb = (x[:, rows].contiguous()
-                                  for x in (cb, tb, yb, wb))
-            preds = run.model(cb, tb, train=True, generator=drop_gen,
-                              drop_rows=drop_rows,
-                              drop_points=None if rows is None
-                              else (bs, rows))
-            loss = lane_losses_from_preds(spec, run.model, preds, yb, wb,
-                                          train=True, taus=book.get("tau"))
-            if rows is not None:
-                loss = loss * share
-            # lanes share no parameter: the sum's gradient is each lane's own
-            loss.sum().backward()
-            if not views_checked:
-                _check_grad_views(run.model, run.params, run.layout)
-                views_checked = True
-            loss_d = (loss.detach() if dp is None
-                      else sync_lane_gradients_(dp, run.params, loss))
-            _transform_grads_lanes(spec, run.model, run.groups,
-                                   run.layout is not None)
-            executes = in_lane[b] & ~nan_epoch & alive
-            run.opt.step(lr_t[epoch, b], executes)
-            ema_update_lanes(run.ema, run.params, book["decay"],
-                             book["one_minus_decay"], executes)
+        with trace.span("fit.epoch", epoch=epoch):
+            if (compact and lane_idx is None and epoch > 0
+                    and epoch % int(cfg.compaction_epoch) == 0):
+                with trace.span("fit.compaction"):
+                    sel = _compaction_width(book["stopped"].cpu().numpy())
+                    if sel is not None:
+                        full_book, lane_idx_h = book, sel
+                        lane_idx = torch.as_tensor(sel, device=device)
+                        run = _lane_run(select_lanes(run.model, lane_idx),
+                                        select_lanes(run.ema_model, lane_idx),
+                                        packed, spec.weight_decay, run.best,
+                                        run.opt, lane_idx)
+                        book = {k: v[lane_idx] for k, v in book.items()}
+                        lr_t = lr_t[:, :, lane_idx]
+                        lane_data = data._replace(
+                            n_batches=tuple(data.n_batches[i] for i in sel),
+                            ema_decay=tuple(data.ema_decay[i] for i in sel),
+                            **{f: getattr(data, f)[lane_idx] for f in
+                               ("packed_tr", "va_coords", "va_t", "va_y",
+                                "va_w")})
+                        lane_gens = [lane_gens[i] for i in sel]
+                        views_checked = False
+                        if verbose:
+                            print(f"[batch] tail compaction {M}->{len(sel)} "
+                                  f"lanes at epoch {epoch} "
+                                  f"({int((~book['stopped']).sum())} active)",
+                                  flush=True)
+            Wn = run.model.lanes
+            drop_rows = None if lane_idx is None else (M, lane_idx)
+            with trace.span("fit.shuffle"):
+                coords_e, t_e, y_e, w_e = epoch_batches()
+            stopped = book["stopped"]
+            alive = ~stopped
+            in_lane = book["in_lane"].t()
+            nan_epoch = torch.zeros_like(stopped)
+            loss_sum = torch.zeros((Wn,), **f32)
+            for b in range(B):
+                with trace.span("fit.step"):
+                    _zero_grads(run.params, run.layout)
+                    cb, tb, yb, wb = coords_e[b], t_e[b], y_e[b], w_e[b]
+                    if rows is not None:
+                        # the whole minibatch's weights give each lane's
+                        # share; then this rank's rows of it
+                        share = loss_share(wb[:, rows], block_wsum_total(
+                            wb, dp.world), dp.world)
+                        cb, tb, yb, wb = (x[:, rows].contiguous()
+                                          for x in (cb, tb, yb, wb))
+                    with trace.span("step.forward"):
+                        preds = run.model(cb, tb, train=True,
+                                          generator=drop_gen,
+                                          drop_rows=drop_rows,
+                                          drop_points=None if rows is None
+                                          else (bs, rows))
+                        loss = lane_losses_from_preds(
+                            spec, run.model, preds, yb, wb, train=True,
+                            taus=book.get("tau"))
+                    if rows is not None:
+                        loss = loss * share
+                    with trace.span("step.backward"):
+                        # lanes share no parameter: the sum's gradient is
+                        # each lane's own
+                        loss.sum().backward()
+                        if not views_checked:
+                            _check_grad_views(run.model, run.params,
+                                              run.layout)
+                            views_checked = True
+                        loss_d = (loss.detach() if dp is None
+                                  else sync_lane_gradients_(dp, run.params,
+                                                            loss))
+                        _transform_grads_lanes(spec, run.model, run.groups,
+                                               run.layout is not None)
+                    executes = in_lane[b] & ~nan_epoch & alive
+                    with trace.span("step.optimizer"):
+                        run.opt.step(lr_t[epoch, b], executes)
+                        ema_update_lanes(run.ema, run.params, book["decay"],
+                                         book["one_minus_decay"], executes)
+                    with torch.no_grad():
+                        loss_sum = loss_sum + torch.where(
+                            executes, loss_d, torch.zeros_like(loss_d))
+                        nan_epoch = nan_epoch | (executes
+                                                 & ~torch.isfinite(loss_d))
             with torch.no_grad():
-                loss_sum = loss_sum + torch.where(executes, loss_d,
-                                                  torch.zeros_like(loss_d))
-                nan_epoch = nan_epoch | (executes & ~torch.isfinite(loss_d))
-        with torch.no_grad():
-            nan_w = nan if lane_idx is None else nan[:Wn]
-            train_loss = torch.where(nan_epoch, nan_w,
-                                     loss_sum / book["n_batches_f"])
-            if spec.ablate_validate:
-                val_loss, val_rmse = train_loss, torch.zeros_like(train_loss)
-            else:
-                val_loss, val_rmse = _validate_lanes(
-                    spec, run.ema_model, lane_data, book.get("tau"), dp)
-
-            # JAX _epoch_bookkeeping, a lane each
-            best_val, sig_best = book["best_val"], book["sig_best"]
-            patience_ctr = book["patience_ctr"]
-            finite = torch.isfinite(val_loss)
-            improved = finite & (val_loss < best_val) & alive
-            sig_thresh = torch.where(
-                torch.isfinite(sig_best),
-                sig_best - spec.min_rel_delta * torch.abs(sig_best), sig_best)
-            sig_improved = finite & (val_loss < sig_thresh)
-            ctr = torch.where(sig_improved, torch.zeros_like(patience_ctr),
-                              patience_ctr + 1)
-            stop_now = (ctr >= spec.patience) & alive
-            book["best_val"] = torch.where(improved, val_loss, best_val)
-            book["has_best"] = book["has_best"] | improved
-            book["sig_best"] = torch.where(sig_improved & alive, val_loss,
-                                           sig_best)
-            book["patience_ctr"] = torch.where(alive, ctr, patience_ctr)
-            book["stop_epoch"] = torch.where(
-                stop_now, torch.full_like(book["stop_epoch"], epoch + 1),
-                book["stop_epoch"])
-            book["stopped"] = stopped | stop_now
-            for dst, src in zip(run.best, run.ema):
-                dst.copy_(torch.where(
-                    improved.reshape(Wn, *([1] * (dst.dim() - 1))), src, dst))
-            cols = slice(None) if lane_idx is None else lane_idx
-            hist["train_loss"][epoch, cols] = torch.where(alive, train_loss,
-                                                          nan_w)
-            hist["val_loss"][epoch, cols] = torch.where(alive, val_loss, nan_w)
-            hist["val_rmse"][epoch, cols] = torch.where(alive, val_rmse, nan_w)
-            if spec.record_centers:
-                centers = run.model.basis.centers
-                hist["center_shift"][epoch, cols] = torch.amax(torch.abs(
-                    centers - run.model.spatial_centers_init), dim=(1, 2))
-                if (epoch + 1) % CENTERS_EVERY == 0:
-                    c = centers.cpu().numpy()
-                    if lane_idx_h is not None:
-                        # the narrowed lanes over the full batch's frozen
-                        # rows: a stopped lane's rows after its stop epoch
-                        # are cut below
-                        c, c[lane_idx_h] = (
-                            full.model.basis.centers.cpu().numpy(), c)
-                    centers_history.append((epoch + 1, c))
-            epochs_done = epoch + 1
-            all_stopped = bool(book["stopped"].all())  # the epoch's host read
-        if epoch == 0:
-            t_first = time.perf_counter() - t0
-        if verbose and (epoch % 25 == 0 or all_stopped or epoch == E - 1):
-            print(f"  epoch {epoch + 1:4d} lanes stopped "
-                  f"{int(book['stopped'].sum())}/{Wn}  val "
-                  f"{np.array2string(val_loss.cpu().numpy(), precision=5)}",
-                  flush=True)
+                nan_w = nan if lane_idx is None else nan[:Wn]
+                train_loss = torch.where(nan_epoch, nan_w,
+                                         loss_sum / book["n_batches_f"])
+                with trace.span("fit.validate"):
+                    if spec.ablate_validate:
+                        val_loss, val_rmse = (train_loss,
+                                              torch.zeros_like(train_loss))
+                    else:
+                        val_loss, val_rmse = _validate_lanes(
+                            spec, run.ema_model, lane_data, book.get("tau"),
+                            dp)
+                with trace.span("fit.bookkeeping"):
+                    # JAX _epoch_bookkeeping, a lane each
+                    best_val, sig_best = book["best_val"], book["sig_best"]
+                    patience_ctr = book["patience_ctr"]
+                    finite = torch.isfinite(val_loss)
+                    improved = finite & (val_loss < best_val) & alive
+                    sig_thresh = torch.where(
+                        torch.isfinite(sig_best),
+                        sig_best - spec.min_rel_delta * torch.abs(sig_best),
+                        sig_best)
+                    sig_improved = finite & (val_loss < sig_thresh)
+                    ctr = torch.where(sig_improved,
+                                      torch.zeros_like(patience_ctr),
+                                      patience_ctr + 1)
+                    stop_now = (ctr >= spec.patience) & alive
+                    book["best_val"] = torch.where(improved, val_loss,
+                                                   best_val)
+                    book["has_best"] = book["has_best"] | improved
+                    book["sig_best"] = torch.where(sig_improved & alive,
+                                                   val_loss, sig_best)
+                    book["patience_ctr"] = torch.where(alive, ctr,
+                                                       patience_ctr)
+                    book["stop_epoch"] = torch.where(
+                        stop_now,
+                        torch.full_like(book["stop_epoch"], epoch + 1),
+                        book["stop_epoch"])
+                    book["stopped"] = stopped | stop_now
+                    for dst, src in zip(run.best, run.ema):
+                        dst.copy_(torch.where(
+                            improved.reshape(Wn, *([1] * (dst.dim() - 1))),
+                            src, dst))
+                    cols = slice(None) if lane_idx is None else lane_idx
+                    hist["train_loss"][epoch, cols] = torch.where(
+                        alive, train_loss, nan_w)
+                    hist["val_loss"][epoch, cols] = torch.where(
+                        alive, val_loss, nan_w)
+                    hist["val_rmse"][epoch, cols] = torch.where(
+                        alive, val_rmse, nan_w)
+                    if spec.record_centers:
+                        centers = run.model.basis.centers
+                        hist["center_shift"][epoch, cols] = torch.amax(
+                            torch.abs(centers
+                                      - run.model.spatial_centers_init),
+                            dim=(1, 2))
+                        if (epoch + 1) % CENTERS_EVERY == 0:
+                            c = centers.cpu().numpy()
+                            if lane_idx_h is not None:
+                                # the narrowed lanes over the full batch's
+                                # frozen rows: a stopped lane's rows after
+                                # its stop epoch are cut below
+                                c, c[lane_idx_h] = (
+                                    full.model.basis.centers.cpu().numpy(), c)
+                            centers_history.append((epoch + 1, c))
+                    epochs_done = epoch + 1
+                    with trace.span("fit.host_read"):
+                        # the epoch's host read
+                        all_stopped = bool(book["stopped"].all())
+            if epoch == 0:
+                t_first = time.perf_counter() - t0
+            if verbose and (epoch % 25 == 0 or all_stopped or epoch == E - 1):
+                vals = val_loss.cpu().numpy()
+                print(f"  epoch {epoch + 1:4d} lanes stopped "
+                      f"{int(book['stopped'].sum())}/{Wn}  val "
+                      f"{np.array2string(vals, precision=5)}", flush=True)
         if all_stopped:
             break
     t_epochs = time.perf_counter() - t_loop
@@ -1446,15 +1508,15 @@ def pull_lane_params(tree: Dict[str, torch.Tensor],
 def predict_lanes(model: STInterpLanes, coords: np.ndarray, t: np.ndarray,
                   chunk: int = 32768) -> np.ndarray:
     """Dense inference of M lanes on shared points, one forward a chunk for
-    all lanes: (M, n, out_dim) numpy."""
+    all lanes: (M, n, out_dim) numpy; traced as `predict`."""
     device = next(model.parameters()).device
     M, n = model.lanes, coords.shape[0]
     outs = []
-    for s in range(0, n, chunk):
-        c = torch.as_tensor(np.ascontiguousarray(coords[s:s + chunk],
-                                                 np.float32), device=device)
-        tt = torch.as_tensor(np.ascontiguousarray(
-            t[s:s + chunk].reshape(-1, 1), np.float32), device=device)
-        outs.append(model(c.expand(M, -1, -1).contiguous(),
-                          tt.expand(M, -1, -1).contiguous(), train=False))
-    return torch.cat(outs, dim=1).cpu().numpy()
+    with trace.span("predict.request", request=next(_request_ids)):
+        for s in range(0, n, chunk):
+            c, tt = _copy_in(coords, t, s, chunk, device)
+            with trace.span("predict.forward"):
+                outs.append(model(c.expand(M, -1, -1).contiguous(),
+                                  tt.expand(M, -1, -1).contiguous(),
+                                  train=False))
+        return _gather(outs, 1)

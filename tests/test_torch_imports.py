@@ -40,7 +40,7 @@ def test_port_imports_no_jax_yaml_pandas_or_reference():
                  "cli.predict_submission", "cli.forecast_submission",
                  "cli.score_families", "cli.analyze_table_4_4",
                  "cli.analyze_grid_search", "cli.resume_grid_search",
-                 "train.packing", "ab_paired", "parallel",
+                 "train.packing", "utils.trace", "ab_paired", "parallel",
                  "parallel.mesh", "parallel.multihost",
                  "parallel.data_parallel", "parallel.tensor_parallel",
                  "parallel.launch", "trace_steady_state", "bench",

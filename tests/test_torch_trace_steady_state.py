@@ -2,17 +2,18 @@
 in torch.profiler's Chrome format (the capture runs on the card:
 chip_smoke.py phase 31).
 
-The fixture: four batches 100 ms apart on the main thread (tid 1), each an
-'execute' stage holding 'init' and 'fit', and the previous batch's
-'finalize' on a thread of its own (tid 2); the backward's kernels launched
-from autograd's thread (tid 3, no stage). A batch period's device time:
-H2D copy 1 ms, init 4, fit 18 + 30, eval/finalize 6, D2H copy 0.5, idle
-40.5. Each case runs on the trace with every thread's stages; on the trace
-as the profiler records it with CPU ops (the main thread's ranges only)
-with every stage also given on a host clock 5 ms off the trace's; and on
-the trace of CUDA activities alone (no range, no op, every launching thread
-under another id than the host's), the stages on the host clock of the
-trace's base time."""
+The fixture: four batches 100 ms apart on the main thread (tid 1), each a
+'batch.execute' span holding 'batch.init' and 'fit', and the previous
+batch's 'batch.finalize' on a thread of its own (tid 2); the backward's
+kernels launched from autograd's thread (tid 3, no span). A batch period's
+device time: H2D copy 1 ms, init 4, fit 18 + 30, eval/finalize 6, D2H copy
+0.5, idle 40.5. The stages are the program's spans, as the tracer drains
+them (`utils/trace.py`: native thread ids, stamps on `time.time_ns()`'s
+clock). Each case runs on the trace as the profiler records it with CPU ops
+(launching threads under their native ids), with no base time (an older
+torch's trace counts from 0) or with an epoch base time; and on the trace
+of CUDA activities alone (no op, every launching thread under another id
+than its native one), on the epoch base time."""
 import gzip
 import json
 
@@ -41,10 +42,7 @@ def _fixture():
 
     for k in range(4):
         b = k * PERIOD
-        ev += [_x("user_annotation", "stage:execute", b, 80, 7, 1),
-               _x("user_annotation", "stage:init", b, 10, 7, 1),
-               _x("user_annotation", "stage:fit", b + 10, 70, 7, 1),
-               _x("cpu_op", "aten::copy_", b + 0.1, 0.3, 7, 1),
+        ev += [_x("cpu_op", "aten::copy_", b + 0.1, 0.3, 7, 1),
                _x("cpu_op", "aten::addmm", b + 11.5, 1, 7, 1)]
         launch(1, b + 0.2, "gpu_memcpy", "Memcpy HtoD (Pageable -> Device)",
                b + 0.5, 1)
@@ -52,8 +50,6 @@ def _fixture():
         launch(1, b + 12, "kernel", "fwd_kernel", b + 12, 18)
         launch(3, b + 40, "kernel", "bwd_w_kernel", b + 40, 30)
         if k:
-            ev.append(_x("user_annotation", "stage:finalize", b + 20, 20, 7,
-                         2))
             launch(2, b + 25, "kernel", "metrics_kernel", b + 72, 6)
             launch(2, b + 26, "gpu_memcpy", "Memcpy DtoH (Device -> Pageable)",
                    b + 79, 0.5)
@@ -62,42 +58,38 @@ def _fixture():
     return {"traceEvents": ev}
 
 
-HOST_OFFSET_US = 5 * MS
-
-
-def _host_spans(trace):
-    """The stages of the trace on a host clock HOST_OFFSET_US behind, in
-    nanoseconds, as `staged_engine` records them."""
-    return [(e["tid"], e["name"][len(tts.STAGE_PREFIX):],
-             int((e["ts"] - HOST_OFFSET_US) * 1e3),
-             int((e["ts"] + e["dur"] - HOST_OFFSET_US) * 1e3))
-            for e in trace["traceEvents"] if e.get("cat") == "user_annotation"]
+def _program(base_ns):
+    """The engine's spans of the fixture, as `trace.drain()` gives them:
+    (thread, name, start ms, length ms) on a clock `base_ns` behind the
+    trace's zero."""
+    rows = []
+    for k in range(4):
+        b = k * PERIOD
+        rows += [(1, "batch.execute", b, 80), (1, "batch.init", b, 10),
+                 (1, "fit", b + 10, 70)]
+        if k:
+            rows.append((2, "batch.finalize", b + 20, 20))
+    return {"spans": [{"name": name, "thread": tid, "ids": {"batch": i},
+                       "start_ns": base_ns + int(start * 1e6),
+                       "end_ns": base_ns + int((start + dur) * 1e6),
+                       "id": i, "parent": None}
+                      for i, (tid, name, start, dur) in enumerate(rows)]}
 
 
 BASE_NS = 1_700_000_000 * 10 ** 9
 
 
-@pytest.fixture(params=["every thread traced", "host spans", "CUDA alone"])
+@pytest.fixture(params=["CPU ops", "epoch clock", "CUDA alone"])
 def report(tmp_path, request):
     raw = _fixture()
-    if request.param == "host spans":
-        spans = _host_spans(raw)
-        raw["traceEvents"] = [e for e in raw["traceEvents"]
-                              if e.get("cat") != "user_annotation"
-                              or e["tid"] == 1]
-        trace = tts.compact(raw, spans)
-    elif request.param == "CUDA alone":
-        spans = [(tid, name, int(t0 + HOST_OFFSET_US * 1e3 + BASE_NS),
-                  int(t1 + HOST_OFFSET_US * 1e3 + BASE_NS))
-                 for tid, name, t0, t1 in _host_spans(raw)]
-        raw["baseTimeNanoseconds"] = BASE_NS
+    base = 0 if request.param == "CPU ops" else BASE_NS
+    if base:
+        raw["baseTimeNanoseconds"] = base
+    if request.param == "CUDA alone":
         raw["traceEvents"] = [
             dict(e, tid=1000 + e["tid"]) if e.get("cat") == "cuda_runtime"
-            else e for e in raw["traceEvents"]
-            if e.get("cat") not in ("user_annotation", "cpu_op")]
-        trace = tts.compact(raw, spans)
-    else:
-        trace = tts.compact(raw)
+            else e for e in raw["traceEvents"] if e.get("cat") != "cpu_op"]
+    trace = tts.compact(raw, _program(base))
     with gzip.open(tmp_path / "trace.json.gz", "wt") as f:
         json.dump(trace, f)
     meta = {"batch_starts_host": [0.0, 0.1004, 0.2, 0.3001]}
@@ -129,6 +121,15 @@ def test_gaps_and_busy_share(report):
     assert largest[0]["ms"] == pytest.approx(30.5)     # batch 0: no finalize
     assert {g["main_thread"] for g in largest} >= {"fit", "outside"}
     assert all(g["ms"] >= 1.0 for g in largest)
+    # the idle time, 147.5 ms, by each thread's innermost span: the main
+    # thread's init holds the first idle of each batch, its fit the gaps
+    # between the step's kernels, the wait for a batch 20 ms a period;
+    # the finalize thread's span 10 ms of each of its three batches
+    by_span = report["idle_by_span"]
+    assert by_span["main"] == pytest.approx(
+        {"fit": 68e-3, "outside": 60e-3, "batch.init": 19.5e-3}, abs=1e-6)
+    assert by_span["finalize"] == pytest.approx(
+        {"batch.finalize": 30e-3, "outside": 117.5e-3}, abs=1e-6)
 
 
 def test_steady_table_sums_to_the_batch_wall(report, tmp_path):
@@ -141,7 +142,7 @@ def test_steady_table_sums_to_the_batch_wall(report, tmp_path):
         assert r["idle"] == pytest.approx(40.5e-3)
         assert r["fit step"] == pytest.approx(48e-3)
         # the main thread: init 10 ms, fit 70, waiting 20, summing to 0.1 s
-        # (a host clock in nanoseconds from 1.7e18 rounds to 0.25 us)
+        # (a clock in nanoseconds from 1.7e18 rounds to 0.25 us)
         assert r["main_thread"] == pytest.approx(
             {"init": 10e-3, "fit": 70e-3, "execute": 0.0, "outside": 20e-3},
             abs=1e-6)
