@@ -94,10 +94,12 @@ INIT_LANE_BY_LANE = 4
 INIT_METHODS = ("kmeans_balanced", "random_site", "gmm", "kmeans_exact")
 # a csrc kernel's demangled name: "(anonymous namespace)::bwd_w_kernel(...)",
 # "void (anonymous namespace)::fwd_kernel<16, 64, ...>(...)" (a template),
-# "st_slabs::centers_sum_kernel(...)" (csrc/slabs.cuh)
+# "st_slabs::centers_sum_kernel(...)" (csrc/slabs.cuh),
+# "(anonymous namespace)::lane_adamw_kernel(...)" (csrc/lane_optimizer.cu)
 PORT_KERNEL = re.compile(
     r"(?:void )?(?:\(anonymous namespace\)|st_slabs)::"
-    r"((?:fwd|bwd_w|bwd_centers|bwd_points|slab_sum|centers_sum)_kernel)[<(]")
+    r"((?:fwd|bwd_w|bwd_centers|bwd_points|slab_sum|centers_sum|lane_clip_sumsq"
+    r"|lane_clip_scale|lane_adamw|lane_ema)_kernel)[<(]")
 
 
 def _timed_fit(loop, cfg, setup, init_state, seed):

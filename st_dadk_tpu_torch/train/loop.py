@@ -75,6 +75,7 @@ from st_dadk_tpu_torch.models.st_interp import (ModelSpec, STInterp,
                                                 STInterpLanes, lane_tree,
                                                 load_jax_params, select_lanes,
                                                 to_jax_params)
+from st_dadk_tpu_torch.ops.lane_optimizer import clip_lanes_
 from st_dadk_tpu_torch.ops.losses import (mse_loss, mse_loss_lanes,
                                           multi_quantile_loss,
                                           multi_quantile_loss_lanes,
@@ -92,7 +93,6 @@ from st_dadk_tpu_torch.parallel.data_parallel import (DPGroup,
 from st_dadk_tpu_torch.train.optimizer import (AdamW, AdamWLanes,
                                                build_lr_tables,
                                                clip_by_global_norm_,
-                                               clip_by_global_norm_lanes_,
                                                ema_update, ema_update_lanes,
                                                gradient_damping)
 from st_dadk_tpu_torch.train.packing import PackSpec
@@ -1031,11 +1031,11 @@ def _transform_grads_lanes(spec: LoopSpec, model: STInterpLanes,
     """`_transform_grads` with each lane's own clipping norms."""
     _damp_centers(spec, model, packed)
     if spec.grad_clip > 0:
+        clip = [([p.grad for p in groups["mlp"]], spec.grad_clip)]
         if "basis" in groups:
-            clip_by_global_norm_lanes_([p.grad for p in groups["basis"]],
-                                       spec.grad_clip * 0.1)
-        clip_by_global_norm_lanes_([p.grad for p in groups["mlp"]],
-                                   spec.grad_clip)
+            clip.insert(0, ([p.grad for p in groups["basis"]],
+                            spec.grad_clip * 0.1))
+        clip_lanes_(clip)
 
 
 @torch.no_grad()

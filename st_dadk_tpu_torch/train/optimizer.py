@@ -13,8 +13,10 @@ The lane forms (`AdamWLanes`, `ema_update_lanes`,
 a leading lane dimension: per-lane LRs, Adam step counts, EMA decays and
 clipping norms are device tensors (M,), and an `executes` (M,) mask leaves
 a lane's parameters, moments and EMA untouched (JAX loop.py:527-539). They
-loop over parameters, never over lanes, and read no device value on the
-host.
+read no device value on the host. On CUDA tensors each runs the lane
+optimizer's multi-tensor kernels, every leaf in one launch a stage
+(`ops/lane_optimizer.py`); on CPU tensors their plain versions there, which
+loop over parameters, never over lanes.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ import numpy as np
 import torch
 
 from st_dadk_tpu_torch.config import ExperimentConfig
+from st_dadk_tpu_torch.ops.lane_optimizer import (adamw_lanes_, clip_lanes_,
+                                                  ema_lanes_)
 
 
 def build_lr_tables(cfg: ExperimentConfig, batches_per_epoch: int
@@ -144,27 +148,19 @@ def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor],
 # Lane forms
 # ---------------------------------------------------------------------------
 
-def _per_lane(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """(M,) as (M, 1, ...) broadcasting against `like` (M, ...)."""
-    return x.reshape(x.shape[0], *([1] * (like.dim() - 1)))
-
-
 def clip_by_global_norm_lanes_(grads: List[torch.Tensor], max_norm: float
                                ) -> None:
     """In place: scale each lane's group by its own global L2 norm
     (`clip_by_global_norm_` a lane)."""
-    total = torch.sqrt(sum(torch.sum(g * g, dim=tuple(range(1, g.dim())))
-                           for g in grads))                       # (M,)
-    scale = torch.clamp(max_norm / (total + 1e-6), max=1.0)
-    for g in grads:
-        g.mul_(_per_lane(scale, g))
+    clip_lanes_([(grads, max_norm)])
 
 
 class AdamWLanes:
     """`AdamW` for parameters with a leading lane dimension M. `groups`
     keeps its order: column j of `step`'s `lrs` (M, n_groups) is group j's
     LR a lane. The Adam step count is per lane and advances only where the
-    lane executes."""
+    lane executes; on the card `step` replaces `step_count` by the tensor
+    its launch writes."""
 
     def __init__(self, groups: Dict[str, Iterable[torch.nn.Parameter]],
                  weight_decay: float, b1: float = 0.9, b2: float = 0.999,
@@ -182,27 +178,10 @@ class AdamWLanes:
     def step(self, lrs: torch.Tensor, executes: torch.Tensor) -> None:
         """One update from each parameter's `.grad`: lrs (M, n_groups)
         float32, executes (M,) bool."""
-        t = (self.step_count + 1).to(torch.float32)
-        bc1 = 1.0 - torch.pow(torch.full_like(t, self.b1), t)     # (M,)
-        bc2 = 1.0 - torch.pow(torch.full_like(t, self.b2), t)
-        for j, params in enumerate(self.groups.values()):
-            lr = lrs[:, j]
-            decay = 1.0 - lr * self.weight_decay
-            for p in params:
-                m, v, grad = self.m[id(p)], self.v[id(p)], p.grad
-                ex = _per_lane(executes, p)
-                m_new = torch.add(m * self.b1, grad, alpha=1 - self.b1)
-                v_new = torch.addcmul(v * self.b2, grad, grad,
-                                      value=1 - self.b2)
-                upd = ((m_new / _per_lane(bc1, p))
-                       / (torch.sqrt(v_new / _per_lane(bc2, p)) + self.eps))
-                p_new = p * _per_lane(decay, p) - _per_lane(lr, p) * upd
-                # where, not a product with the mask: a lane that does not
-                # execute may hold a non-finite gradient
-                m.copy_(torch.where(ex, m_new, m))
-                v.copy_(torch.where(ex, v_new, v))
-                p.copy_(torch.where(ex, p_new, p))
-        self.step_count += executes.to(torch.int32)
+        self.step_count = adamw_lanes_(
+            [[(p, self.m[id(p)], self.v[id(p)]) for p in ps]
+             for ps in self.groups.values()], lrs, executes, self.step_count,
+            self.b1, self.b2, self.eps, self.weight_decay)
 
     def narrowed(self, groups: Dict[str, Iterable[torch.Tensor]],
                  idx: torch.Tensor) -> "AdamWLanes":
@@ -227,6 +206,4 @@ def ema_update_lanes(ema: Sequence[torch.Tensor],
                      executes: torch.Tensor) -> None:
     """In place, where a lane executes: shadow = decay*shadow +
     (1-decay)*param with per-lane decay (M,)."""
-    for s, p in zip(ema, params):
-        new = s * _per_lane(decay, s) + p * _per_lane(one_minus_decay, s)
-        s.copy_(torch.where(_per_lane(executes, s), new, s))
+    ema_lanes_(ema, params, decay, one_minus_decay, executes)

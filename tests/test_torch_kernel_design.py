@@ -267,6 +267,17 @@ def test_basis_ctypes_signatures_match_the_c_entry_points(name, n_ptr, n_int,
      "bwd_centers_kernel"),
     ("st_slabs::centers_sum_kernel(float const*, float*, float*, int, int)",
      "centers_sum_kernel"),
+    ("(anonymous namespace)::lane_clip_sumsq_kernel((anonymous namespace)::"
+     "Leaves, float*, int, int)", "lane_clip_sumsq_kernel"),
+    ("(anonymous namespace)::lane_clip_scale_kernel((anonymous namespace)::"
+     "Leaves, (anonymous namespace)::ClipGroups, float const*, int)",
+     "lane_clip_scale_kernel"),
+    ("(anonymous namespace)::lane_adamw_kernel((anonymous namespace)::Leaves, "
+     "(anonymous namespace)::Hyper, float const*, int, int, unsigned char "
+     "const*, int, int const*, int*)", "lane_adamw_kernel"),
+    ("(anonymous namespace)::lane_ema_kernel((anonymous namespace)::Leaves, "
+     "float const*, int, float const*, int, unsigned char const*, int)",
+     "lane_ema_kernel"),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::"
      "CUDAFunctor_add<float>>(int)", None),
     ("void (anonymous namespace)::elementwise_kernel_with_index<int, "
